@@ -1,0 +1,17 @@
+"""Device-resident prioritized sequence replay."""
+
+from r2d2dpg_torch.replay.arena import (
+    PROVENANCE_ABSENT,
+    ArenaState,
+    ReplayArena,
+    SampleResult,
+    SequenceBatch,
+)
+
+__all__ = [
+    "PROVENANCE_ABSENT",
+    "ArenaState",
+    "ReplayArena",
+    "SampleResult",
+    "SequenceBatch",
+]

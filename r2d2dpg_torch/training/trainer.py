@@ -1,0 +1,413 @@
+"""The phase-locked trainer: actor phase + learner phase on one device.
+
+Port of ``r2d2dpg_tpu/training/trainer.py``.  The static phase schedule is
+the same:
+
+  ``collect_phase``  env stepping + window shift only (warm-up);
+  ``fill_phase``     + sequence emission into the replay arena;
+  ``train_phase``    + K learner steps with prioritized sampling, IS
+                     weights, priority write-back (the CUDA kernel on a
+                     card), Polyak updates.
+
+The JAX program scans over env steps and learner steps inside one jitted
+phase; the port runs the same steps as Python loops over torch ops.  Every
+random draw goes through the state's draws object (``training/draws.py``).
+With ``param_sync_every == 0`` the actors act with the fresh learner params;
+K > 0 refreshes a behaviour snapshot every K phases.
+
+The pipelined ``prefetch`` branch of ``_learn_many`` waits for the
+pipelined executor's slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from r2d2dpg_torch.agents.ddpg import R2D2DPG, TrainState
+from r2d2dpg_torch.envs.core import Environment
+from r2d2dpg_torch.ops import (
+    anneal_beta,
+    gaussian_noise,
+    importance_weights,
+    ou_step,
+    sigma_ladder,
+)
+from r2d2dpg_torch.replay.arena import ArenaState, ReplayArena
+from r2d2dpg_torch.training.assembler import (
+    StepRecord,
+    emit,
+    init_window,
+    shift_in,
+    stack_steps,
+)
+from r2d2dpg_torch.training.draws import Draws
+
+Metrics = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    """Static orchestration hyperparameters (same fields as the JAX package,
+    less ``overlap_learner``, which belongs to the host-pool trainers)."""
+
+    num_envs: int = 64
+    stride: int = 20  # env steps per phase == emission stride
+    learner_steps: int = 1  # learner updates per phase
+    batch_size: int = 64
+    capacity: int = 100_000
+    prioritized: bool = True
+    priority_alpha: float = 0.6
+    beta0: float = 0.4
+    beta_steps: int = 100_000
+    min_replay: int = 1_000  # sequences before training starts
+    sigma_max: float = 0.4
+    ladder_alpha: float = 7.0
+    ladder_kind: str = "geometric"
+    noise: str = "gaussian"  # "gaussian" | "ou" | "none"
+    param_sync_every: int = 0  # 0 = always-fresh behavior params
+    initial_priority: str = "td"  # "td" | "max"
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerState:
+    """Everything the training loop threads through phases.
+
+    The arena's buffers are updated in place (``replay/arena.py``); every
+    other field is replaced, never mutated.
+    """
+
+    env_state: Any  # batched env state [E, ...]
+    obs: torch.Tensor  # [E, obs]
+    reset: torch.Tensor  # [E] — 1 where obs starts a new episode
+    actor_carry: Any
+    critic_carry: Any
+    noise_state: torch.Tensor  # [E, A] (OU process state; zeros for gaussian)
+    window: StepRecord
+    arena: ArenaState
+    train: TrainState
+    behavior_params: Any  # stale actor params (== train.actor_params when fresh)
+    draws: Any  # Draws, or a test's ReplayDraws
+    phase_idx: int
+    env_steps: int
+    episode_return: torch.Tensor  # [E] running returns
+    completed_return_sum: torch.Tensor  # 0-dim
+    completed_count: torch.Tensor  # 0-dim
+
+
+class Trainer:
+    """Phase functions for (env, agent, config) on one device."""
+
+    def __init__(
+        self,
+        env: Environment,
+        agent: R2D2DPG,
+        config: TrainerConfig,
+        device: torch.device,
+    ):
+        if config.noise not in ("gaussian", "ou", "none"):
+            raise ValueError(f"unknown noise {config.noise!r}")
+        self.env = env
+        self.agent = agent
+        self.config = config
+        self.device = device
+        self.seq_len = agent.config.seq_len
+        self.arena = ReplayArena(
+            config.capacity,
+            prioritized=config.prioritized,
+            alpha=config.priority_alpha,
+        )
+        self.sigmas = sigma_ladder(
+            config.num_envs,
+            sigma_max=config.sigma_max,
+            alpha=config.ladder_alpha,
+            kind=config.ladder_kind,
+            device=device,
+        )
+
+    # ------------------------------------------------------------------ init
+    def init(self, draws=None) -> TrainerState:
+        cfg = self.config
+        draws = Draws(cfg.seed, self.device) if draws is None else draws
+        env_state, ts = self.env.reset(cfg.num_envs, draws)
+        e, a_dim = cfg.num_envs, self.env.spec.action_dim
+        # Params are initialized on the CPU from the seed, then moved, so a
+        # seed means the same nets on every device.
+        train = self.agent.init(
+            torch.Generator().manual_seed(cfg.seed), self.device
+        )
+        example_action = torch.zeros(e, a_dim, device=self.device)
+        actor_carry = self.agent.actor.initial_carry(e, self.device)
+        critic_carry = self.agent.critic.initial_carry(e, self.device)
+        record = StepRecord(
+            obs=ts.obs,
+            action=example_action,
+            reward=ts.reward,
+            discount=ts.discount,
+            reset=ts.reset,
+            carries={"actor": actor_carry, "critic": critic_carry},
+        )
+        window = init_window(record, self.seq_len)
+        arena_state = self.arena.init_state(emit(window))
+        zero = torch.zeros((), device=self.device)
+        return TrainerState(
+            env_state=env_state,
+            obs=ts.obs,
+            reset=ts.reset,
+            actor_carry=actor_carry,
+            critic_carry=critic_carry,
+            noise_state=torch.zeros(e, a_dim, device=self.device),
+            window=window,
+            arena=arena_state,
+            train=train,
+            behavior_params={k: v.clone() for k, v in train.actor_params.items()},
+            draws=draws,
+            phase_idx=0,
+            env_steps=0,
+            episode_return=torch.zeros(e, device=self.device),
+            completed_return_sum=zero,
+            completed_count=zero.clone(),
+        )
+
+    # --------------------------------------------------------- phase pieces
+    def _behavior_params(self, state: TrainerState):
+        k = self.config.param_sync_every
+        if k == 0 or state.phase_idx % k == 0:
+            return state.train.actor_params
+        return state.behavior_params
+
+    @torch.no_grad()
+    def _policy_step(
+        self, behavior, critic_params, obs, reset, a_carry, c_carry, noise_st, draws
+    ):
+        """One fleet-wide policy step: action + noise + clip + carry advance."""
+        cfg = self.config
+        agent = self.agent
+        action, a_carry = agent.actor.apply_params(behavior, obs, a_carry, reset)
+        if cfg.noise == "gaussian":
+            action = action + gaussian_noise(
+                action, self.sigmas, normal=draws.normal(action.shape)
+            )
+        elif cfg.noise == "ou":
+            noise_st = torch.where(reset[:, None] > 0, 0.0, noise_st)
+            noise_st = ou_step(
+                noise_st, self.sigmas, normal=draws.normal(noise_st.shape)
+            )
+            action = action + noise_st
+        action = action.clamp(-1.0, 1.0)
+        _, c_carry = agent.critic.apply_params(
+            critic_params, obs, action, c_carry, reset
+        )
+        return action, a_carry, c_carry, noise_st
+
+    @torch.no_grad()
+    def _collect(self, state: TrainerState) -> TrainerState:
+        """``stride`` env steps of every lane: policy, noise, env, bookkeeping."""
+        cfg = self.config
+        behavior = self._behavior_params(state)
+        critic_params = state.train.critic_params
+        draws = state.draws
+        env_state, obs, reset = state.env_state, state.obs, state.reset
+        a_carry, c_carry = state.actor_carry, state.critic_carry
+        noise_st, ep_ret = state.noise_state, state.episode_return
+        records, comp_sum, comp_cnt = [], [], []
+        for _ in range(cfg.stride):
+            pre_carries = {"actor": a_carry, "critic": c_carry}
+            action, a_carry, c_carry, noise_st = self._policy_step(
+                behavior, critic_params, obs, reset, a_carry, c_carry,
+                noise_st, draws,
+            )
+            env_state, ts = self.env.step(env_state, action, draws)
+            records.append(
+                StepRecord(
+                    obs=obs,
+                    action=action,
+                    reward=ts.reward,
+                    discount=ts.discount,
+                    reset=reset,
+                    carries=pre_carries,
+                )
+            )
+            ep_ret = ep_ret + ts.reward
+            done = ts.reset > 0
+            comp_sum.append(torch.where(done, ep_ret, 0.0).sum())
+            comp_cnt.append(done.sum())
+            ep_ret = torch.where(done, 0.0, ep_ret)
+            obs, reset = ts.obs, ts.reset
+        return dataclasses.replace(
+            state,
+            env_state=env_state,
+            obs=obs,
+            reset=reset,
+            actor_carry=a_carry,
+            critic_carry=c_carry,
+            noise_state=noise_st,
+            env_steps=state.env_steps + cfg.stride * cfg.num_envs,
+            episode_return=ep_ret,
+            completed_return_sum=state.completed_return_sum
+            + torch.stack(comp_sum).sum(),
+            completed_count=state.completed_count
+            + torch.stack(comp_cnt).sum().to(torch.float32),
+            window=shift_in(state.window, stack_steps(records)),
+            phase_idx=state.phase_idx + 1,
+        )
+
+    def _initial_priorities(self, train, arena, seq) -> torch.Tensor:
+        """Entry priority for B fresh sequences: td | max | uniform ones."""
+        cfg = self.config
+        if cfg.initial_priority == "td" and cfg.prioritized:
+            return self.agent.initial_priority(train, seq)
+        if cfg.prioritized:
+            return arena.priority.max().clamp_min(1.0).expand(cfg.num_envs).clone()
+        return torch.ones(cfg.num_envs, device=self.device)
+
+    def _emit_and_add(self, state: TrainerState) -> TrainerState:
+        """Emit the window as one sequence per env and add with priority."""
+        seq = emit(state.window)
+        prios = self._initial_priorities(state.train, state.arena, seq)
+        # The live nets collected this window: both meta columns carry the
+        # current learner step (behaviour version and entry stamp coincide).
+        meta = torch.full(
+            (prios.shape[0], 2), state.train.step, dtype=torch.int32,
+            device=self.device,
+        )
+        self.arena.add(state.arena, seq, prios, meta=meta)
+        return state
+
+    def _update_step(self, train, arena, res) -> Tuple[TrainState, ArenaState, Metrics]:
+        """IS weights -> gradient update -> priority write-back on a sampled batch."""
+        cfg = self.config
+        if cfg.prioritized:
+            beta = anneal_beta(train.step, beta0=cfg.beta0, steps=cfg.beta_steps)
+            w = importance_weights(res.probs, self.arena.size(arena), beta=beta)
+        else:
+            w = torch.ones(cfg.batch_size, device=self.device)
+        train, prios, metrics = self.agent.learner_step(train, res.batch, w)
+        if cfg.prioritized:
+            arena = self.arena.update_priorities(arena, res.indices, prios)
+        # Experience-quality metrics: ESS fraction of the IS weights, share of
+        # weights at the normalized ceiling, mean replay age in learner steps.
+        inv = 1.0 / res.probs.clamp_min(1e-12)
+        metrics = dict(metrics)
+        metrics["quality_ess_frac"] = inv.sum() ** 2 / (
+            res.probs.shape[0] * inv.square().sum()
+        )
+        metrics["quality_is_saturation"] = (w >= 1.0 - 1e-9).float().mean()
+        entry = arena.meta[res.indices, 1]
+        armed = entry >= 0
+        age = torch.where(armed, (train.step - entry).clamp_min(0), 0)
+        metrics["quality_replay_age"] = (
+            age.sum().float() / armed.sum().clamp_min(1).float()
+        )
+        return train, arena, metrics
+
+    def _learn_step(self, train, arena, draws):
+        """ONE learner update: sample -> IS weights -> update -> write-back."""
+        res = self.arena.sample(
+            arena,
+            self.config.batch_size,
+            uniforms=draws.uniform((self.config.batch_size,)),
+        )
+        return self._update_step(train, arena, res)
+
+    def _learn_many(
+        self, train, arena, draws
+    ) -> Tuple[TrainState, ArenaState, Metrics]:
+        """K learner updates; metrics are the mean over the K steps."""
+        steps = []
+        for _ in range(self.config.learner_steps):
+            train, arena, m = self._learn_step(train, arena, draws)
+            steps.append(m)
+        metrics = {k: torch.stack([m[k] for m in steps]).mean() for k in steps[0]}
+        return train, arena, metrics
+
+    def _learn(self, state: TrainerState) -> Tuple[TrainerState, Metrics]:
+        train, arena, metrics = self._learn_many(state.train, state.arena, state.draws)
+        return dataclasses.replace(state, train=train, arena=arena), metrics
+
+    # -------------------------------------------------------------- phases
+    def collect_phase(self, state: TrainerState) -> TrainerState:
+        return self._collect(state)
+
+    def fill_phase(self, state: TrainerState) -> TrainerState:
+        return self._emit_and_add(self._collect(state))
+
+    def train_phase(self, state: TrainerState) -> Tuple[TrainerState, Metrics]:
+        if self.config.param_sync_every > 0:
+            # Persist the snapshot BEFORE collecting (phase_idx is still this
+            # phase's index), so the params _collect acts with are carried
+            # forward until the next sync phase.
+            state = dataclasses.replace(
+                state, behavior_params=self._behavior_params(state)
+            )
+        state = self._collect(state)
+        state = self._emit_and_add(state)
+        return self._learn(state)
+
+    # ------------------------------------------------------------ schedule
+    @property
+    def window_fill_phases(self) -> int:
+        """Phases needed before the window holds seq_len real steps."""
+        return -(-self.seq_len // self.config.stride)
+
+    @property
+    def replay_fill_phases(self) -> int:
+        """Additional phases to reach min_replay sequences."""
+        return -(-self.config.min_replay // self.config.num_envs)
+
+    def pop_episode_metrics(
+        self, state: TrainerState
+    ) -> Tuple[TrainerState, Dict[str, float]]:
+        """Drain the completed-episode accumulators (one host fetch)."""
+        count, ret_sum = torch.stack(
+            [state.completed_count, state.completed_return_sum]
+        ).tolist()
+        metrics = {
+            "episode_return_mean": ret_sum / max(count, 1.0),
+            "episodes": count,
+            "env_steps": float(state.env_steps),
+        }
+        zero = torch.zeros((), device=self.device)
+        state = dataclasses.replace(
+            state, completed_return_sum=zero, completed_count=zero.clone()
+        )
+        return state, metrics
+
+    # ----------------------------------------------------------- main loop
+    def run(
+        self,
+        num_phases: int,
+        state: Optional[TrainerState] = None,
+        log_every: int = 50,
+        log_fn=print,
+    ) -> TrainerState:
+        """Drive the static phase schedule (warm-up -> fill -> train)."""
+        state = self.init() if state is None else state
+        warm, fill = self.window_fill_phases, self.replay_fill_phases
+        last_metrics: Metrics = {}
+        for phase in range(num_phases):
+            if phase < warm:
+                state = self.collect_phase(state)
+            elif phase < warm + fill:
+                state = self.fill_phase(state)
+            else:
+                state, last_metrics = self.train_phase(state)
+            if log_every and (phase + 1) % log_every == 0:
+                state, ep = self.pop_episode_metrics(state)
+                names = list(last_metrics)
+                values = (
+                    torch.stack([last_metrics[k] for k in names]).tolist()
+                    if names
+                    else []
+                )
+                log_fn(
+                    f"phase {phase + 1}/{num_phases} "
+                    f"env_steps {int(ep['env_steps'])} "
+                    f"return {ep['episode_return_mean']:.1f} "
+                    f"({int(ep['episodes'])} eps) "
+                    + " ".join(f"{k} {v:.3g}" for k, v in zip(names, values))
+                )
+        return state
