@@ -9,19 +9,27 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
 1. the card's name and power limit, as nvidia-smi reports them;
 2. build every CUDA kernel of the port from ``r2d2dpg_torch/csrc/``;
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes plus edge cases (bitwise), and its time per launch beside
-   the plain version's and one PyTorch library call's;
-4. the learner step at the walker_r2d2 shapes the headline benchmark
+   path's shapes plus edge cases (bitwise): for the scatter, duplicates
+   inside a warp and across warps, every index the same, every index out
+   of range, B from 1 to 8,192 (blocks of 1,024 threads past 1,024);
+   its time per launch
+   beside the plain version's, ``index_put_``'s (also under
+   ``torch.use_deterministic_algorithms``) and an empty kernel's launched
+   the same way (the launch floor);
+4. one ``ReplayArena.update_priorities`` call captured in a CUDA graph and
+   replayed on fresh inputs, bitwise against the plain version (a launch
+   count sees the capture, not the replays, so no count is read there);
+5. the learner step at the walker_r2d2 shapes the headline benchmark
    measures (hidden 256, obs 24, act 6, batch 64, seq 43, capacity 100k,
    4,096 resident sequences): >= 100 steps of sample -> learner_step ->
    update_priorities, metrics finite, one kernel launch per step;
-5. the port's learner on the card against the same learner on the CPU at
+6. the port's learner on the card against the same learner on the CPU at
    pendulum_tiny shapes (the CPU path is the one held to the JAX reference
    by tests/test_torch_*.py);
-6. the main path through its entry point: ``r2d2dpg_torch.train.main`` on
+7. the main path through its entry point: ``r2d2dpg_torch.train.main`` on
    ``pendulum_r2d2`` (warm-up 4 + replay fill 50 + 10 train phases), with
    every launch count set to 0 just before and read just after;
-7. one JSON line per kernel summary, then the last line
+8. one JSON line per kernel summary, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``r2d2dpg_tpu``.  Without a card,
@@ -42,22 +50,29 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory rate
 
 
-def _timed_ms(fn, n):
-    """Median ms per call over ``n`` calls, each bracketed by CUDA events."""
+def _event_ms(fns, n):
+    """Median ms per call of each of ``fns`` (name -> fn) by CUDA events.
+
+    Each call is bracketed by its own pair of events, and the functions take
+    turns within every round, so all of them see the same host conditions.
+    """
     import torch
 
-    fn()  # warm-up
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    for fn in fns.values():  # warm-up
         fn()
-        end.record()
-        pairs.append((start, end))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+    pairs = {name: [] for name in fns}
+    for _ in range(n):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs[name].append((start, end))
+    torch.cuda.synchronize()
+    return {name: statistics.median(s.elapsed_time(e) for s, e in p)
+            for name, p in pairs.items()}
 
 
 def _device_profile(fn, n):
@@ -96,59 +111,172 @@ def _card_line():
     return out, name, limit
 
 
+@contextlib.contextmanager
+def _deterministic(torch, on):
+    """``torch.use_deterministic_algorithms(on)`` inside, restored after."""
+    prev = torch.are_deterministic_algorithms_enabled()
+    prev_warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(on)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev, warn_only=prev_warn)
+
+
 def _scatter_phase(torch, dev):
-    """Kernel vs plain on the card; times at the main path's shapes."""
-    from r2d2dpg_torch.ops.scatter import priority_scatter, priority_scatter_plain
+    """Kernel vs plain on the card (bitwise); times at the main path's shapes."""
+    from r2d2dpg_torch.kernels import PRIORITY_SCATTER
+    from r2d2dpg_torch.ops.scatter import (
+        _LAUNCH_RECORD,
+        priority_scatter,
+        priority_scatter_plain,
+    )
+    from r2d2dpg_torch.testing import SCATTER_PATTERNS, scatter_case
 
-    g = torch.Generator(device=dev).manual_seed(0)
+    def on_card(case):
+        return tuple(torch.from_numpy(a).to(dev) for a in case)
+
+    # The learner's shapes with forced duplicates and out-of-range indices,
+    # then every pattern at batch sizes that cover one lane, ragged and whole
+    # warps, one block of 1,024 threads and several blocks past it.
+    grid = [("mixed", c, b) for c in (100_000, 50_000, 300) for b in (64, 256)]
+    grid += [(p, 100_000, b) for p in SCATTER_PATTERNS
+             for b in (1, 31, 32, 33, 64, 65, 100, 256, 1024, 1025, 4096, 8192)]
     cases = []
-    for capacity in (100_000, 50_000, 300):
-        for b in (64, 256):
-            prio = torch.rand(capacity, generator=g, device=dev) + 0.1
-            idx = torch.randint(0, capacity, (b,), generator=g, device=dev)
-            idx[b // 2] = idx[0]  # forced duplicates: the later one wins
-            idx[-1] = idx[1]
-            idx[2] = capacity + 7  # out of range: writes nothing
-            idx[3] = -1
-            vals = torch.rand(b, generator=g, device=dev) + 3.0
-            want = priority_scatter_plain(prio.clone(), idx, vals)
-            got = priority_scatter(prio.clone(), idx, vals)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"kernel != plain at capacity {capacity}, B {b}")
-            err = (got - want).abs().max().item()
-            cases.append({"capacity": capacity, "b": b, "max_abs_err": err})
+    library_matches = {"library": [], "library_deterministic": []}
+    for seed, (pattern, capacity, b) in enumerate(grid):
+        prio, idx, vals = on_card(scatter_case(pattern, capacity, b, seed))
+        want = priority_scatter_plain(prio.clone(), idx, vals)
+        got = priority_scatter(prio.clone(), idx, vals)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"kernel != plain: {pattern}, capacity {capacity}, B {b}")
+        err = (got - want).abs().max().item()
+        cases.append({"pattern": pattern, "capacity": capacity, "b": b,
+                      "max_abs_err": err})
+        # index_put_ does not promise which duplicate wins: record whether
+        # it happened to agree (in-range indices only; it faults on others).
+        if pattern in ("mixed", "repeat", "all_same"):
+            keep = (idx >= 0) & (idx < capacity)
+            idx_in, vals_in = idx[keep], vals[keep]
+            for name, det in (("library", False), ("library_deterministic", True)):
+                with _deterministic(torch, det):
+                    lib = prio.clone().index_put_((idx_in,), vals_in)
+                    torch.cuda.synchronize()
+                library_matches[name].append(bool(torch.equal(lib, want)))
     print(json.dumps({"priority_scatter_cases": cases}), flush=True)
+    matches = {k: {"matched": sum(v), "cases": len(v)} for k, v in library_matches.items()}
+    print(json.dumps({"index_put_matches_plain_on_duplicates": matches}), flush=True)
 
-    # Timing at the learner's shapes: B = 64 sampled (in-range, duplicates
+    # Launch floor: an empty kernel through the same route (a packed launch
+    # record, one ctypes call), without the wrapper's checks.
+    floor_fn = PRIORITY_SCATTER.function("launch_floor")
+
+    def launch_floor():
+        stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+        if floor_fn(_LAUNCH_RECORD.pack(0, 0, 0, 0, 0, 0, 0, stream)) != 0:
+            raise RuntimeError("launch_floor kernel launch failed")
+
+    def device_ms(fn, n):
+        # Device time (CUPTI) is the kernel's own time; None if not traced.
+        ms, top = _device_profile(fn, n)
+        return ms, [name for name, _ in top]
+
+    floor_ms, _ = device_ms(launch_floor, 500)
+
+    # Timing at the learner's shapes: B sampled (in-range, duplicates
     # allowed) slots of the walker (100k) and pendulum_r2d2 (50k) arenas.
+    # The CUDA-event time per call also holds the host's launch gap; the
+    # kernel, index_put_ and the launch floor take turns for it.
+    g = torch.Generator(device=dev).manual_seed(0)
     timings = []
-    for capacity in (100_000, 50_000):
+    for capacity, b in ((100_000, 64), (50_000, 64), (100_000, 256)):
         prio = torch.rand(capacity, generator=g, device=dev) + 0.1
-        idx = torch.randint(0, capacity, (64,), generator=g, device=dev)
-        vals = torch.rand(64, generator=g, device=dev)
-        fns = {
-            "kernel": (lambda: priority_scatter(prio, idx, vals), 200),
-            "plain": (lambda: priority_scatter_plain(prio, idx, vals), 20),
-            "library": (lambda: prio.index_put_((idx,), vals), 200),
-        }
-        rec = {"capacity": capacity, "b": 64}
-        for name, (fn, n) in fns.items():
-            # Device time (CUPTI) is the kernel's own time; the CUDA-event
-            # time per call also holds the host's launch gap.
-            device_ms, _ = _device_profile(fn, n)
-            wall_ms = _timed_ms(fn, n)
-            rec[f"{name}_ms"] = wall_ms if device_ms is None else device_ms
-            rec[f"{name}_timing"] = "events" if device_ms is None else "profiler"
-            rec[f"{name}_event_ms"] = wall_ms
+        idx = torch.randint(0, capacity, (b,), generator=g, device=dev)
+        vals = torch.rand(b, generator=g, device=dev)
+
+        def kernel():
+            priority_scatter(prio, idx, vals)
+
+        def plain():
+            priority_scatter_plain(prio, idx, vals)
+
+        def library():
+            prio.index_put_((idx,), vals)
+
+        rec = {"capacity": capacity, "b": b, "launch_floor_ms": floor_ms}
+        for name, fn, n, det in (("kernel", kernel, 500, False),
+                                 ("plain", plain, 20, False),
+                                 ("library", library, 500, False),
+                                 ("library_deterministic", library, 500, True)):
+            with _deterministic(torch, det):
+                rec[f"{name}_ms"], kernels = device_ms(fn, n)
+            if name.startswith("library"):
+                rec[f"{name}_device_kernels"] = kernels
+        events = _event_ms(
+            {"kernel": kernel, "library": library, "launch_floor": launch_floor}, 500)
+        events["plain"] = _event_ms({"plain": plain}, 20)["plain"]
+        with _deterministic(torch, True):
+            events["library_deterministic"] = _event_ms({"x": library}, 500)["x"]
+        for name, ms in events.items():
+            rec[f"{name}_event_ms"] = ms
+        for name in ("kernel", "plain", "library", "library_deterministic"):
+            if rec[f"{name}_ms"] is None:  # the profiler saw no device time
+                rec[f"{name}_ms"] = rec[f"{name}_event_ms"]
+                rec[f"{name}_timing"] = "events"
+            else:
+                rec[f"{name}_timing"] = "profiler"
         winners = torch.unique(idx).numel()
         # bytes the function must move: each index (8 B) and value (4 B) read
         # once, each winning slot (4 B) written once.
         nbytes = 12 * idx.numel() + 4 * winners
-        rec.update(bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        rec.update(bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   kernel_over_library=rec["kernel_ms"] / rec["library_ms"],
+                   event_kernel_over_library=(
+                       rec["kernel_event_ms"] / rec["library_event_ms"]))
         timings.append(rec)
     print(json.dumps({"priority_scatter_timing": timings}), flush=True)
     return max(c["max_abs_err"] for c in cases), timings[0]
+
+
+def _graph_phase(torch, dev, capacity=100_000, batch=64):
+    """One ``ReplayArena.update_priorities`` call captured in a CUDA graph.
+
+    Replayed on fresh sampled indices (one forced duplicate) and priorities
+    (some below ``PRIORITY_EPS``) copied into the captured buffers; each
+    replay must equal the plain version bitwise.
+    """
+    from r2d2dpg_torch.ops.priority import PRIORITY_EPS
+    from r2d2dpg_torch.ops.scatter import priority_scatter_plain
+    from r2d2dpg_torch.replay import ReplayArena, SequenceBatch
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    z = torch.zeros(capacity, 1, device=dev)
+    example = SequenceBatch(obs=z, action=z, reward=z, discount=z, reset=z, carries={})
+    arena = ReplayArena(capacity, prioritized=True)
+    state = arena.init_state(example)
+    arena.add(state, example, torch.rand(capacity, generator=g, device=dev) + 0.5)
+    idx_buf = arena.sample(state, batch, generator=g).indices.clone()
+    prio_buf = torch.rand(batch, generator=g, device=dev)
+    arena.update_priorities(state, idx_buf, prio_buf)  # load the kernel first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        arena.update_priorities(state, idx_buf, prio_buf)
+    replays = 3
+    for _ in range(replays):
+        idx_buf.copy_(arena.sample(state, batch, generator=g).indices)
+        idx_buf[-1] = idx_buf[0]
+        prio_buf.copy_(torch.rand(batch, generator=g, device=dev) * 2 - 0.5)
+        before = state.priority.clone()
+        graph.replay()
+        want = priority_scatter_plain(before, idx_buf, prio_buf.clamp_min(PRIORITY_EPS))
+        torch.cuda.synchronize()
+        if not torch.equal(state.priority, want):
+            raise AssertionError("CUDA graph replay of update_priorities != plain")
+    print(json.dumps({"update_priorities_cuda_graph": {
+        "capacity": capacity, "b": batch, "replays": replays, "bitwise_equal": True,
+    }}), flush=True)
 
 
 def _walker_learner_phase(torch, dev, steps=120, warmup=10):
@@ -382,6 +510,7 @@ def main() -> int:
     print(json.dumps({"build_seconds": time.perf_counter() - t0}), flush=True)
 
     max_err, t = _scatter_phase(torch, dev)
+    _graph_phase(torch, dev)
     _walker_learner_phase(torch, dev)
     _cuda_vs_cpu_phase(torch, dev)
     launches = _trainer_phase(torch, dev)
@@ -401,8 +530,13 @@ def main() -> int:
         "timing": t["kernel_timing"],
         "launch_event_ms": t["kernel_event_ms"],
         "kernel_us": t["kernel_ms"] * 1e3,
+        "launch_floor_us": (
+            None if t["launch_floor_ms"] is None else t["launch_floor_ms"] * 1e3),
+        "launch_floor_event_us": t["launch_floor_event_ms"] * 1e3,
         "plain_us": t["plain_ms"] * 1e3,
         "library_us": t["library_ms"] * 1e3,
+        "library_deterministic_us": t["library_deterministic_ms"] * 1e3,
+        "library_event_us": t["library_event_ms"] * 1e3,
         "card": card_name,
         "power_limit": power_limit,
     }]}

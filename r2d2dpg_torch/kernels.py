@@ -10,7 +10,8 @@ as ``chip_smoke.py`` builds every kernel up front with ``build_all``.
 
 Each ``Kernel`` keeps a plain launch count that its wrapper increments
 where it launches, so a run can show that its main path went through the
-kernel.
+kernel.  It counts launches from the host: a launch recorded into a CUDA
+graph counts once, and the graph's replays do not count.
 """
 
 from __future__ import annotations
@@ -45,13 +46,16 @@ def _nvcc() -> str:
 class Kernel:
     """One CUDA source, its built library, and its launch count."""
 
-    def __init__(self, name: str, signatures: Dict[str, tuple]):
+    def __init__(
+        self, name: str, signatures: Dict[str, tuple], source: Optional[Path] = None
+    ):
         self.name = name
-        self.source = CSRC / f"{name}.cu"
+        self.source = CSRC / f"{name}.cu" if source is None else source
         # C function name -> (restype, argtypes) for ctypes.
         self.signatures = signatures
         self.launches = 0
         self._lib: Optional[ctypes.CDLL] = None
+        self._functions: Optional[Dict[str, ctypes._CFuncPtr]] = None
 
     @property
     def library_path(self) -> Path:
@@ -65,11 +69,19 @@ class Kernel:
         if self._lib is None:
             build_all([self])
             lib = ctypes.CDLL(str(self.library_path))
+            functions = {}
             for fn, (restype, argtypes) in self.signatures.items():
-                getattr(lib, fn).restype = restype
-                getattr(lib, fn).argtypes = list(argtypes)
-            self._lib = lib
+                functions[fn] = getattr(lib, fn)
+                functions[fn].restype = restype
+                functions[fn].argtypes = list(argtypes)
+            self._lib, self._functions = lib, functions
         return self._lib
+
+    def function(self, name: str) -> ctypes._CFuncPtr:
+        """The bound C function ``name``, bound once when the library loads."""
+        if self._functions is None:
+            self.library()
+        return self._functions[name]
 
 
 def build_all(kernels: Sequence[Kernel]) -> List[Path]:
@@ -97,17 +109,9 @@ def build_all(kernels: Sequence[Kernel]) -> List[Path]:
 PRIORITY_SCATTER = Kernel(
     "priority_scatter",
     {
-        "priority_scatter_f32": (
-            ctypes.c_int,
-            (
-                ctypes.c_void_p,  # float* priority
-                ctypes.c_int64,  # capacity
-                ctypes.c_void_p,  # const int64_t* indices
-                ctypes.c_void_p,  # const float* values
-                ctypes.c_int,  # b
-                ctypes.c_void_p,  # cudaStream_t
-            ),
-        )
+        # Each takes one packed launch record (ops/scatter.py::_LAUNCH_RECORD).
+        "priority_scatter_f32": (ctypes.c_int, (ctypes.c_char_p,)),
+        "launch_floor": (ctypes.c_int, (ctypes.c_char_p,)),
     },
 )
 

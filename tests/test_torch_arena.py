@@ -5,8 +5,13 @@
   must pick the same slots (probabilities to rtol 1e-6).
 - The scatter's plain version against the Pallas kernel run by the Pallas
   interpreter (``_pallas_scatter(..., interpret=True)``), with duplicate
-  indices, a capacity that is not a multiple of 128 and out-of-range
-  indices.  That comparison is exact: both only copy values.
+  indices inside one warp and across warps of the CUDA kernel's block, every
+  index the same, every index out of range, batches that are not a multiple
+  of 32 and capacities that are not a multiple of 128
+  (``r2d2dpg_torch.testing.scatter_case``).  That comparison is exact: both
+  only copy values.
+- The kernel's launch shape and its batch and capacity limits, which the
+  wrapper computes and checks in Python on every device.
 """
 
 import jax
@@ -19,8 +24,15 @@ from r2d2dpg_tpu.ops.pallas.scatter import _pallas_scatter
 from r2d2dpg_tpu.replay.arena import ReplayArena as JArena
 from r2d2dpg_tpu.replay.arena import SequenceBatch as JBatch
 from r2d2dpg_torch.convert import sequence_batch_from_jax
-from r2d2dpg_torch.ops.scatter import priority_scatter
+from r2d2dpg_torch.ops.scatter import (
+    MAX_BATCH,
+    MAX_CAPACITY,
+    MAX_THREADS,
+    _launch_shape,
+    priority_scatter,
+)
 from r2d2dpg_torch.replay import ReplayArena
+from r2d2dpg_torch.testing import scatter_case
 
 L, OBS, ACT, HID = 6, 3, 2, 4
 
@@ -97,21 +109,28 @@ def test_uniform_sampling_stays_in_the_valid_prefix():
     assert res.batch.obs.shape == (512, L, OBS)
 
 
-def _scatter_case(capacity, b, seed):
-    rng = np.random.default_rng(seed)
-    prio = rng.uniform(0.1, 2.0, capacity).astype(np.float32)
-    idx = rng.integers(0, capacity, b).astype(np.int64)
-    idx[b // 2] = idx[0]  # forced duplicates: later one must win
-    idx[-1] = idx[1]
-    idx[2] = capacity + 5  # out of range: writes nothing
-    idx[3] = -1
-    vals = rng.uniform(3.0, 9.0, b).astype(np.float32)
-    return prio, idx, vals
+_SCATTER_CASES = [
+    # (capacity, b, pattern); the first four keep their original ids.
+    pytest.param(300, 64, "mixed", id="300-64"),
+    pytest.param(300, 256, "mixed", id="300-256"),
+    pytest.param(8, 8, "mixed", id="8-8"),
+    pytest.param(1024, 64, "mixed", id="1024-64"),
+    # one slot at j = 0, 31, 32, 95, 255: within a warp and across warps
+    pytest.param(300, 256, "repeat", id="repeat-300-256"),
+    pytest.param(1024, 100, "repeat", id="repeat-1024-100"),
+    pytest.param(300, 64, "all_same", id="all_same-300-64"),
+    pytest.param(300, 33, "all_same", id="all_same-300-33"),
+    pytest.param(300, 64, "out_of_range", id="out_of_range-300-64"),
+    pytest.param(1024, 33, "out_of_range", id="out_of_range-1024-33"),
+    # B not a multiple of 32: the kernel's ragged last warp
+    pytest.param(300, 33, "mixed", id="mixed-300-33"),
+    pytest.param(1024, 100, "mixed", id="mixed-1024-100"),
+]
 
 
-@pytest.mark.parametrize("capacity,b", [(300, 64), (300, 256), (8, 8), (1024, 64)])
-def test_scatter_plain_matches_pallas_kernel_exactly(capacity, b):
-    prio, idx, vals = _scatter_case(capacity, b, seed=capacity + b)
+@pytest.mark.parametrize("capacity,b,pattern", _SCATTER_CASES)
+def test_scatter_plain_matches_pallas_kernel_exactly(capacity, b, pattern):
+    prio, idx, vals = scatter_case(pattern, capacity, b, seed=capacity + b)
     want = _pallas_scatter(
         jnp.asarray(prio), jnp.asarray(idx.astype(np.int32)), jnp.asarray(vals),
         interpret=True,
@@ -121,7 +140,54 @@ def test_scatter_plain_matches_pallas_kernel_exactly(capacity, b):
     assert out is got  # in place
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     # last write wins, out-of-range skipped
-    assert got[idx[0]] == vals[b // 2] and got[idx[1]] == vals[-1]
+    last = {int(s): j for j, s in enumerate(idx) if 0 <= s < capacity}
+    for slot, j in last.items():
+        assert got[slot] == vals[j]
+    if pattern == "out_of_range":
+        np.testing.assert_array_equal(got.numpy(), prio)
+
+
+@pytest.mark.parametrize(
+    "b,blocks,threads",
+    [(1, 1, 32), (31, 1, 32), (32, 1, 32), (33, 1, 64), (64, 1, 64), (65, 1, 96),
+     (256, 1, 256), (1024, 1, 1024), (1025, 2, 1024), (4096, 4, 1024)],
+)
+def test_launch_shape_sizes_one_block_to_the_batch(b, blocks, threads):
+    # Whole warps, one update a thread; one block up to 1,024 updates, then
+    # blocks of 1,024.
+    assert threads % 32 == 0 and threads <= MAX_THREADS
+    assert (blocks - 1) * threads < b <= blocks * threads
+    assert _launch_shape(b) == (blocks, threads)
+
+
+def test_scatter_batch_limit_raises_value_error():
+    # The kernel counts updates in 32-bit ints; meta tensors stand in for
+    # batches of 16 GB of indices.
+    assert MAX_BATCH + MAX_THREADS < 2**31
+    p = torch.empty(10, device="meta")
+    for n, error in ((MAX_BATCH + 1, "32-bit ints"), (MAX_BATCH, "unsupported device")):
+        with pytest.raises(ValueError, match=error):
+            priority_scatter(
+                p, torch.zeros(n, dtype=torch.int64, device="meta"),
+                torch.zeros(n, device="meta"),
+            )
+    # Far below the limit it runs; slot k keeps the last j with j % 10 == k.
+    p = torch.zeros(10)
+    j = np.arange(8192)
+    priority_scatter(p, torch.from_numpy(j % 10), torch.from_numpy(j.astype(np.float32)))
+    want = np.array([j[j % 10 == k].max() for k in range(10)], np.float32)
+    np.testing.assert_array_equal(p.numpy(), want)
+
+
+def test_scatter_capacity_limit_raises_value_error():
+    # The kernel compares 32-bit keys, as the JAX kernel's int32 indices; a
+    # meta tensor stands in for an 8 GB priority vector.
+    idx = torch.zeros(2, dtype=torch.int64, device="meta")
+    vals = torch.zeros(2, device="meta")
+    with pytest.raises(ValueError, match="32-bit"):
+        priority_scatter(torch.empty(MAX_CAPACITY + 1, device="meta"), idx, vals)
+    with pytest.raises(ValueError, match="unsupported device"):
+        priority_scatter(torch.empty(MAX_CAPACITY, device="meta"), idx, vals)
 
 
 def test_update_priorities_matches_jax_arena():
@@ -132,7 +198,7 @@ def test_update_priorities_matches_jax_arena():
     jstate = jarena.add(jarena.init_state(batch), batch, jnp.asarray(prios))
     tb = sequence_batch_from_jax(jax.device_get(batch))
     tstate = tarena.add(tarena.init_state(tb), tb, torch.from_numpy(prios))
-    _, idx, vals = _scatter_case(300, 64, seed=4)
+    _, idx, vals = scatter_case("mixed", 300, 64, seed=4)
     idx[2], idx[3] = 17, 18  # JAX's arena takes in-range slots only
     vals[5] = -1.0  # clamped to PRIORITY_EPS
     jstate = jarena.update_priorities(

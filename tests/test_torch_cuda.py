@@ -4,6 +4,11 @@ Marked ``cuda``; each test skips without a card.  This file imports no JAX,
 so it also runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Every comparison is bitwise: the scatter only copies values.  The batch
+sizes cover one lane, a ragged single warp, whole warps, a ragged last warp,
+one block of 1,024 threads, and several blocks past it (with a ragged last
+block).
 """
 
 import numpy as np
@@ -12,27 +17,64 @@ import torch
 
 from r2d2dpg_torch.kernels import PRIORITY_SCATTER
 from r2d2dpg_torch.ops.scatter import priority_scatter, priority_scatter_plain
+from r2d2dpg_torch.testing import SCATTER_PATTERNS, scatter_case
+
+BATCHES = (1, 31, 32, 33, 64, 65, 256, 1024, 1025, 4096, 8192)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("capacity,b", [(100_000, 64), (50_000, 256), (300, 64)])
-def test_priority_scatter_kernel_matches_plain_exactly(capacity, b):
+def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    rng = np.random.default_rng(b)
-    prio = rng.uniform(0.1, 2.0, capacity).astype(np.float32)
-    idx = rng.integers(0, capacity, b).astype(np.int64)
-    idx[b // 2] = idx[0]  # duplicates: the later one wins
-    idx[2] = capacity + 5  # out of range: writes nothing
-    idx[3] = -1
-    vals = rng.uniform(3.0, 9.0, b).astype(np.float32)
-    want = priority_scatter_plain(
+    return torch.device("cuda")
+
+
+def _plain(prio, idx, vals):
+    return priority_scatter_plain(
         torch.from_numpy(prio.copy()), torch.from_numpy(idx), torch.from_numpy(vals)
-    )
-    dev = torch.device("cuda")
+    ).numpy()
+
+
+def _kernel(prio, idx, vals, dev):
     got = torch.from_numpy(prio).to(dev)
     before = PRIORITY_SCATTER.launches
     priority_scatter(got, torch.from_numpy(idx).to(dev), torch.from_numpy(vals).to(dev))
     torch.cuda.synchronize()
     assert PRIORITY_SCATTER.launches == before + 1
-    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    return got.cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity,b", [(100_000, 64), (50_000, 256), (300, 64)])
+def test_priority_scatter_kernel_matches_plain_exactly(capacity, b):
+    dev = _card()
+    prio, idx, vals = scatter_case("mixed", capacity, b, seed=b)
+    np.testing.assert_array_equal(_kernel(prio, idx, vals, dev), _plain(prio, idx, vals))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", BATCHES)
+@pytest.mark.parametrize("pattern", SCATTER_PATTERNS)
+def test_priority_scatter_patterns_match_plain_exactly(pattern, b):
+    dev = _card()
+    prio, idx, vals = scatter_case(pattern, 100_000, b, seed=b)
+    np.testing.assert_array_equal(_kernel(prio, idx, vals, dev), _plain(prio, idx, vals))
+
+
+@pytest.mark.cuda
+def test_priority_scatter_replays_in_a_cuda_graph():
+    dev = _card()
+    capacity, b = 100_000, 64
+    prio, idx, vals = (torch.from_numpy(a).to(dev)
+                       for a in scatter_case("mixed", capacity, b, seed=1))
+    priority_scatter(prio.clone(), idx, vals)  # build and load before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        priority_scatter(prio, idx, vals)
+    for seed, pattern in enumerate(SCATTER_PATTERNS, start=2):
+        case = scatter_case(pattern, capacity, b, seed=seed)
+        for buf, a in zip((prio, idx, vals), case):
+            buf.copy_(torch.from_numpy(a))
+        graph.replay()
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(prio.cpu().numpy(), _plain(*case))
