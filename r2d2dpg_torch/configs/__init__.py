@@ -1,16 +1,20 @@
 """Named experiment configs of the port.
 
-Port of ``r2d2dpg_tpu/configs/__init__.py`` for the configs this slice runs:
-``pendulum_tiny``, ``pendulum_ddpg`` and ``pendulum_r2d2`` train end to
-end.  ``walker_r2d2`` carries its agent and trainer constants (the learner
-shapes the headline benchmark measures), but its DM-Control env waits for
-a later slice, so building it raises.
+Port of ``r2d2dpg_tpu/configs/__init__.py``, every config with the JAX
+constants: ``pendulum_tiny``, ``pendulum_ddpg`` and ``pendulum_r2d2`` train
+end to end.  ``walker_r2d2``, ``walker_r2d2_ns5``, ``humanoid_r2d2`` and
+``cheetah_pixels`` carry their agent, net and trainer constants, so
+``build_agent`` makes their learners at the published shapes, but their
+DM-Control envs are not ported (ROADMAP.md, queue 1 item 7), so ``build``
+raises for them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict
+
+import torch
 
 from r2d2dpg_torch.agents.ddpg import AgentConfig, R2D2DPG
 from r2d2dpg_torch.device import DeviceLike, resolve_device
@@ -39,20 +43,19 @@ class ExperimentConfig:
         return Trainer(env, self.build_agent(env), self.trainer, device)
 
     def build_agent(self, env: Environment) -> R2D2DPG:
-        if self.pixels:
-            raise NotImplementedError(
-                "pixel torsos are not ported yet (ROADMAP.md, queue 1 item 2)"
-            )
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                "the bf16 mixed-precision cell is not ported yet "
-                "(ROADMAP.md, queue 1 item 2)"
-            )
-        (obs_dim,) = env.spec.obs_shape
-        act_dim = env.spec.action_dim
-        actor = ActorNet(obs_dim, act_dim, hidden=self.hidden, use_lstm=self.use_lstm)
-        critic = CriticNet(obs_dim, act_dim, hidden=self.hidden, use_lstm=self.use_lstm)
-        return R2D2DPG(actor, critic, self.agent)
+        """Actor and critic for ``env.spec`` (flat obs, or ``(H, W, C)``
+        frames when ``pixels``) in ``compute_dtype``, and the learner."""
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
+        nets = dict(
+            obs_shape=env.spec.obs_shape,
+            action_dim=env.spec.action_dim,
+            hidden=self.hidden,
+            use_lstm=self.use_lstm,
+            pixels=self.pixels,
+            dtype=getattr(torch, self.compute_dtype),
+        )
+        return R2D2DPG(ActorNet(**nets), CriticNet(**nets), self.agent)
 
 
 def _pendulum(device) -> Environment:
@@ -129,7 +132,8 @@ PENDULUM_R2D2 = ExperimentConfig(
 )
 
 # 3: the headline config (walker-walk); its learner shapes are what the
-# learner-step measurement runs.  The env waits for the DM-Control slice.
+# learner-step measurement runs.  The envs of configs 3-5 wait for the
+# DM-Control slice.
 WALKER_R2D2 = ExperimentConfig(
     name="walker_r2d2",
     env_factory=_dmc("walker", "walk"),
@@ -156,6 +160,69 @@ WALKER_R2D2 = ExperimentConfig(
     ),
 )
 
+# BASELINE.json config #3 verbatim (n-step 5, sigma 0.4).
+WALKER_R2D2_NS5 = dataclasses.replace(
+    WALKER_R2D2,
+    name="walker_r2d2_ns5",
+    agent=dataclasses.replace(WALKER_R2D2.agent, n_step=5),
+    trainer=dataclasses.replace(WALKER_R2D2.trainer, sigma_max=0.4),
+)
+
+# 4: long sequences (seq-len 85 stored: burn-in 40 + unroll 40 + n-step 5).
+HUMANOID_R2D2 = ExperimentConfig(
+    name="humanoid_r2d2",
+    env_factory=_dmc("humanoid", "run"),
+    use_lstm=True,
+    agent=AgentConfig(
+        burnin=40,
+        unroll=40,
+        n_step=5,
+        gamma=0.99,
+        tau=5e-3,
+        actor_lr=1e-4,
+        critic_lr=1e-3,
+    ),
+    trainer=TrainerConfig(
+        num_envs=256,
+        stride=40,
+        learner_steps=4,
+        batch_size=64,
+        capacity=50_000,
+        prioritized=True,
+        min_replay=2_000,
+        sigma_max=0.4,
+        ladder_alpha=7.0,
+    ),
+)
+
+# 5: from pixels (CNN + LSTM on 64x64x3 uint8 frames).
+CHEETAH_PIXELS = ExperimentConfig(
+    name="cheetah_pixels",
+    env_factory=_dmc("cheetah", "run"),
+    use_lstm=True,
+    pixels=True,
+    agent=AgentConfig(
+        burnin=20,
+        unroll=20,
+        n_step=5,
+        gamma=0.99,
+        tau=5e-3,
+        actor_lr=5e-5,
+        critic_lr=5e-4,
+    ),
+    trainer=TrainerConfig(
+        num_envs=256,
+        stride=20,
+        learner_steps=2,
+        batch_size=32,
+        capacity=8_000,
+        prioritized=True,
+        min_replay=1_000,
+        sigma_max=0.4,
+        ladder_alpha=7.0,
+    ),
+)
+
 # A seconds-scale smoke slice with the full R2D2 recipe at toy shapes.
 PENDULUM_TINY = ExperimentConfig(
     name="pendulum_tiny",
@@ -176,7 +243,16 @@ PENDULUM_TINY = ExperimentConfig(
 )
 
 CONFIGS: Dict[str, ExperimentConfig] = {
-    c.name: c for c in (PENDULUM_DDPG, PENDULUM_R2D2, WALKER_R2D2, PENDULUM_TINY)
+    c.name: c
+    for c in (
+        PENDULUM_DDPG,
+        PENDULUM_R2D2,
+        WALKER_R2D2,
+        WALKER_R2D2_NS5,
+        HUMANOID_R2D2,
+        CHEETAH_PIXELS,
+        PENDULUM_TINY,
+    )
 }
 
 

@@ -5,9 +5,14 @@ The port never imports JAX: callers fetch the JAX pytrees to the host first
 Covered:
 
 - flax actor/critic params (``{"params": {...}}``): a Dense ``kernel
-  [in, out]`` becomes ``weight = kernel.T``; ``OptimizedLSTMCell_0``'s
-  per-gate leaves ``ii/if/ig/io`` (kernels) and ``hi/hf/hg/ho`` (kernels and
-  biases) are concatenated in gate order i, f, g, o into ``wi``, ``wh``, ``bh``;
+  [in, out]`` becomes ``weight [out, in]`` (the last two axes swapped);
+  a ``Conv`` kernel ``[kH, kW, in, out]`` (HWIO) becomes ``[out, in, kH, kW]``
+  (OIHW); ``OptimizedLSTMCell_0``'s per-gate leaves ``ii/if/ig/io``
+  (kernels) and ``hi/hf/hg/ho`` (kernels and biases) are concatenated in
+  gate order i, f, g, o into ``wi``, ``wh``, ``bh``.  Every rule acts on the
+  trailing axes only, so twin-critic params stacked on a leading ``[2]``
+  convert member by member, and a bf16-trained tree (float32 leaves, the
+  same tree as float32's) converts as it is;
 - the optax ``chain(clip_by_global_norm, adam)`` state (``count, mu, nu``);
 - ``TrainState``, ``ArenaState``, the Pendulum env state and the whole
   phase-locked ``TrainerState``.
@@ -35,8 +40,37 @@ def tensor(x: Any, device=None) -> torch.Tensor:
 
 
 def _dense(p: Mapping, prefix: str, out: Dict[str, np.ndarray]) -> None:
-    out[f"{prefix}.weight"] = np.asarray(p["kernel"]).T
+    out[f"{prefix}.weight"] = np.asarray(p["kernel"]).swapaxes(-1, -2)
     out[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _conv(p: Mapping, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    # [..., kH, kW, in, out] -> [..., out, in, kH, kW]
+    out[f"{prefix}.weight"] = np.moveaxis(
+        np.asarray(p["kernel"]), (-1, -2, -4, -3), (-4, -3, -2, -1)
+    )
+    out[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _lstm_cell(cell: Mapping) -> Dict[str, np.ndarray]:
+    """Per-gate flax cell leaves -> fused ``wi [4H, in]``, ``wh [4H, H]``, ``bh``."""
+
+    def fused(name):
+        return np.concatenate(
+            [np.asarray(cell[f"{name}{g}"]["kernel"]) for g in _GATES], axis=-1
+        ).swapaxes(-1, -2)
+
+    return {
+        "wi": fused("i"),
+        "wh": fused("h"),
+        "bh": np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in _GATES], axis=-1),
+    }
+
+
+def lstm_cell_params_from_flax(params: Mapping, device=None) -> Dict[str, torch.Tensor]:
+    """A flax ``OptimizedLSTMCell`` / ``MixedPrecisionLSTMCell``'s params
+    (``{"params": {...}}``) -> the port cell's ``wi``, ``wh``, ``bh``."""
+    return {k: tensor(v, device) for k, v in _lstm_cell(params["params"]).items()}
 
 
 def net_params_from_flax(params: Mapping, device=None) -> Dict[str, torch.Tensor]:
@@ -44,22 +78,19 @@ def net_params_from_flax(params: Mapping, device=None) -> Dict[str, torch.Tensor
     p = params["params"]
     out: Dict[str, np.ndarray] = {}
     torso = p["torso"]
-    for i in range(len(torso)):
-        _dense(torso[f"Dense_{i}"], f"torso.layers.{i}", out)
+    if "Conv_0" in torso:  # ConvTorso: Conv_0..2, then Dense_0
+        for i in range(len(torso) - 1):
+            _conv(torso[f"Conv_{i}"], f"torso.convs.{i}", out)
+        _dense(torso["Dense_0"], "torso.dense", out)
+    else:
+        for i in range(len(torso)):
+            _dense(torso[f"Dense_{i}"], f"torso.layers.{i}", out)
     if "mix" in p:
         _dense(p["mix"], "mix", out)
     core = p["core"]
     if "OptimizedLSTMCell_0" in core:
-        cell = core["OptimizedLSTMCell_0"]
-        out["core.cell.wi"] = np.concatenate(
-            [np.asarray(cell[f"i{g}"]["kernel"]) for g in _GATES], axis=1
-        ).T
-        out["core.cell.wh"] = np.concatenate(
-            [np.asarray(cell[f"h{g}"]["kernel"]) for g in _GATES], axis=1
-        ).T
-        out["core.cell.bh"] = np.concatenate(
-            [np.asarray(cell[f"h{g}"]["bias"]) for g in _GATES]
-        )
+        for k, v in _lstm_cell(core["OptimizedLSTMCell_0"]).items():
+            out[f"core.cell.{k}"] = v
     else:
         _dense(core["Dense_0"], "core.dense", out)
     _dense(p["head"], "head", out)

@@ -15,7 +15,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     A missing card is an error, never a quiet move to the CPU: a caller who
     wants the CPU says so (``device="cpu"``, CLI ``--device cpu``).  Also
     pins float32 matmuls and convolutions to full precision (no TF32), as the
-    JAX reference runs at ``highest`` matmul precision.
+    JAX reference runs at ``highest`` matmul precision, and bf16 matmuls to
+    float32 sums (no reduced-precision split-K reductions), as XLA sums them.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -25,6 +26,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev
 
 

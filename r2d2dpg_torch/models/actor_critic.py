@@ -14,7 +14,15 @@ i, f, g, o; input kernels without bias, recurrent kernels with bias; no
 forget-gate offset; lecun-normal input kernels and orthogonal recurrent
 kernels.  The four gates' kernels are kept fused (``wi [4H, in]``,
 ``wh [4H, H]``, ``bh [4H]``), as the flax cell fuses them at apply time.
-The bf16 ``MixedPrecisionLSTMCell`` waits for a later slice.
+
+``dtype`` (``torch.float32`` or ``torch.bfloat16``) is the nets' compute
+type, as in JAX.  Params stay float32 under both.  Under bf16 every Dense
+(torso, ``mix``, the feedforward core, head) and the convolutions compute
+in bf16, the LSTM core is ``MixedPrecisionLSTMCell`` (bf16 operands, float32
+products, sums, gate math and carry), and the actor's action and the
+critic's Q come back as float32.  ``float32`` keeps ``LSTMCell`` and every
+layer exactly as before.  ``pixels`` swaps the MLP torso for ``ConvTorso``
+over ``[B, H, W, C]`` frames.
 
 Parameters are ordinary ``nn.Module`` parameters; the learner runs the nets
 on explicit parameter dicts through ``torch.func.functional_call``
@@ -24,7 +32,7 @@ whose tensors carry a leading ensemble axis runs that many nets at once.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -32,6 +40,7 @@ from torch.func import functional_call
 
 from r2d2dpg_torch.device import resolve_device
 from r2d2dpg_torch.models.torsos import (
+    ConvTorso,
     Dense,
     MLPTorso,
     dense,
@@ -70,6 +79,13 @@ def zeros_where_reset(carry: Carry, reset: torch.Tensor) -> Carry:
     return tuple(torch.where(mask, 0.0, x) for x in carry)
 
 
+def _gates(z: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """flax's LSTM gate math on fused pre-activations ``z`` (gates i, f, g, o)."""
+    i, f, g, o = z.chunk(4, dim=-1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return c, torch.sigmoid(o) * torch.tanh(c)
+
+
 class LSTMCell(nn.Module):
     """float32 LSTM cell, numerically flax's ``OptimizedLSTMCell``."""
 
@@ -92,23 +108,67 @@ class LSTMCell(nn.Module):
     def forward(self, carry: Carry, x: torch.Tensor) -> Tuple[Carry, torch.Tensor]:
         c, h = carry
         # Same association as flax: (h @ Wh + bh) + x @ Wi.
-        z = dense(h, self.wh, self.bh) + dense(x, self.wi, None)
-        i, f, g, o = z.chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
+        c, h = _gates(dense(h, self.wh, self.bh) + dense(x, self.wi, None), c)
         return (c, h), h
 
 
-class _Core(nn.Module):
-    """Shared recurrent-or-dense core: LSTM cell when ``use_lstm`` else Dense+ReLU."""
+def _mixed_matmul(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype):
+    """``x @ w.T`` on operands rounded to ``dtype``, multiplied and summed in float32.
 
-    def __init__(self, in_features: int, hidden: int, use_lstm: bool):
+    The counterpart of ``jnp.matmul(..., preferred_element_type=float32)`` on
+    bf16 operands.  A bf16 ``matmul`` would round its RESULT to bf16; here
+    both operands are rounded and then upcast, and a product of two bf16
+    values is exact in float32, so only the float32 sum's order differs.
+    """
+    return torch.matmul(x.to(dtype).float(), w.to(dtype).float().transpose(-1, -2))
+
+
+class MixedPrecisionLSTMCell(LSTMCell):
+    """LSTM cell with ``dtype`` gate-matmul operands and FLOAT32 state arithmetic.
+
+    Port of the JAX package's ``MixedPrecisionLSTMCell``: the two gate
+    projections take ``dtype`` operands with float32 accumulation and
+    result; the bias join, the gate math, ``c``, ``h`` and the carry stay
+    float32; the output ``y`` is ``h`` cast to ``dtype``.  The parameters
+    (and their init) are ``LSTMCell``'s, so float32 and bf16 params
+    interchange.
+    """
+
+    def __init__(self, in_features: int, hidden: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__(in_features, hidden)
+        self.dtype = dtype
+
+    def forward(self, carry: Carry, x: torch.Tensor) -> Tuple[Carry, torch.Tensor]:
+        c, h = carry  # float32 by contract (lstm_initial_carry)
+        zx = _mixed_matmul(x, self.wi, self.dtype)
+        zh = _mixed_matmul(h, self.wh, self.dtype)
+        # Same association as JAX: (zx + zh) + bh.
+        c, h = _gates(zx + zh + self.bh.unsqueeze(-2), c)
+        return (c, h), h.to(self.dtype)
+
+
+class _Core(nn.Module):
+    """Shared recurrent-or-dense core: LSTM cell when ``use_lstm`` else Dense+ReLU.
+
+    Under a reduced ``dtype`` the cell is ``MixedPrecisionLSTMCell``; it sits
+    at the same path (``core.cell``) with the same params as ``LSTMCell``.
+    """
+
+    def __init__(
+        self,
+        in_features: int,
+        hidden: int,
+        use_lstm: bool,
+        dtype: torch.dtype = torch.float32,
+    ):
         super().__init__()
         self.use_lstm = use_lstm
-        if use_lstm:
+        if use_lstm and dtype == torch.float32:
             self.cell = LSTMCell(in_features, hidden)
+        elif use_lstm:
+            self.cell = MixedPrecisionLSTMCell(in_features, hidden, dtype)
         else:
-            self.dense = Dense(in_features, hidden, fan_in_uniform())
+            self.dense = Dense(in_features, hidden, fan_in_uniform(), dtype)
 
     def forward(self, x: torch.Tensor, carry: Carry, reset: torch.Tensor):
         if self.use_lstm:
@@ -146,44 +206,70 @@ class _Net(nn.Module):
         return lstm_initial_carry(batch_size, self.hidden, self.use_lstm, device)
 
 
+ObsShape = Union[int, Sequence[int]]
+
+
+def _make_torso(
+    obs_shape: ObsShape, pixels: bool, hidden: int, dtype: torch.dtype
+) -> nn.Module:
+    """``ConvTorso`` over ``(H, W, C)`` frames, else an MLP over ``obs_dim``."""
+    if pixels:
+        return ConvTorso(obs_shape, out_size=hidden, dtype=dtype)
+    (obs_dim,) = (obs_shape,) if isinstance(obs_shape, int) else obs_shape
+    return MLPTorso(obs_dim, (hidden,), dtype)
+
+
 class ActorNet(_Net):
-    """Deterministic policy mu(obs) with optional LSTM core."""
+    """Deterministic policy mu(obs) with optional LSTM core.
+
+    ``obs_shape`` is the flat obs size (an int or ``(obs_dim,)``), or
+    ``(H, W, C)`` with ``pixels``.
+    """
 
     def __init__(
         self,
-        obs_dim: int,
+        obs_shape: ObsShape,
         action_dim: int,
         hidden: int = 256,
         use_lstm: bool = True,
+        pixels: bool = False,
         action_scale: float = 1.0,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.hidden, self.use_lstm = hidden, use_lstm
         self.action_scale = action_scale
-        self.torso = MLPTorso(obs_dim, (hidden,))
-        self.core = _Core(hidden, hidden, use_lstm)
-        self.head = Dense(hidden, action_dim, symmetric_uniform(3e-3))
+        self.torso = _make_torso(obs_shape, pixels, hidden, dtype)
+        self.core = _Core(hidden, hidden, use_lstm, dtype)
+        self.head = Dense(hidden, action_dim, symmetric_uniform(3e-3), dtype)
 
     def forward(
         self, obs: torch.Tensor, carry: Carry, reset: torch.Tensor
     ) -> Tuple[torch.Tensor, Carry]:
-        """Single step: obs [B, obs], reset [B] -> (action [B, A], new carry)."""
+        """Single step: obs [B, ...], reset [B] -> (action [B, A], new carry)."""
         y, carry = self.core(self.torso(obs), carry, reset)
-        return torch.tanh(self.head(y)) * self.action_scale, carry
+        action = torch.tanh(self.head(y)).to(torch.float32)
+        return action * self.action_scale, carry
 
 
 class CriticNet(_Net):
     """Q(obs, action) with optional LSTM core; action joined after the torso."""
 
     def __init__(
-        self, obs_dim: int, action_dim: int, hidden: int = 256, use_lstm: bool = True
+        self,
+        obs_shape: ObsShape,
+        action_dim: int,
+        hidden: int = 256,
+        use_lstm: bool = True,
+        pixels: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.hidden, self.use_lstm = hidden, use_lstm
-        self.torso = MLPTorso(obs_dim, (hidden,))
-        self.mix = Dense(hidden + action_dim, hidden, fan_in_uniform())
-        self.core = _Core(hidden, hidden, use_lstm)
-        self.head = Dense(hidden, 1, symmetric_uniform(3e-3))
+        self.torso = _make_torso(obs_shape, pixels, hidden, dtype)
+        self.mix = Dense(hidden + action_dim, hidden, fan_in_uniform(), dtype)
+        self.core = _Core(hidden, hidden, use_lstm, dtype)
+        self.head = Dense(hidden, 1, symmetric_uniform(3e-3), dtype)
 
     def forward(
         self,
@@ -197,7 +283,7 @@ class CriticNet(_Net):
         action = action.to(x.dtype).expand(*x.shape[:-1], action.shape[-1])
         x = torch.relu(self.mix(torch.cat([x, action], dim=-1)))
         y, carry = self.core(x, carry, reset)
-        return self.head(y).squeeze(-1), carry
+        return self.head(y).to(torch.float32).squeeze(-1), carry
 
 
 def unroll(

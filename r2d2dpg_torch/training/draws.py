@@ -8,7 +8,10 @@ order, the numbers the JAX program drew.
 Per collect step the trainer draws, in this order: the exploration
 normal ``[E, A]`` (gaussian or OU noise only), then the env's fresh start
 state (Pendulum: theta ``[E]``, then thdot ``[E]``).  Per learner step it
-draws the sampling uniforms ``[B]``.
+draws the sampling uniforms ``[B]``, then, with target-policy smoothing on
+(``target_policy_sigma > 0``), the smoothing normal ``[U + n, B, A]``
+(time-major; JAX draws it from ``fold_in(key, 1)`` of the same learner
+step's key).
 """
 
 from __future__ import annotations

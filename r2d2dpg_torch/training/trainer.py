@@ -208,7 +208,7 @@ class Trainer:
         """``stride`` env steps of every lane: policy, noise, env, bookkeeping."""
         cfg = self.config
         behavior = self._behavior_params(state)
-        critic_params = state.train.critic_params
+        critic_params = self.agent.behavior_critic_params(state.train)
         draws = state.draws
         env_state, obs, reset = state.env_state, state.obs, state.reset
         a_carry, c_carry = state.actor_carry, state.critic_carry
@@ -277,15 +277,20 @@ class Trainer:
         self.arena.add(state.arena, seq, prios, meta=meta)
         return state
 
-    def _update_step(self, train, arena, res) -> Tuple[TrainState, ArenaState, Metrics]:
-        """IS weights -> gradient update -> priority write-back on a sampled batch."""
+    def _update_step(
+        self, train, arena, res, normal=None
+    ) -> Tuple[TrainState, ArenaState, Metrics]:
+        """IS weights -> gradient update -> priority write-back on a sampled batch.
+
+        ``normal`` is the target-policy smoothing draw (``None`` when off).
+        """
         cfg = self.config
         if cfg.prioritized:
             beta = anneal_beta(train.step, beta0=cfg.beta0, steps=cfg.beta_steps)
             w = importance_weights(res.probs, self.arena.size(arena), beta=beta)
         else:
             w = torch.ones(cfg.batch_size, device=self.device)
-        train, prios, metrics = self.agent.learner_step(train, res.batch, w)
+        train, prios, metrics = self.agent.learner_step(train, res.batch, w, normal)
         if cfg.prioritized:
             arena = self.arena.update_priorities(arena, res.indices, prios)
         # Experience-quality metrics: ESS fraction of the IS weights, share of
@@ -306,12 +311,14 @@ class Trainer:
 
     def _learn_step(self, train, arena, draws):
         """ONE learner update: sample -> IS weights -> update -> write-back."""
-        res = self.arena.sample(
-            arena,
-            self.config.batch_size,
-            uniforms=draws.uniform((self.config.batch_size,)),
-        )
-        return self._update_step(train, arena, res)
+        b = self.config.batch_size
+        res = self.arena.sample(arena, b, uniforms=draws.uniform((b,)))
+        acfg = self.agent.config
+        normal = None
+        if acfg.target_policy_sigma > 0:
+            a_dim = res.batch.action.shape[-1]
+            normal = draws.normal((acfg.unroll + acfg.n_step, b, a_dim))
+        return self._update_step(train, arena, res, normal)
 
     def _learn_many(
         self, train, arena, draws

@@ -152,8 +152,3 @@ def test_grad_clip_scales_only_at_or_above_the_norm():
     # at exactly the norm optax divides (no +1e-6, unlike clip_grad_norm_)
     torch.testing.assert_close(clip_by_global_norm(g, 5.0)["a"], g["a"])
 
-
-@pytest.mark.parametrize("kw", [dict(twin_critic=True), dict(target_policy_sigma=0.2)])
-def test_td3_knobs_wait_for_a_later_slice(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _agents(**kw)

@@ -8,7 +8,8 @@ so it also runs on a machine without it:
 Every comparison is bitwise: the scatter only copies values.  The batch
 sizes cover one lane, a ragged single warp, whole warps, a ragged last warp,
 one block of 1,024 threads, and several blocks past it (with a ragged last
-block).
+block); the arena's write-back runs at the cheetah_pixels shapes
+(capacity 8,000, B 32).
 """
 
 import numpy as np
@@ -16,7 +17,9 @@ import pytest
 import torch
 
 from r2d2dpg_torch.kernels import PRIORITY_SCATTER
+from r2d2dpg_torch.ops.priority import PRIORITY_EPS
 from r2d2dpg_torch.ops.scatter import priority_scatter, priority_scatter_plain
+from r2d2dpg_torch.replay import ReplayArena, SequenceBatch
 from r2d2dpg_torch.testing import SCATTER_PATTERNS, scatter_case
 
 BATCHES = (1, 31, 32, 33, 64, 65, 256, 1024, 1025, 4096, 8192)
@@ -78,3 +81,28 @@ def test_priority_scatter_replays_in_a_cuda_graph():
         graph.replay()
         torch.cuda.synchronize()
         np.testing.assert_array_equal(prio.cpu().numpy(), _plain(*case))
+
+
+@pytest.mark.cuda
+def test_update_priorities_at_the_cheetah_shapes_matches_plain_exactly():
+    """``ReplayArena.update_priorities`` on a capacity-8,000 arena at B = 32,
+    with a forced duplicate and priorities below ``PRIORITY_EPS``."""
+    dev = _card()
+    capacity, b = 8_000, 32
+    g = torch.Generator(device=dev).manual_seed(5)
+    z = torch.zeros(capacity, 1, device=dev)
+    example = SequenceBatch(obs=z, action=z, reward=z, discount=z, reset=z, carries={})
+    arena = ReplayArena(capacity, prioritized=True)
+    state = arena.init_state(example)
+    arena.add(state, example, torch.rand(capacity, generator=g, device=dev) + 0.5)
+    idx = arena.sample(state, b, generator=g).indices
+    idx[-1] = idx[0]
+    prios = torch.rand(b, generator=g, device=dev) * 2 - 0.5
+    want = priority_scatter_plain(
+        state.priority.cpu(), idx.cpu(), prios.clamp_min(PRIORITY_EPS).cpu()
+    )
+    before = PRIORITY_SCATTER.launches
+    arena.update_priorities(state, idx, prios)
+    torch.cuda.synchronize()
+    assert PRIORITY_SCATTER.launches == before + 1
+    np.testing.assert_array_equal(state.priority.cpu().numpy(), want.numpy())

@@ -40,8 +40,13 @@ def _t(x):
     return torch.tensor(np.asarray(x))
 
 
-def _train_phase_draws(rng, tcfg, action_dim):
-    """The draws of one JAX train phase, in the order the port consumes them."""
+def _train_phase_draws(rng, tcfg, action_dim, smoothing_shape=None):
+    """The draws of one JAX train phase, in the order the port consumes them.
+
+    ``smoothing_shape`` (``(U + n, B, A)``): target-policy smoothing is on,
+    and each learner step also draws its normal from ``fold_in(key, 1)``
+    (``Trainer._update_step``).
+    """
     E = tcfg.num_envs
     draws = []
     rng, scan_key = jax.random.split(rng)  # Trainer._collect
@@ -58,6 +63,8 @@ def _train_phase_draws(rng, tcfg, action_dim):
     _, key = jax.random.split(rng)  # Trainer._learn
     for k in jax.random.split(key, tcfg.learner_steps):  # _learn_many
         draws.append(jax.random.uniform(k, (tcfg.batch_size,)))
+        if smoothing_shape is not None:
+            draws.append(jax.random.normal(jax.random.fold_in(k, 1), smoothing_shape))
     return [_t(x) for x in draws]
 
 
