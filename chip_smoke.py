@@ -35,11 +35,26 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    by tests/test_torch_*.py): fp32, 36x36 pixels, twin + smoothing, bf16;
 7. the main path through its entry point: ``r2d2dpg_torch.train.main`` on
    ``pendulum_r2d2`` (warm-up 4 + replay fill 50 + 10 train phases), plain
-   and with ``--twin-critic 1 --target-policy-sigma 0.2 --compute-dtype
-   bfloat16``, with every launch count set to 0 just before and read just
-   after each run;
-8. whether ``mujoco`` and ``dm_control`` import (informational);
-9. each phase's seconds, one JSON line per kernel summary (launches
+   with ``--checkpoint-dir <tmp> --checkpoint-every 5``, and with
+   ``--twin-critic 1 --target-policy-sigma 0.2 --compute-dtype bfloat16``,
+   with every launch count set to 0 just before and read just after each
+   run;
+8. checkpoints, on the plain run's final state: the latest checkpoint
+   restored bitwise, a full and a light save timed; ``python -m
+   r2d2dpg_torch.serve --selftest 256`` on the run's directory (every code
+   ``ok``) while ``train --resume --phases 5`` continues the run there
+   (its own launch count); ``eval`` of 10 episodes from the latest step;
+9. serving at walker_r2d2's actor width (obs 24, act 6, hidden 256):
+   one request's policy step padded to 32 rows (every step's row count),
+   in a 1-row step and the plain 2-D step beside it, wall and device-busy
+   ms; 64 interleaved sessions x 64 steps with a checkpoint saved
+   half-way and polled every 0.25 s (every session kept, ``params_step``
+   1 -> 2, latency before and from the save), each session's actions
+   bitwise equal to its rollout alone and within 1e-5 of the plain
+   one-row rollout (both required); two router workers on the card
+   bitwise equal to one worker, no affinity violation;
+10. whether ``mujoco`` and ``dm_control`` import (informational);
+11. each phase's seconds, one JSON line per kernel summary (launches
    summed over every path), then the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``r2d2dpg_tpu``.  Without a card,
@@ -51,10 +66,13 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory rate
@@ -86,7 +104,8 @@ def _event_ms(fns, n):
 
 
 def _device_profile(fn, n):
-    """(device ms per call, top kernels) over ``n`` calls, from torch.profiler.
+    """(device ms per call, top kernels, device events per call) over ``n``
+    calls, from torch.profiler.
 
     Sums the durations of the device-side events (kernels, copies) CUPTI
     recorded; ``None`` when the profiler saw no device time.  Only device
@@ -103,15 +122,16 @@ def _device_profile(fn, n):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    by_name = {}
+    by_name, count = {}, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            count += 1
     total_us = sum(by_name.values())
     if total_us <= 0:
-        return None, []
+        return None, [], None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return total_us / n / 1e3, [(k[:60], v / n / 1e3) for k, v in top]
+    return total_us / n / 1e3, [(k[:60], v / n / 1e3) for k, v in top], count / n
 
 
 def _card_line():
@@ -192,7 +212,7 @@ def _scatter_phase(torch, dev):
 
     def device_ms(fn, n):
         # Device time (CUPTI) is the kernel's own time; None if not traced.
-        ms, top = _device_profile(fn, n)
+        ms, top, _ = _device_profile(fn, n)
         return ms, [name for name, _ in top]
 
     floor_ms, _ = device_ms(launch_floor, 500)
@@ -425,13 +445,14 @@ def _learner_leg(torch, dev, label, config, steps=45, warmup=5, fill=None,
     # step repeats within about 1 % from run to run, and parsing the trace
     # costs seconds a step.
     t_prof = time.perf_counter()
-    device_ms, top = _device_profile(one_step, 2)
+    device_ms, top, events = _device_profile(one_step, 2)
     wall_ms = dt / (steps - warmup) * 1e3
     rec.update(
         fill_seconds=fill_seconds, steps_seconds=steps_seconds,
         profile_seconds=time.perf_counter() - t_prof,
         wall_ms_per_step=wall_ms,
         device_busy_ms_per_step=device_ms,
+        device_events_per_step=events,
         device_idle_share=None if device_ms is None else 1 - device_ms / wall_ms,
         top_device_ms_per_step=top,
     )
@@ -578,8 +599,12 @@ def _cuda_vs_cpu_phase(torch, dev):
     print(json.dumps({"cuda_vs_cpu_learner_variants": recs}), flush=True)
 
 
-def _trainer_phase(torch, dev, label="pendulum_r2d2_trainer", flags=()):
-    """The main path through its entry point, with launch counts around it."""
+def _trainer_phase(torch, dev, label="pendulum_r2d2_trainer", flags=(), after_run=None):
+    """The main path through its entry point, with launch counts around it.
+
+    ``after_run(state)`` runs on the run's final state before the timing
+    below trains it further (the checkpoint phase reads it there).
+    """
     from r2d2dpg_torch import kernels
     from r2d2dpg_torch.ops.priority import PRIORITY_EPS
     from r2d2dpg_torch.replay.arena import ReplayArena
@@ -626,6 +651,7 @@ def _trainer_phase(torch, dev, label="pendulum_r2d2_trainer", flags=()):
         raise AssertionError(f"{label}: non-finite arena priorities")
     print(lines[0], flush=True)  # backend line
     print("last log line:", lines[-1], flush=True)
+    extra = after_run(state) if after_run is not None else {}
 
     # Train-phase time on the run's final state (not part of the launch count).
     t_timing = time.perf_counter()
@@ -644,19 +670,358 @@ def _trainer_phase(torch, dev, label="pendulum_r2d2_trainer", flags=()):
         nonlocal state
         state, _ = trainer.train_phase(state)
 
-    device_ms, top = _device_profile(one_phase, 3)
+    device_ms, top, events = _device_profile(one_phase, 3)
     print(json.dumps({label: {
         "flags": list(flags),
         "train_phases": train_phases, "run_seconds": seconds,
         "timing_seconds": time.perf_counter() - t_timing,
         "train_phase_ms": phase_ms,
         "device_busy_ms_per_phase": device_ms,
+        "device_events_per_phase": events,
         "device_idle_share": None if device_ms is None else 1 - device_ms / phase_ms,
         "top_device_ms_per_phase": top,
         "scatter_launches": launches["priority_scatter"],
         "priorities_moved": moved, "filled_slots": int(filled.sum()),
     }}), flush=True)
-    return launches["priority_scatter"]
+    return {label: launches["priority_scatter"], **extra}
+
+
+def _flat(tree, path=""):
+    """A ``to_tree`` output as {path: leaf}."""
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        out = {}
+        for k, v in items:
+            out.update(_flat(v, f"{path}/{k}"))
+        return out
+    return {path: tree}
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _checkpoint_phase(torch, dev, ckdir, state):
+    """On the final state of the pendulum_r2d2 run that saved into ``ckdir``
+    every 5 phases: restore it (bitwise against the run's state), time a
+    full and a light save, then run ``python -m r2d2dpg_torch.serve
+    --selftest 256`` on ``ckdir`` while ``train --resume --phases 5`` writes
+    newer steps into it, then ``eval`` 10 episodes from its latest step.
+    Returns the resume run's scatter launches."""
+    from r2d2dpg_torch import kernels
+    from r2d2dpg_torch.eval import main as eval_main
+    from r2d2dpg_torch.train import main as train_main
+    from r2d2dpg_torch.utils.checkpoint import CheckpointManager, resume_state, to_tree
+
+    config = _config("pendulum_r2d2")
+    ckpt = CheckpointManager(ckdir)
+    if ckpt.latest_step != state.phase_idx:
+        raise AssertionError(f"latest checkpoint {ckpt.latest_step}, run ended at "
+                             f"phase {state.phase_idx}")
+    trainer = config.build(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = resume_state(trainer, ckpt)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    want, got = _flat(to_tree(state)), _flat(to_tree(restored))
+    if want.keys() != got.keys():
+        raise AssertionError(f"restored tree differs: {sorted(want.keys() ^ got.keys())}")
+    differ = [k for k in want if not (
+        torch.equal(want[k], got[k]) if isinstance(want[k], torch.Tensor)
+        else want[k] == got[k])]
+    if differ:
+        raise AssertionError(f"restored leaves differ from the saved state: {differ[:8]}")
+    del restored
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_saves_")
+    try:
+        save_s = {}
+        for kind, light in (("full", False), ("light", True)):
+            mgr = CheckpointManager(os.path.join(scratch, kind), light=light)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(state.phase_idx, state)
+            save_s[kind] = time.perf_counter() - t0
+        step_bytes = {kind: _dir_bytes(os.path.join(scratch, kind)) for kind in save_s}
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    rec = {"saved_step": state.phase_idx, "leaves_bitwise_equal": len(want),
+           "restore_seconds": restore_s, "full_save_seconds": save_s["full"],
+           "light_save_seconds": save_s["light"], "full_step_bytes": step_bytes["full"],
+           "light_step_bytes": step_bytes["light"], "dir_bytes": _dir_bytes(ckdir),
+           "steps_kept": ckpt.all_steps()}
+
+    # The serve CLI on the run's directory while a resumed run writes to it.
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_serve = time.perf_counter()
+    serve = subprocess.Popen(
+        [sys.executable, "-m", "r2d2dpg_torch.serve", "--config", "pendulum_r2d2",
+         "--checkpoint-dir", ckdir, "--selftest", "256", "--poll-every", "0.5"],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        for k in kernels.ALL_KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            resumed = train_main(["--config", "pendulum_r2d2", "--phases", "5",
+                                  "--log-every", "16", "--checkpoint-dir", ckdir,
+                                  "--checkpoint-every", "5", "--resume"])
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        resume_launches = kernels.PRIORITY_SCATTER.launches
+        out, err = serve.communicate(timeout=600)
+    finally:
+        if serve.poll() is None:
+            serve.kill()
+            serve.wait()
+    serve_s = time.perf_counter() - t_serve
+    if (resumed.phase_idx, resumed.train.step) != (state.phase_idx + 5, state.train.step + 5):
+        raise AssertionError(f"resume: phase {resumed.phase_idx}, learner step "
+                             f"{resumed.train.step} after {state.phase_idx}, {state.train.step}")
+    if resume_launches != 5 * config.trainer.learner_steps:
+        raise AssertionError(f"resume: {resume_launches} scatter launches for 5 phases")
+    if serve.returncode != 0:
+        raise AssertionError(f"serve CLI exited {serve.returncode}: {err[-2000:]}")
+    selftest = json.loads(out.strip().splitlines()[-1])
+    if selftest["codes"] != {"ok": 256}:
+        raise AssertionError(f"serve CLI selftest codes {selftest['codes']}")
+    rec.update(resume_lines=buf.getvalue().splitlines()[:2], resume_seconds=resume_s,
+               resumed_phase=resumed.phase_idx, resumed_learner_step=resumed.train.step,
+               resume_scatter_launches=resume_launches, latest_step=ckpt.latest_step)
+    print(json.dumps({"pendulum_r2d2_checkpoint": rec}), flush=True)
+    print(json.dumps({"serve_cli_selftest": {
+        "seconds": serve_s, "backend": err.strip().splitlines()[-1],
+        **{k: selftest[k] for k in ("codes", "params_step", "requests_ok",
+                                    "latency_p50_ms", "latency_p99_ms", "step_p50_ms",
+                                    "step_p99_ms", "sessions_active")}}}), flush=True)
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        summary = eval_main(["--config", "pendulum_r2d2", "--checkpoint-dir", ckdir,
+                             "--episodes", "10"])
+    torch.cuda.synchronize()
+    rounds = [json.loads(x) for x in buf.getvalue().splitlines()[:-1]]
+    if not all(math.isfinite(r[k]) for r in rounds
+               for k in ("eval_return_mean", "eval_return_min", "eval_return_max")):
+        raise AssertionError(f"eval: non-finite returns {rounds}")
+    print(json.dumps({"pendulum_r2d2_eval": {
+        "seconds": time.perf_counter() - t0, **rounds[0],
+        "checkpoint_step": summary["checkpoint_step"]}}), flush=True)
+    return {"pendulum_r2d2_resume": resume_launches}
+
+
+SERVE_MAX_BATCH = 32  # the largest of the serve CLI's default buckets
+SERVE_POLL_S = 0.25  # checkpoint polls; the serve CLI's default is 2 s
+SERVE_PLAIN_ATOL = 1e-5  # served actions vs the plain one-row rollout
+
+
+def _wall_ms(torch, fn, n):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _drive(service, obs, on_step=None, latencies=None):
+    """Every session's step t submitted together, t = 0, 1, ...; returns
+    {session: [(params_step, action), ...]} and appends step t's request
+    latencies (s) to ``latencies`` when given."""
+    served = {s: [] for s in obs}
+    for t in range(len(next(iter(obs.values())))):
+        if on_step is not None:
+            on_step(t)
+        pending = [(s, service.act_async(s, obs[s][t], reset=(t == 0))) for s in obs]
+        for s, req in pending:
+            if not req.wait(120.0) or req.code != "ok":
+                raise AssertionError(f"serving: request of {s} at step {t}: {req.code}")
+            served[s].append((req.params_step, req.action))
+        if latencies is not None:
+            latencies.append([req.latency_s for _, req in pending])
+    return served
+
+
+def _latency_ms(per_step):
+    """Nearest-rank p50/p99 (ms) of the requests of ``per_step``'s steps."""
+    from r2d2dpg_torch.utils.metrics import PercentileWindow
+
+    lat = [x for step in per_step for x in step]
+    win = PercentileWindow(len(lat))
+    for x in lat:
+        win.add(x * 1e3)
+    return win.percentiles((50.0, 99.0))
+
+
+def _serving_phase(torch, dev, sessions=64, steps=64):
+    """The serving stack at walker_r2d2's actor width (obs 24, act 6, hidden
+    256, LSTM), 1,024 session rows, batches of up to 32 requests (every step
+    at 32 rows), params from the port's light checkpoints of ``agent.init``,
+    polled every 0.25 s."""
+    import types
+
+    import numpy as np
+
+    from r2d2dpg_torch.envs.core import EnvSpec
+    from r2d2dpg_torch.models import policy_step_fn
+    from r2d2dpg_torch.serving import (
+        CheckpointHotReloader,
+        PolicyService,
+        actor_params_template,
+        build_router,
+    )
+    from r2d2dpg_torch.serving.service import expand_rows, rowwise_policy_step_fn
+    from r2d2dpg_torch.utils.checkpoint import CheckpointManager
+
+    obs_shape, _, act_dim = ENV_SHAPES["walker_r2d2"]
+    agent = _config("walker_r2d2").build_agent(
+        types.SimpleNamespace(spec=EnvSpec("walker_r2d2", obs_shape, act_dim)))
+    actor = agent.actor
+    train = {v: agent.init(torch.Generator().manual_seed(v), dev) for v in (1, 2)}
+    kw = dict(obs_shape=obs_shape, max_sessions=1024, max_batch=SERVE_MAX_BATCH,
+              flush_ms=2.0, max_queue=4096, device=dev)
+    rng = np.random.default_rng(0)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        mgr = CheckpointManager(ckdir, save_every=1, light=True)
+        mgr.save(1, types.SimpleNamespace(train=train[1]))
+        template = actor_params_template(actor)
+        reloader = CheckpointHotReloader(ckdir, template, device=dev,
+                                         poll_every_s=SERVE_POLL_S)
+        svc = PolicyService(actor, reloader=reloader, **kw)
+        svc.warmup()
+
+        # One request padded to a 32-row step (before the worker starts),
+        # the same request in a 1-row step (what padding costs), and the
+        # plain 2-D step at 32 rows (what the row-wise form costs).
+        steps_rec = {}
+        obs1 = [rng.standard_normal(obs_shape).astype(np.float32)]
+        one = PolicyService(actor, train[1].actor_params, **{**kw, "max_batch": 1})
+        for key, service in (("1_padded_to_32", svc), ("1_at_own_size", one)):
+            fn = (lambda service=service: service.policy_step([0], [1.0], obs1))
+            dev_ms, top, events = _device_profile(fn, 5)
+            steps_rec[key] = {"wall_ms": _wall_ms(torch, fn, 100), "device_busy_ms": dev_ms,
+                              "device_events": events, "top_device_ms": top}
+        plain = policy_step_fn(actor)
+        x32 = torch.randn(32, *obs_shape, device=dev)
+        c32 = actor.initial_carry(32, dev)
+        r32 = torch.ones(32, device=dev)
+        fn = (lambda: plain(train[1].actor_params, x32, c32, r32)[0].cpu())
+        dev_ms, top, events = _device_profile(fn, 5)
+        steps_rec["32_plain_2d"] = {"wall_ms": _wall_ms(torch, fn, 100),
+                                    "device_busy_ms": dev_ms, "device_events": events,
+                                    "top_device_ms": top}
+        print(json.dumps({"serving_policy_step": steps_rec}), flush=True)
+
+        # 64 sessions x 64 steps, a new checkpoint landing half-way.
+        obs = {f"session-{i}": rng.standard_normal((steps,) + obs_shape).astype(np.float32)
+               for i in range(sessions)}
+
+        saved_at = []
+
+        def on_step(t):
+            if t == steps // 2:
+                mgr.save(2, types.SimpleNamespace(train=train[2]))
+                saved_at.append(time.perf_counter())
+            elif t == steps - 1:
+                # The last step must see the new params: a host fast enough
+                # to finish the stream inside one poll period waits it out.
+                time.sleep(max(0.0, saved_at[0] + 1.5 * SERVE_POLL_S - time.perf_counter()))
+
+        latencies = []
+        t0 = time.perf_counter()
+        with svc:
+            served = _drive(svc, obs, on_step, latencies)
+            health = svc.health()
+        serve_s = time.perf_counter() - t0
+        reload_step = min(t for rows in served.values()
+                          for t, (ps, _) in enumerate(rows) if ps == 2)
+        before_p50, before_p99 = _latency_ms(latencies[:steps // 2])
+        after_p50, after_p99 = _latency_ms(latencies[steps // 2:])
+        for s, rows in served.items():
+            seen = [ps for ps, _ in rows]
+            if seen[0] != 1 or seen[-1] != 2 or seen != sorted(seen):
+                raise AssertionError(f"serving: params steps of {s}: {seen}")
+        if (health.requests_ok, health.sessions_active, health.params_step,
+                health.worker_errors) != (sessions * steps, sessions, 2, 0):
+            raise AssertionError(f"serving health: {health}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        CheckpointHotReloader(ckdir, template, device=dev).load_latest()
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+
+        # Each session alone in row 0 of 32-row steps, against its served
+        # actions (bitwise, required); a plain one-row rollout beside it.
+        step = rowwise_policy_step_fn(actor)
+        row_params = {v: expand_rows(t.actor_params, svc.step_rows) for v, t in train.items()}
+        max_diff, plain_diff, bitwise = 0.0, 0.0, True
+        t_ref = time.perf_counter()
+        for s, rows in served.items():
+            carry = actor.initial_carry(svc.step_rows, dev)
+            carry1 = actor.initial_carry(1, dev)
+            for t, (ps, action) in enumerate(rows):
+                o = np.zeros((svc.step_rows,) + obs_shape, np.float32)
+                o[0] = obs[s][t]
+                o = torch.from_numpy(o).to(dev)
+                r = torch.ones(svc.step_rows, device=dev)
+                r[0] = float(t == 0)
+                want, carry = step(row_params[ps], o, carry, r)
+                want = want[0].cpu().numpy()
+                bitwise = bitwise and np.array_equal(action, want)
+                max_diff = max(max_diff, float(np.abs(action - want).max()))
+                a1, carry1 = plain(train[ps].actor_params, o[:1], carry1, r[:1])
+                plain_diff = max(plain_diff, float(np.abs(action - a1[0].cpu().numpy()).max()))
+        ref_s = time.perf_counter() - t_ref
+        if not bitwise:
+            raise AssertionError(f"serving: batched != sequential rows, max abs {max_diff}")
+        # The independent reading: the plain one-row step (no row-wise
+        # form), with actions of about 0.1 in size.
+        if not plain_diff <= SERVE_PLAIN_ATOL:
+            raise AssertionError(f"serving: served actions differ from the plain "
+                                 f"one-row rollout by {plain_diff} > {SERVE_PLAIN_ATOL}")
+        print(json.dumps({"serving_sessions": {
+            "sessions": sessions, "steps": steps, "seconds": serve_s,
+            "requests_per_s": sessions * steps / serve_s, "poll_every_s": SERVE_POLL_S,
+            "saved_before_step": steps // 2, "first_step_on_new_params": reload_step,
+            "latency_p50_ms_before_save": before_p50, "latency_p99_ms_before_save": before_p99,
+            "latency_p50_ms_from_save": after_p50, "latency_p99_ms_from_save": after_p99,
+            "latency_p50_ms": health.latency_p50_ms, "latency_p99_ms": health.latency_p99_ms,
+            "step_p50_ms": health.step_p50_ms, "step_p99_ms": health.step_p99_ms,
+            "batch_occupancy": health.batch_occupancy, "requests_ok": health.requests_ok,
+            "sessions_active": health.sessions_active, "params_step": health.params_step,
+            "reload_restore_ms": restore_ms, "bitwise": bitwise, "max_abs_diff": max_diff,
+            "plain_one_row_max_abs_diff": plain_diff, "plain_one_row_atol": SERVE_PLAIN_ATOL,
+            "reference_seconds": ref_s,
+        }}), flush=True)
+
+        # Two workers behind the router on the one card, against one worker.
+        small = {s: obs[s][:16] for s in list(obs)[:32]}
+        small_steps = len(next(iter(small.values())))
+        with PolicyService(actor, train[1].actor_params, **kw) as single:
+            want = _drive(single, small)
+        router = build_router(actor, num_workers=2, params=train[1].actor_params,
+                              **{k: v for k, v in kw.items() if k != "device"},
+                              device=dev)
+        with router:
+            got = _drive(router, small)
+            rh = router.health()
+        equal = all(np.array_equal(a, b) for s in small
+                    for (_, a), (_, b) in zip(got[s], want[s]))
+        if not equal or rh["affinity_violations"] != 0:
+            raise AssertionError(f"router: bitwise {equal}, health {rh}")
+        print(json.dumps({"serving_router": {
+            "workers": rh["workers"], "devices": [str(x.device) for x in router.services],
+            "sessions": len(small), "steps": small_steps, "affinity_violations": 0,
+            "bitwise_equal_one_worker": True, "requests_ok": rh["requests_ok"],
+            "per_worker_requests_ok": {w: h["requests_ok"] for w, h in rh["per_worker"].items()},
+        }}), flush=True)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
 
 
 def _mujoco_probe():
@@ -717,10 +1082,20 @@ def main() -> int:
     timed("cuda_graph", _graph_phase, torch, dev)
     launches = timed("learner_legs", _learner_phase, torch, dev)
     timed("cuda_vs_cpu", _cuda_vs_cpu_phase, torch, dev)
-    launches["pendulum_r2d2_trainer"] = timed("trainer", _trainer_phase, torch, dev)
-    launches["pendulum_r2d2_td3_bf16_trainer"] = timed(
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        launches.update(timed(
+            "trainer", _trainer_phase, torch, dev, "pendulum_r2d2_trainer",
+            ("--checkpoint-dir", ckdir, "--checkpoint-every", "5"),
+            lambda state: timed("checkpoint_serve_cli_eval", _checkpoint_phase,
+                                torch, dev, ckdir, state)))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    phase_seconds["trainer"] -= phase_seconds["checkpoint_serve_cli_eval"]
+    launches.update(timed(
         "trainer_td3_bf16", _trainer_phase,
-        torch, dev, "pendulum_r2d2_td3_bf16_trainer", (*TD3_FLAGS, *BF16_FLAGS))
+        torch, dev, "pendulum_r2d2_td3_bf16_trainer", (*TD3_FLAGS, *BF16_FLAGS)))
+    timed("serving", _serving_phase, torch, dev)
     timed("mujoco_probe", _mujoco_probe)
     phase_seconds["total"] = time.perf_counter() - t_start
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)

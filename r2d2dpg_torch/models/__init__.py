@@ -6,6 +6,7 @@ from r2d2dpg_torch.models.actor_critic import (
     LSTMCell,
     MixedPrecisionLSTMCell,
     lstm_initial_carry,
+    policy_step_fn,
     time_major,
     unroll,
     zeros_where_reset,
@@ -21,6 +22,7 @@ __all__ = [
     "MLPTorso",
     "MixedPrecisionLSTMCell",
     "lstm_initial_carry",
+    "policy_step_fn",
     "time_major",
     "unroll",
     "zeros_where_reset",

@@ -286,6 +286,22 @@ class CriticNet(_Net):
         return self.head(y).to(torch.float32).squeeze(-1), carry
 
 
+def policy_step_fn(actor: ActorNet) -> Callable[..., Tuple[torch.Tensor, Carry]]:
+    """Single-step policy function for serving callers.
+
+    Returns ``step(params, obs, carry, reset) -> (action, new_carry)``:
+    ``actor.apply_params`` without autograd, in the argument order the
+    serving batcher threads through its session slabs.  It closes over the
+    module only, so one function serves every hot-reloaded param version.
+    """
+
+    @torch.no_grad()
+    def step(params: Params, obs: torch.Tensor, carry: Carry, reset: torch.Tensor):
+        return actor.apply_params(params, obs, carry, reset)
+
+    return step
+
+
 def unroll(
     apply_step: Callable[..., Tuple[Any, Carry]],
     carry: Carry,

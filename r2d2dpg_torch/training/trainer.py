@@ -22,7 +22,7 @@ pipelined executor's slice.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -390,31 +390,43 @@ class Trainer:
         state: Optional[TrainerState] = None,
         log_every: int = 50,
         log_fn=print,
+        on_phase: Optional[Callable[[TrainerState, Optional[Dict[str, float]]], None]] = None,
     ) -> TrainerState:
-        """Drive the static phase schedule (warm-up -> fill -> train)."""
+        """Drive the static phase schedule (warm-up -> fill -> train) from
+        ``state.phase_idx`` (0 for a fresh state) up to phase ``num_phases``.
+
+        Every ``log_every`` phases the episode metrics are drained and
+        ``log_fn`` gets one line.  ``on_phase(state, scalars)`` runs after
+        every phase: ``scalars`` holds what was logged (episode metrics and
+        the last learner metrics) on a log phase, and is None otherwise.
+        """
         state = self.init() if state is None else state
         warm, fill = self.window_fill_phases, self.replay_fill_phases
         last_metrics: Metrics = {}
-        for phase in range(num_phases):
+        for phase in range(state.phase_idx, num_phases):
             if phase < warm:
                 state = self.collect_phase(state)
             elif phase < warm + fill:
                 state = self.fill_phase(state)
             else:
                 state, last_metrics = self.train_phase(state)
+            scalars = None
             if log_every and (phase + 1) % log_every == 0:
-                state, ep = self.pop_episode_metrics(state)
+                state, scalars = self.pop_episode_metrics(state)
                 names = list(last_metrics)
                 values = (
                     torch.stack([last_metrics[k] for k in names]).tolist()
                     if names
                     else []
                 )
+                scalars.update(zip(names, values))
                 log_fn(
                     f"phase {phase + 1}/{num_phases} "
-                    f"env_steps {int(ep['env_steps'])} "
-                    f"return {ep['episode_return_mean']:.1f} "
-                    f"({int(ep['episodes'])} eps) "
+                    f"env_steps {int(scalars['env_steps'])} "
+                    f"return {scalars['episode_return_mean']:.1f} "
+                    f"({int(scalars['episodes'])} eps) "
                     + " ".join(f"{k} {v:.3g}" for k, v in zip(names, values))
                 )
+            if on_phase is not None:
+                on_phase(state, scalars)
         return state

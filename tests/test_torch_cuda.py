@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on a card, against their plain versions.
+"""The port's CUDA kernels on a card, against their plain versions; the
+serving slabs and the service's bitwise contract on the card.
 
 Marked ``cuda``; each test skips without a card.  This file imports no JAX,
 so it also runs on a machine without it:
@@ -9,7 +10,12 @@ Every comparison is bitwise: the scatter only copies values.  The batch
 sizes cover one lane, a ragged single warp, whole warps, a ragged last warp,
 one block of 1,024 threads, and several blocks past it (with a ragged last
 block); the arena's write-back runs at the cheetah_pixels shapes
-(capacity 8,000, B 32).
+(capacity 8,000, B 32).  The session slabs' gather and write-back on the
+card equal the CPU's (bitwise), and a ``PolicyService`` on the card at
+walker_r2d2's actor width serves each of 8 interleaved sessions bitwise
+what the session alone in row 0 of a 32-row step gets, and within 1e-5
+absolute of the plain one-row rollout (``policy_step_fn``, no row-wise
+form; actions are about 0.1, and the two differed by 2.9e-9 on an H100).
 """
 
 import numpy as np
@@ -17,9 +23,12 @@ import pytest
 import torch
 
 from r2d2dpg_torch.kernels import PRIORITY_SCATTER
+from r2d2dpg_torch.models import ActorNet, policy_step_fn
 from r2d2dpg_torch.ops.priority import PRIORITY_EPS
 from r2d2dpg_torch.ops.scatter import priority_scatter, priority_scatter_plain
 from r2d2dpg_torch.replay import ReplayArena, SequenceBatch
+from r2d2dpg_torch.serving import PolicyService, SessionStore, gather_carries, scatter_carries
+from r2d2dpg_torch.serving.service import expand_rows, rowwise_policy_step_fn
 from r2d2dpg_torch.testing import SCATTER_PATTERNS, scatter_case
 
 BATCHES = (1, 31, 32, 33, 64, 65, 256, 1024, 1025, 4096, 8192)
@@ -106,3 +115,58 @@ def test_update_priorities_at_the_cheetah_shapes_matches_plain_exactly():
     torch.cuda.synchronize()
     assert PRIORITY_SCATTER.launches == before + 1
     np.testing.assert_array_equal(state.priority.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+def test_session_slabs_gather_and_write_back_on_the_card():
+    dev = _card()
+    actor = ActorNet((24,), 6, hidden=256)
+    store = SessionStore(1024, actor.initial_carry)
+    g = torch.Generator().manual_seed(0)
+    slots = torch.cat([torch.randperm(1024, generator=g)[:20], torch.full((12,), 1024)])
+    new = tuple(torch.randn(32, 256, generator=g) for _ in range(2))
+    out = {}
+    for d in ("cpu", dev):
+        slabs = store.init_slabs(d)
+        for buf in slabs.carries:
+            buf.copy_(torch.arange(buf.numel(), dtype=torch.float32).view_as(buf))
+        got = gather_carries(slabs, slots.to(d))
+        scatter_carries(slabs, slots.to(d), tuple(x.to(d) for x in new))
+        out[str(d)] = ([x.cpu() for x in got], [x[:1024].cpu() for x in slabs.carries])
+    for a, b in zip(out["cpu"][0] + out["cpu"][1], out[str(dev)][0] + out[str(dev)][1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_service_is_bitwise_across_buckets_on_the_card():
+    dev = _card()
+    actor = ActorNet((24,), 6, hidden=256)
+    params = actor.init_params(torch.Generator().manual_seed(1), dev)
+    rng = np.random.default_rng(0)
+    obs = {f"s{i}": rng.standard_normal((6, 24)).astype(np.float32) for i in range(8)}
+    got = {s: [] for s in obs}
+    with PolicyService(actor, params, obs_shape=(24,), max_sessions=64,
+                       flush_ms=1.0, device=dev) as svc:
+        for t in range(6):
+            # 3, 4, ..., 8 sessions a round, joining late.
+            live = [s for i, s in enumerate(obs) if i <= t + 2]
+            pending = [(s, svc.act_async(s, obs[s][len(got[s])],
+                                         reset=not got[s])) for s in live]
+            for s, req in pending:
+                assert req.wait(60.0) and req.code == "ok", req.code
+                got[s].append(req.action)
+    step = rowwise_policy_step_fn(actor)
+    plain = policy_step_fn(actor)
+    rows = expand_rows(params, 32)
+    for s in obs:
+        carry = actor.initial_carry(32, dev)
+        carry1 = actor.initial_carry(1, dev)
+        for t, action in enumerate(got[s]):
+            o = torch.zeros(32, 24, device=dev)
+            o[0] = torch.from_numpy(obs[s][t]).to(dev)
+            reset = torch.ones(32, device=dev)
+            reset[0] = 1.0 if t == 0 else 0.0
+            want, carry = step(rows, o, carry, reset)
+            np.testing.assert_array_equal(action, want[0].cpu().numpy())
+            a1, carry1 = plain(params, o[:1], carry1, reset[:1])
+            np.testing.assert_allclose(action, a1[0].cpu().numpy(), rtol=0, atol=1e-5)

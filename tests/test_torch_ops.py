@@ -11,6 +11,7 @@ CPU when CUDA is missing.
 import pathlib
 import subprocess
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -189,15 +190,29 @@ def test_polyak_matches_jax():
 _PURITY = """
 import importlib, pkgutil, sys
 import r2d2dpg_torch
-for m in pkgutil.walk_packages(r2d2dpg_torch.__path__, "r2d2dpg_torch."):
-    importlib.import_module(m.name)
+names = [m.name for m in pkgutil.walk_packages(r2d2dpg_torch.__path__, "r2d2dpg_torch.")]
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+print("MODULES", " ".join(names))
 bad = sorted(
     m for m in sys.modules
-    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "r2d2dpg_tpu")
+    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "r2d2dpg_tpu")
 )
 print("BAD", bad)
 sys.exit(1 if bad else 0)
 """
+
+# Every module and CLI the port has, so a new one cannot slip past the walk.
+_PORT_MODULES = {
+    "r2d2dpg_torch.train", "r2d2dpg_torch.eval", "r2d2dpg_torch.serve",
+    "r2d2dpg_torch.training.evaluator", "r2d2dpg_torch.utils.checkpoint",
+    "r2d2dpg_torch.utils.metrics", "r2d2dpg_torch.utils.codes",
+    "r2d2dpg_torch.obs.registry", "r2d2dpg_torch.obs.flight",
+    "r2d2dpg_torch.serving.sessions", "r2d2dpg_torch.serving.batcher",
+    "r2d2dpg_torch.serving.health", "r2d2dpg_torch.serving.service",
+    "r2d2dpg_torch.serving.reload", "r2d2dpg_torch.serving.router",
+}
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -206,6 +221,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         timeout=120, cwd=pathlib.Path(__file__).resolve().parent.parent,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    walked = set(proc.stdout.split("MODULES ")[1].split("\n")[0].split())
+    assert _PORT_MODULES <= walked, _PORT_MODULES - walked
 
 
 def test_no_cpu_fallback_without_cuda(monkeypatch):
@@ -220,4 +237,17 @@ def test_no_cpu_fallback_without_cuda(monkeypatch):
         PENDULUM_TINY.build()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--config", "pendulum_tiny", "--phases", "1"])
+    from r2d2dpg_torch.eval import main as eval_main
+    from r2d2dpg_torch.serve import main as serve_main
+    from r2d2dpg_torch.serving import PolicyService, default_worker_devices
+
+    for cli in (eval_main, serve_main):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli(["--config", "pendulum_tiny", "--checkpoint-dir", "unused"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        default_worker_devices(2)
+    actor = PENDULUM_TINY.build_agent(types.SimpleNamespace(
+        spec=types.SimpleNamespace(obs_shape=(3,), action_dim=1))).actor
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PolicyService(actor, actor.init_params(None, "cpu"))
     assert resolve_device("cpu").type == "cpu"
