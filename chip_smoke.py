@@ -53,8 +53,21 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    bitwise equal to its rollout alone and within 1e-5 of the plain
    one-row rollout (both required); two router workers on the card
    bitwise equal to one worker, no affinity violation;
-10. whether ``mujoco`` and ``dm_control`` import (informational);
-11. each phase's seconds, one JSON line per kernel summary (launches
+10. the scatter launched on a side stream (where the pipelined learner
+   launches it), bitwise against the plain version;
+11. the pipeline-off anchor: ``PipelineExecutor(enabled=False)`` against
+   ``Trainer.run`` at pendulum_r2d2 with ``min_replay`` cut to 40 (4 + 10
+   + 6 phases) and deterministic algorithms on, bitwise or else within
+   1e-5;
+12. the pipelined main path: ``train.main --pipeline 1 --phases 40
+   --pipeline-depth 2 --trace-sample 0.1`` at pendulum_r2d2 (warm-up 4 +
+   fill 50 + 40 train phases), counts set to 0 just before and read just
+   after (one launch per learner step), the run's counters, priorities
+   moved and finite, the executor's stats, the sampled hop spans; then 40
+   phase-locked train phases timed in the same process and device-busy
+   time of 3 pipelined ones;
+13. whether ``mujoco`` and ``dm_control`` import (informational);
+14. each phase's seconds, one JSON line per kernel summary (launches
    summed over every path), then the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``r2d2dpg_tpu``.  Without a card,
@@ -144,11 +157,11 @@ def _card_line():
 
 
 @contextlib.contextmanager
-def _deterministic(torch, on):
+def _deterministic(torch, on, warn_only=False):
     """``torch.use_deterministic_algorithms(on)`` inside, restored after."""
     prev = torch.are_deterministic_algorithms_enabled()
     prev_warn = torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(on)
+    torch.use_deterministic_algorithms(on, warn_only=warn_only)
     try:
         yield
     finally:
@@ -599,22 +612,15 @@ def _cuda_vs_cpu_phase(torch, dev):
     print(json.dumps({"cuda_vs_cpu_learner_variants": recs}), flush=True)
 
 
-def _trainer_phase(torch, dev, label="pendulum_r2d2_trainer", flags=(), after_run=None):
-    """The main path through its entry point, with launch counts around it.
-
-    ``after_run(state)`` runs on the run's final state before the timing
-    below trains it further (the checkpoint phase reads it there).
-    """
-    from r2d2dpg_torch import kernels
+@contextlib.contextmanager
+def _entry_priorities(torch, dev, capacity):
+    """Record what each ``ReplayArena.add`` writes (yields the ``[capacity]``
+    record), to show later that the learner's write-back moved those
+    priorities."""
     from r2d2dpg_torch.ops.priority import PRIORITY_EPS
     from r2d2dpg_torch.replay.arena import ReplayArena
-    from r2d2dpg_torch.train import main as train_main
 
-    config = _config("pendulum_r2d2", *flags)
-    train_phases = 10
-    # Record what each add writes, to show that the learner's write-back
-    # later moved those priorities.
-    entered = torch.zeros(config.trainer.capacity, device=dev)
+    entered = torch.zeros(capacity, device=dev)
     plain_add = ReplayArena.add
 
     def add(self, state, batch, priorities, meta=None):
@@ -624,8 +630,37 @@ def _trainer_phase(torch, dev, label="pendulum_r2d2_trainer", flags=(), after_ru
         return plain_add(self, state, batch, priorities, meta)
 
     ReplayArena.add = add
-    buf = io.StringIO()
     try:
+        yield entered
+    finally:
+        ReplayArena.add = plain_add
+
+
+def _priorities_moved(torch, label, state, entered):
+    """Finite arena priorities, some moved off their entry values; returns
+    (moved, filled)."""
+    filled = state.arena.priority > 0
+    moved = int(((state.arena.priority != entered) & filled).sum())
+    if moved == 0:
+        raise AssertionError(f"{label}: no arena priority moved off its entry value")
+    if not bool(torch.isfinite(state.arena.priority).all()):
+        raise AssertionError(f"{label}: non-finite arena priorities")
+    return moved, int(filled.sum())
+
+
+def _trainer_phase(torch, dev, label="pendulum_r2d2_trainer", flags=(), after_run=None):
+    """The main path through its entry point, with launch counts around it.
+
+    ``after_run(state)`` runs on the run's final state before the timing
+    below trains it further (the checkpoint phase reads it there).
+    """
+    from r2d2dpg_torch import kernels
+    from r2d2dpg_torch.train import main as train_main
+
+    config = _config("pendulum_r2d2", *flags)
+    train_phases = 10
+    buf = io.StringIO()
+    with _entry_priorities(torch, dev, config.trainer.capacity) as entered:
         for k in kernels.ALL_KERNELS:
             k.launches = 0
         t0 = time.perf_counter()
@@ -637,18 +672,11 @@ def _trainer_phase(torch, dev, label="pendulum_r2d2_trainer", flags=(), after_ru
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
-    finally:
-        ReplayArena.add = plain_add
     lines = buf.getvalue().splitlines()
     expected = train_phases * config.trainer.learner_steps
     if launches["priority_scatter"] != expected:
         raise AssertionError(f"{label}: scatter launches {launches}, expected {expected}")
-    filled = state.arena.priority > 0
-    moved = int(((state.arena.priority != entered) & filled).sum())
-    if moved == 0:
-        raise AssertionError(f"{label}: no arena priority moved off its entry value")
-    if not bool(torch.isfinite(state.arena.priority).all()):
-        raise AssertionError(f"{label}: non-finite arena priorities")
+    moved, filled = _priorities_moved(torch, label, state, entered)
     print(lines[0], flush=True)  # backend line
     print("last log line:", lines[-1], flush=True)
     extra = after_run(state) if after_run is not None else {}
@@ -681,9 +709,184 @@ def _trainer_phase(torch, dev, label="pendulum_r2d2_trainer", flags=(), after_ru
         "device_idle_share": None if device_ms is None else 1 - device_ms / phase_ms,
         "top_device_ms_per_phase": top,
         "scatter_launches": launches["priority_scatter"],
-        "priorities_moved": moved, "filled_slots": int(filled.sum()),
+        "priorities_moved": moved, "filled_slots": filled,
     }}), flush=True)
     return {label: launches["priority_scatter"], **extra}
+
+
+def _side_stream_scatter(torch, dev):
+    """The scatter launched on a side stream (where the pipelined learner
+    launches it), bitwise against the plain version."""
+    from r2d2dpg_torch.ops.scatter import priority_scatter, priority_scatter_plain
+    from r2d2dpg_torch.testing import scatter_case
+
+    cases = []
+    for seed, (pattern, capacity, b) in enumerate(
+            (("mixed", 50_000, 64), ("repeat", 50_000, 256), ("all_same", 8_000, 32))):
+        prio, idx, vals = (torch.from_numpy(a).to(dev)
+                           for a in scatter_case(pattern, capacity, b, 100 + seed))
+        want = priority_scatter_plain(prio.clone(), idx, vals)
+        side = torch.cuda.Stream(dev)
+        got = prio.clone()
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            priority_scatter(got, idx, vals)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"side-stream scatter != plain: {pattern}, B {b}")
+        cases.append({"pattern": pattern, "capacity": capacity, "b": b,
+                      "max_abs_err": (got - want).abs().max().item()})
+    print(json.dumps({"priority_scatter_side_stream": cases}), flush=True)
+    return max(c["max_abs_err"] for c in cases)
+
+
+def _pipeline_off_anchor(torch, dev, train_phases=6, min_replay=40):
+    """``PipelineExecutor(enabled=False).run`` against ``Trainer.run`` at
+    pendulum_r2d2 on the card, deterministic algorithms on: bitwise, or
+    else within 1e-5 of each other (the largest difference printed).
+    Depth cut: ``min_replay`` 40, so 10 replay-fill phases, not 50."""
+    import dataclasses
+    import warnings
+
+    from r2d2dpg_torch.training.pipeline import PipelineConfig, PipelineExecutor
+    from r2d2dpg_torch.tree import tree_leaves
+
+    config = _config("pendulum_r2d2")
+    config = dataclasses.replace(config, trainer=dataclasses.replace(
+        config.trainer, min_replay=min_replay))
+    quiet = dict(log_every=16, log_fn=lambda *_: None)
+    t0 = time.perf_counter()
+    with _deterministic(torch, True, warn_only=True), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        trainer = config.build(dev)
+        n = trainer.window_fill_phases + trainer.replay_fill_phases + train_phases
+        ref = trainer.run(n, **quiet)
+        ex = PipelineExecutor(config.build(dev), PipelineConfig(enabled=False))
+        got = ex.run(n, **quiet)
+        torch.cuda.synchronize()
+    strip = lambda s: (s.train, s.arena, s.window, s.obs, s.env_state,  # noqa: E731
+                       s.actor_carry, s.critic_carry, s.episode_return)
+    pairs = list(zip(tree_leaves(strip(ref)), tree_leaves(strip(got)), strict=True))
+    bitwise = all(torch.equal(a, b) for a, b in pairs)
+    max_diff = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+    counters = lambda s: (s.phase_idx, s.env_steps, s.train.step,  # noqa: E731
+                          s.arena.total_added)
+    rec = {"config": "pendulum_r2d2", "min_replay": min_replay, "phases": n,
+           "train_phases": train_phases,
+           "leaves": len(pairs), "bitwise": bitwise, "max_abs_diff": max_diff,
+           "counters": list(counters(got)), "seconds": time.perf_counter() - t0}
+    print(json.dumps({"pipeline_off_anchor": rec}), flush=True)
+    if counters(ref) != counters(got) or not (bitwise or max_diff <= 1e-5):
+        raise AssertionError(f"pipeline off != Trainer.run: {rec}")
+
+
+def _pipelined_phase(torch, dev, train_phases=40):
+    """The pipelined main path through its entry point: ``train.main
+    --pipeline 1`` at pendulum_r2d2 with the launch counts set to 0 just
+    before and read just after; then the same number of phase-locked train
+    phases timed in this process, and device-busy time of 3 pipelined ones."""
+    import random
+
+    from r2d2dpg_torch import kernels
+    from r2d2dpg_torch.obs import get_flight_recorder
+    from r2d2dpg_torch.train import main as train_main
+    from r2d2dpg_torch.training.pipeline import PipelineConfig, PipelineExecutor
+
+    label = "pendulum_r2d2_pipelined"
+    config = _config("pendulum_r2d2")
+    tc = config.trainer
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    buf = io.StringIO()
+    try:
+        random.seed(0)  # which batches --trace-sample picks
+        get_flight_recorder().clear_spans()
+        with _entry_priorities(torch, dev, tc.capacity) as entered:
+            for k in kernels.ALL_KERNELS:
+                k.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                state = train_main([
+                    "--config", "pendulum_r2d2", "--pipeline", "1",
+                    "--phases", str(train_phases), "--pipeline-depth", "2",
+                    "--trace-sample", "0.1", "--log-every", "10", "--logdir", logdir,
+                ])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
+        trace_written = os.path.exists(os.path.join(logdir, "trace.json"))
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    lines = buf.getvalue().splitlines()
+    trainer = config.build(dev)
+    fill = trainer.window_fill_phases + trainer.replay_fill_phases
+    expected = train_phases * tc.learner_steps
+    if launches["priority_scatter"] != expected:
+        raise AssertionError(f"{label}: scatter launches {launches}, expected {expected}")
+    want = (fill + train_phases, (fill + train_phases) * tc.stride * tc.num_envs,
+            train_phases * tc.learner_steps,
+            min((trainer.replay_fill_phases + train_phases) * tc.num_envs, tc.capacity))
+    got = (state.phase_idx, state.env_steps, state.train.step,
+           trainer.arena.size(state.arena))
+    if got != want:
+        raise AssertionError(f"{label}: (phase, env_steps, step, arena size) {got} != {want}")
+    moved, filled = _priorities_moved(torch, label, state, entered)
+    stats_line = next(x for x in lines
+                      if x.startswith("pipeline: ") and "overlap_fraction" in x)
+    words = stats_line.split()[1:]
+    stats = {k: float(v) for k, v in zip(words[::2], words[1::2])}
+    spans = {}
+    for sp in get_flight_recorder().spans():
+        spans.setdefault(sp["hop"], []).append(sp["dur_s"] * 1e3)
+    if not trace_written or "collect" not in spans:
+        raise AssertionError(f"{label}: no sampled trace ({sorted(spans)})")
+    last = [x for x in lines if x.startswith("phase ")][-1]
+    numbers = []
+    for word in last.split()[3:]:
+        try:
+            numbers.append(float(word.strip("()")))
+        except ValueError:
+            continue
+    if not all(math.isfinite(x) for x in numbers):
+        raise AssertionError(f"{label}: non-finite metrics: {last}")
+
+    # The same number of phase-locked train phases on the run's final state,
+    # then device-busy time of 3 pipelined train phases (two such calls,
+    # the first a warm-up), both outside the launch count.
+    for _ in range(3):
+        state, _ = trainer.train_phase(state)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(train_phases):
+        state, _ = trainer.train_phase(state)
+    torch.cuda.synchronize()
+    locked_ms = (time.perf_counter() - t1) / train_phases * 1e3
+    ex = PipelineExecutor(trainer, PipelineConfig(enabled=True, queue_depth=2))
+
+    def three():
+        nonlocal state
+        state = ex.run_train_phases(state, 3)
+
+    device_ms, top, events = _device_profile(three, 1)
+    wall_ms = stats["wall_s"] / stats["train_phases"] * 1e3
+    print("pipeline stats line:", stats_line, flush=True)
+    print("last log line:", last, flush=True)
+    print(json.dumps({label: {
+        "train_phases": train_phases, "queue_depth": 2, "trace_sample": 0.1,
+        "run_seconds": seconds, "executor_stats": stats,
+        "pipelined_ms_per_train_phase": wall_ms,
+        "phase_locked_ms_per_train_phase": locked_ms,
+        "pipelined_over_locked": wall_ms / locked_ms,
+        "device_busy_ms_per_pipelined_phase": None if device_ms is None else device_ms / 3,
+        "device_events_per_pipelined_phase": None if events is None else events / 3,
+        "top_device_ms_per_3_phases": top,
+        "peak_mem_gb": stats["peak_hbm_bytes"] / 1e9,
+        "hop_spans": {h: {"count": len(v), "mean_ms": sum(v) / len(v),
+                          "max_ms": max(v)} for h, v in spans.items()},
+        "scatter_launches": launches["priority_scatter"],
+        "priorities_moved": moved, "filled_slots": filled,
+    }}), flush=True)
+    return {label: launches["priority_scatter"]}
 
 
 def _flat(tree, path=""):
@@ -1096,6 +1299,9 @@ def main() -> int:
         "trainer_td3_bf16", _trainer_phase,
         torch, dev, "pendulum_r2d2_td3_bf16_trainer", (*TD3_FLAGS, *BF16_FLAGS)))
     timed("serving", _serving_phase, torch, dev)
+    side_err = timed("side_stream_scatter", _side_stream_scatter, torch, dev)
+    timed("pipeline_off_anchor", _pipeline_off_anchor, torch, dev)
+    launches.update(timed("pipelined", _pipelined_phase, torch, dev))
     timed("mujoco_probe", _mujoco_probe)
     phase_seconds["total"] = time.perf_counter() - t_start
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)
@@ -1107,7 +1313,7 @@ def main() -> int:
         "replaces": "r2d2dpg_tpu/ops/pallas/scatter.py:48",
         "launches": sum(launches.values()),
         "launches_by_path": launches,
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err, side_err),
         "ms": t["kernel_ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],

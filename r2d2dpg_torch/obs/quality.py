@@ -1,0 +1,335 @@
+"""Experience-quality plane: read the run as an RL experiment.
+
+Port of ``r2d2dpg_tpu/obs/quality.py``, copied whole (it imports only
+numpy and threading there).  The one registration point of the
+``r2d2dpg_quality_*`` family and the pure math its fold sites use:
+
+- **policy lag**: learner param version minus the behaviour version
+  stamped on a trained sequence;
+- **replay age at train**: phases since collect (``collect_id``), or, on
+  the in-graph path, learner steps since arena entry (the arena's
+  ``meta`` stamp);
+- **ESS/B fraction** of a drawn batch, ``(sum w)^2 / (B * sum w^2)`` with
+  ``w = 1/p``: 1.0 for a uniform draw, ``1/B`` when one slot dominates;
+- **IS-weight saturation**: the share of the batch at the normalized
+  importance-weight ceiling;
+- per-actor trained sequences and per-shard evicted-before-sampled counts
+  (the fleet and shard slices feed them).
+
+Nothing here fetches from a device: the trainer's log cadence hands its
+already-fetched scalars to ``publish_scalars``.  Absent provenance is
+``PROVENANCE_ABSENT`` and disarms the lag and age folds.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional
+
+import numpy as np
+
+# Sentinel for "no provenance": old-schema frames decode to this, and the
+# arena/shard meta buffers initialize to it.  Folds mask it out, so a
+# mixed fleet (old actors + new learner) degrades to fewer samples, never
+# to a refused frame or a fake lag of ``version - (-1)``.
+PROVENANCE_ABSENT = -1
+
+# The family: every r2d2dpg_quality_* registration in this module, each
+# name in the r2d2dpg_<subsystem>_<metric> scheme.
+METRIC_NAMES = (
+    "r2d2dpg_quality_policy_lag",
+    "r2d2dpg_quality_replay_age",
+    "r2d2dpg_quality_ess_frac",
+    "r2d2dpg_quality_is_saturation",
+    "r2d2dpg_quality_trained_seqs_total",
+    "r2d2dpg_quality_evicted_unsampled_total",
+    "r2d2dpg_quality_evicted_unsampled_frac",
+)
+
+
+# --------------------------------------------------------------- pure math
+def ess_fraction(probs: np.ndarray) -> float:
+    """ESS/B of a drawn batch from its sampling probabilities.
+
+    Importance weights are ``w_i = 1/p_i`` up to a constant (the constant
+    cancels): ``ESS/B = (sum w)^2 / (B * sum w^2)`` — 1.0 when the draw
+    was uniform over the batch, ``1/B`` when one slot soaked up the whole
+    distribution.  NaN-free: empty/invalid input returns 0.0 (callers
+    gate on batch presence before arming gauges)."""
+    p = np.asarray(probs, np.float64).ravel()
+    p = p[np.isfinite(p) & (p > 0.0)]
+    if p.size == 0:
+        return 0.0
+    w = 1.0 / p
+    return float((w.sum() ** 2) / (p.size * np.square(w).sum()))
+
+
+def is_saturation_fraction(
+    probs: np.ndarray, occupancy: float, beta: float
+) -> float:
+    """Fraction of the batch at the normalized IS-weight ceiling.
+
+    Mirrors the trainer's ``importance_weights``: ``w_i = (N p_i)^-beta``
+    max-normalized to [0, 1] — the ceiling (1.0) lands on the
+    minimum-probability draw(s).  A fraction near 1.0 means beta-annealed
+    correction has flattened (weights all equal, e.g. beta ~ 0 or a
+    collapsed distribution); computed host-side from the same probs array
+    the batch assembly already holds."""
+    p = np.asarray(probs, np.float64).ravel()
+    p = p[np.isfinite(p) & (p > 0.0)]
+    if p.size == 0:
+        return 0.0
+    w = (max(float(occupancy), 1.0) * p) ** (-float(beta))
+    wmax = float(w.max())
+    if not np.isfinite(wmax) or wmax <= 0.0:
+        return 0.0
+    return float(np.mean(w >= wmax * (1.0 - 1e-9)))
+
+
+def policy_lags(
+    learner_version: int, behavior_versions: np.ndarray
+) -> np.ndarray:
+    """Per-sequence policy lag, provenance-masked.
+
+    Drops ``PROVENANCE_ABSENT`` entries (old-schema frames disarm rather
+    than pollute) and clamps at 0 — an actor that raced a param publish
+    ahead of the learner's own clock is lag 0, not negative."""
+    bv = np.asarray(behavior_versions, np.int64).ravel()
+    bv = bv[bv != PROVENANCE_ABSENT]
+    if bv.size == 0:
+        return np.zeros((0,), np.int64)
+    return np.maximum(int(learner_version) - bv, 0)
+
+
+def replay_ages(phase_now: int, collect_ids: np.ndarray) -> np.ndarray:
+    """Per-sequence replay age (phases since collect), provenance-masked.
+
+    ``collect_id`` is the COLLECTOR's phase clock at staging; actor and
+    learner phase clocks both count from run start, so the difference is
+    the phases-since-collect estimate (exact under ``--actors 0``).
+    Clamped at 0: a free-running actor ahead of the learner reads as
+    fresh, never negative."""
+    ci = np.asarray(collect_ids, np.int64).ravel()
+    ci = ci[ci != PROVENANCE_ABSENT]
+    if ci.size == 0:
+        return np.zeros((0,), np.int64)
+    return np.maximum(int(phase_now) - ci, 0)
+
+
+# ------------------------------------------------------------------ plane
+class QualityPlane:
+    """The family's registration point + final-stamp aggregates.
+
+    Instruments live in the process registry (idempotent re-registration,
+    like every other plane); the plane itself only adds the running
+    aggregates ``snapshot_final()`` stamps into ``quality_final.json`` —
+    histograms are bounded windows, so the stamp carries full-run counts
+    the scrape cannot."""
+
+    def __init__(self, registry=None):
+        from r2d2dpg_torch.obs.registry import get_registry
+
+        reg = registry if registry is not None else get_registry()
+        self.lag = reg.histogram(
+            "r2d2dpg_quality_policy_lag",
+            "per-trained-sequence policy lag "
+            "(learner param version - behavior param version)",
+        )
+        self.age = reg.histogram(
+            "r2d2dpg_quality_replay_age",
+            "per-trained-sequence replay age at train (phases since "
+            "collect; learner steps on the in-graph path)",
+        )
+        self.ess = reg.gauge(
+            "r2d2dpg_quality_ess_frac",
+            "ESS/B of the last trained batch's sampling distribution "
+            "(1.0 uniform, 1/B collapsed)",
+        )
+        self.saturation = reg.gauge(
+            "r2d2dpg_quality_is_saturation",
+            "fraction of the last trained batch at the normalized "
+            "IS-weight ceiling",
+        )
+        self.trained = reg.counter(
+            "r2d2dpg_quality_trained_seqs_total",
+            "trained sequences by HELLO-authenticated collector identity",
+            labelnames=("actor",),
+        )
+        self.evicted_unsampled = reg.counter(
+            "r2d2dpg_quality_evicted_unsampled_total",
+            "ring evictions of slots the learner never sampled",
+            labelnames=("shard",),
+        )
+        self.evicted_unsampled_frac = reg.gauge(
+            "r2d2dpg_quality_evicted_unsampled_frac",
+            "fraction of this shard's evictions that were never sampled",
+            labelnames=("shard",),
+        )
+        self._lock = threading.Lock()
+        self._lag_n = 0
+        self._lag_sum = 0.0
+        self._lag_max = 0.0
+        self._age_n = 0
+        self._age_sum = 0.0
+        self._age_max = 0.0
+        self._ess_last: Optional[float] = None
+        self._sat_last: Optional[float] = None
+        self._trained_by_actor: Dict[str, int] = {}
+        self._evicted_by_shard: Dict[str, Dict[str, int]] = {}
+
+    # ------------------------------------------------------------- folds
+    def observe_lags(self, lags: np.ndarray) -> None:
+        lags = np.asarray(lags, np.float64).ravel()
+        if lags.size == 0:
+            return
+        for v in lags:
+            self.lag.observe(float(v))
+        with self._lock:
+            self._lag_n += int(lags.size)
+            self._lag_sum += float(lags.sum())
+            self._lag_max = max(self._lag_max, float(lags.max()))
+
+    def observe_ages(self, ages: np.ndarray) -> None:
+        ages = np.asarray(ages, np.float64).ravel()
+        if ages.size == 0:
+            return
+        for v in ages:
+            self.age.observe(float(v))
+        with self._lock:
+            self._age_n += int(ages.size)
+            self._age_sum += float(ages.sum())
+            self._age_max = max(self._age_max, float(ages.max()))
+
+    def observe_probs(
+        self, probs: np.ndarray, occupancy: float, beta: float
+    ) -> None:
+        """Fold one assembled batch's sampling distribution (host-side)."""
+        self.publish_scalars(
+            ess_frac=ess_fraction(probs),
+            is_saturation=is_saturation_fraction(probs, occupancy, beta),
+        )
+
+    def publish_scalars(
+        self,
+        ess_frac: Optional[float] = None,
+        is_saturation: Optional[float] = None,
+        replay_age_mean: Optional[float] = None,
+    ) -> None:
+        """Scalar leg for values that rode an EXISTING batched device_get
+        (the phase-locked in-graph metrics) — the plane never fetches."""
+        if ess_frac is not None and np.isfinite(ess_frac):
+            self.ess.set(float(ess_frac))
+            with self._lock:
+                self._ess_last = float(ess_frac)
+        if is_saturation is not None and np.isfinite(is_saturation):
+            self.saturation.set(float(is_saturation))
+            with self._lock:
+                self._sat_last = float(is_saturation)
+        if replay_age_mean is not None and np.isfinite(replay_age_mean):
+            self.age.observe(float(replay_age_mean))
+            with self._lock:
+                self._age_n += 1
+                self._age_sum += float(replay_age_mean)
+                self._age_max = max(self._age_max, float(replay_age_mean))
+
+    def note_trained(self, actor: str, n: int) -> None:
+        """``actor`` MUST be the HELLO-authenticated identity (ingest
+        overwrites any payload-carried id before the msg reaches a fold
+        site; shard slots stamp the authenticated code at add)."""
+        if n <= 0:
+            return
+        self.trained.labels(actor=str(actor)).inc(float(n))
+        with self._lock:
+            key = str(actor)
+            self._trained_by_actor[key] = (
+                self._trained_by_actor.get(key, 0) + int(n)
+            )
+
+    def note_evictions(
+        self, shard: int, evicted: int, unsampled: int
+    ) -> None:
+        """One shard add's eviction verdict: ``evicted`` filled slots
+        overwritten, ``unsampled`` of them never sampled."""
+        if evicted <= 0:
+            return
+        key = str(shard)
+        if unsampled > 0:
+            self.evicted_unsampled.labels(shard=key).inc(float(unsampled))
+        with self._lock:
+            rec = self._evicted_by_shard.setdefault(
+                key, {"evicted": 0, "unsampled": 0}
+            )
+            rec["evicted"] += int(evicted)
+            rec["unsampled"] += int(unsampled)
+            frac = rec["unsampled"] / max(rec["evicted"], 1)
+        self.evicted_unsampled_frac.labels(shard=key).set(frac)
+
+    # ------------------------------------------------------------- stamp
+    def snapshot_final(self) -> dict:
+        """Full-run aggregates for ``quality_final.json`` (histogram
+        windows are bounded; this stamp is not)."""
+        with self._lock:
+            lag_count, lag_total, lag_p50, lag_p99 = self.lag.snapshot()
+            age_count, age_total, age_p50, age_p99 = self.age.snapshot()
+            return {
+                "policy_lag": {
+                    "count": self._lag_n,
+                    "mean": self._lag_sum / max(self._lag_n, 1),
+                    "max": self._lag_max,
+                    "window_p50": lag_p50,
+                    "window_p99": lag_p99,
+                },
+                "replay_age": {
+                    "count": self._age_n,
+                    "mean": self._age_sum / max(self._age_n, 1),
+                    "max": self._age_max,
+                    "window_p50": age_p50,
+                    "window_p99": age_p99,
+                },
+                "ess_frac": self._ess_last,
+                "is_saturation": self._sat_last,
+                "trained_seqs_by_actor": dict(self._trained_by_actor),
+                "evictions_by_shard": {
+                    k: dict(v) for k, v in self._evicted_by_shard.items()
+                },
+            }
+
+
+def quality_stats_columns() -> Dict[str, float]:
+    """Flat quality columns for learner ``stats()`` dicts — the bench
+    fleet/sampler legs' algorithm-health read.  ``-1`` marks a signal
+    that never armed this run (absence, not a measured zero), so a bench
+    table distinguishes "no provenance" from "perfectly fresh"."""
+    q = get_quality_plane().snapshot_final()
+    lag, age = q["policy_lag"], q["replay_age"]
+    return {
+        "quality_lag_mean": lag["mean"] if lag["count"] else -1.0,
+        "quality_lag_p99": lag["window_p99"] if lag["count"] else -1.0,
+        "quality_replay_age_mean": age["mean"] if age["count"] else -1.0,
+        "quality_ess_frac": (
+            q["ess_frac"] if q["ess_frac"] is not None else -1.0
+        ),
+        "quality_is_saturation": (
+            q["is_saturation"] if q["is_saturation"] is not None else -1.0
+        ),
+    }
+
+
+_lock = threading.Lock()
+_plane: Optional[QualityPlane] = None
+
+
+def get_quality_plane() -> QualityPlane:
+    """THE process quality plane (instruments in the process registry)."""
+    global _plane
+    with _lock:
+        if _plane is None:
+            _plane = QualityPlane()
+        return _plane
+
+
+def reset_quality_plane() -> None:
+    """Drop the singleton (tests; pairs with registry clears)."""
+    global _plane
+    with _lock:
+        _plane = None

@@ -6,6 +6,9 @@ from r2d2dpg_torch.replay.arena import (
     ReplayArena,
     SampleResult,
     SequenceBatch,
+    StagedSequences,
+    stack_staged,
+    staged_nbytes,
 )
 
 __all__ = [
@@ -14,4 +17,7 @@ __all__ = [
     "ReplayArena",
     "SampleResult",
     "SequenceBatch",
+    "StagedSequences",
+    "stack_staged",
+    "staged_nbytes",
 ]

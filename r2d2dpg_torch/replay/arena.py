@@ -10,26 +10,34 @@ preallocated device buffers with ring semantics.
 - ``update_priorities``: the learner's write-back through the priority
   scatter kernel (``ops/scatter.py``).
 
+- ``add_staged``: the pipelined executor's drain path: a collect phase's
+  ``StagedSequences`` (``stack_staged`` concatenates several), through
+  ``add`` with the ``staged_meta`` stamp, under a single-writer claim.
+
 Unlike the JAX arena, whose functions return fresh arrays, the port updates
 its buffers IN PLACE: ``add`` copies into the preallocated buffers and
 ``update_priorities`` lets the kernel write only the B sampled slots, so no
 ``[capacity]``-sized copy is made per call.  Both still return the state
 for symmetry with the JAX call sites.
 
-The staged and fleet methods (``add_staged``, ``stack_staged``,
-``staged_meta``) and ``per_shard_occupancy`` wait for later slices.
+The arena publishes four registry gauges (``r2d2dpg_replay_capacity``,
+``_occupancy``, ``_priority_sum``, ``_sequences_added``); the loops feed
+them from their log fetch through ``observe_state_scalars``.
+``per_shard_occupancy`` waits for the multi-device slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+import threading
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from r2d2dpg_torch.obs.registry import get_registry
 from r2d2dpg_torch.ops.priority import PRIORITY_EPS
 from r2d2dpg_torch.ops.scatter import priority_scatter
-from r2d2dpg_torch.tree import tree_map
+from r2d2dpg_torch.tree import tree_leaves, tree_map
 
 # Slot metadata sentinel for "provenance unknown" (the JAX package's
 # obs/quality.py value, copied so the port imports nothing of it).
@@ -73,6 +81,77 @@ class SampleResult:
     probs: torch.Tensor  # [B] sampling probabilities (1/N for uniform)
 
 
+@dataclasses.dataclass(frozen=True)
+class StagedSequences:
+    """B emitted sequences in flight from a collector to the learner.
+
+    The pipelined executor's staging-queue payload (``training/pipeline.py``).
+    ``priorities`` is ``None`` when the learner ranks the sequences at drain
+    time with its current nets (the default), or ``[B]`` float32 when the
+    producer ranked them.  ``behavior_version`` / ``collect_id`` are the
+    quality provenance (``[B]`` int64: the behaviour param version, the
+    collector's phase clock), ``None`` when unknown.
+    """
+
+    seq: SequenceBatch  # leaves [B, L, ...] / carries [B, ...]
+    priorities: Any = None  # [B] float32, or None (ranked at drain)
+    behavior_version: Any = None  # [B] int64, or None
+    collect_id: Any = None  # [B] int64, or None
+
+
+def staged_nbytes(staged: StagedSequences) -> int:
+    """Total tensor bytes of a staged batch (the ``arena_add`` span's size)."""
+    return int(sum(x.numel() * x.element_size() for x in tree_leaves(staged)))
+
+
+def stack_staged(batches: Sequence[StagedSequences]) -> StagedSequences:
+    """Concatenate staged batches along B (a coalesced drain's payload).
+
+    One batch passes through untouched.  Mixing resolved and unresolved
+    priorities raises; provenance present on only some batches is dropped
+    (the quality folds disarm) rather than refused."""
+    if not batches:
+        raise ValueError("stack_staged needs at least one batch")
+    if len(batches) == 1:
+        return batches[0]
+    resolved = [b.priorities is not None for b in batches]
+    if any(resolved) != all(resolved):
+        raise ValueError(
+            "stack_staged: cannot mix resolved and unresolved priorities"
+        )
+
+    def cat(parts):
+        if all(p is not None for p in parts):
+            return torch.cat(list(parts))
+        return None
+
+    return StagedSequences(
+        seq=tree_map(lambda *xs: torch.cat(xs), *[b.seq for b in batches]),
+        priorities=cat([b.priorities for b in batches]),
+        behavior_version=cat([b.behavior_version for b in batches]),
+        collect_id=cat([b.collect_id for b in batches]),
+    )
+
+
+class _StagedWriterClaim:
+    """``with arena.staged_writer():``, a loud refusal on overlap."""
+
+    def __init__(self, lock):
+        self._lock = lock
+
+    def __enter__(self):
+        if not self._lock.acquire(blocking=False):
+            raise RuntimeError(
+                "ReplayArena.add_staged is single-writer: another thread is "
+                "mid-add on this arena.  Route producers through a staging "
+                "queue drained by one thread"
+            )
+        return self
+
+    def __exit__(self, *exc):
+        self._lock.release()
+
+
 class ReplayArena:
     """Static replay configuration + the state-transition functions."""
 
@@ -84,6 +163,36 @@ class ReplayArena:
         self.capacity = capacity
         self.prioritized = prioritized
         self.alpha = alpha
+        # Host-side gauges, fed from the loops' log fetch
+        # (observe_state_scalars); registration is idempotent.
+        reg = get_registry()
+        self._obs_capacity = reg.gauge(
+            "r2d2dpg_replay_capacity", "arena slot capacity (static)"
+        )
+        self._obs_capacity.set(float(capacity))
+        self._obs_occupancy = reg.gauge(
+            "r2d2dpg_replay_occupancy", "filled arena slots (min(added, cap))"
+        )
+        self._obs_priority_sum = reg.gauge(
+            "r2d2dpg_replay_priority_sum",
+            "sum of raw slot priorities (0 while empty)",
+        )
+        self._obs_added = reg.gauge(
+            "r2d2dpg_replay_sequences_added",
+            "monotone count of sequences ever added",
+        )
+        # The staged path's single-writer claim (re-entrant: a drain loop
+        # may hold it around a call that claims it again).
+        self._staged_writer_lock = threading.RLock()
+
+    def observe_state_scalars(
+        self, occupancy: float, priority_sum: float, total_added: float
+    ) -> None:
+        """Publish host-fetched arena scalars onto the registry (called on
+        the log cadence with values from that cadence's one fetch)."""
+        self._obs_occupancy.set(occupancy)
+        self._obs_priority_sum.set(priority_sum)
+        self._obs_added.set(total_added)
 
     # ------------------------------------------------------------------ init
     def init_state(self, example: SequenceBatch) -> ArenaState:
@@ -134,6 +243,57 @@ class ReplayArena:
         state.cursor = (state.cursor + b) % self.capacity
         state.total_added += b
         return state
+
+    def staged_meta(
+        self, staged: StagedSequences, stamp: Optional[int] = None
+    ) -> Optional[torch.Tensor]:
+        """The ``add`` meta stamp ``[B, 2]`` int32 of a staged batch: column
+        0 the staged behaviour version (absent: the sentinel), column 1
+        ``stamp``, the owning learner's step at entry.  ``None`` when
+        neither is known (``add`` then writes the sentinel)."""
+        if staged.behavior_version is None and stamp is None:
+            return None
+        b = staged.seq.reward.shape[0]
+        device = staged.seq.reward.device
+
+        def col(x):
+            if x is None:
+                return torch.full((b,), PROVENANCE_ABSENT, dtype=torch.int32,
+                                  device=device)
+            x = torch.as_tensor(x, device=device).to(torch.int32)
+            return x.expand(b) if x.dim() == 0 else x
+
+        return torch.stack([col(staged.behavior_version), col(stamp)], dim=1)
+
+    def add_staged(
+        self,
+        state: ArenaState,
+        staged: StagedSequences,
+        stamp: Optional[int] = None,
+    ) -> ArenaState:
+        """Absorb a staged batch in place (the pipelined drain's add).
+
+        ``staged.priorities`` must be resolved by the caller (the drain
+        ranks with ``Trainer._initial_priorities``): the arena has no nets.
+        Single writer: the add runs under ``staged_writer``, so a second
+        thread adding to this arena at the same time raises instead of
+        interleaving its rows with this one's."""
+        if staged.priorities is None:
+            raise ValueError(
+                "add_staged needs resolved priorities; compute them "
+                "(e.g. Trainer._initial_priorities) before absorbing"
+            )
+        with self.staged_writer():
+            return self.add(
+                state, staged.seq, staged.priorities,
+                meta=self.staged_meta(staged, stamp),
+            )
+
+    def staged_writer(self) -> _StagedWriterClaim:
+        """Non-blocking claim of the one staged-writer slot (a context
+        manager); another thread's overlapping claim raises.  Re-entrant
+        on the holding thread."""
+        return _StagedWriterClaim(self._staged_writer_lock)
 
     # ------------------------------------------------------------------ size
     def size(self, state: ArenaState) -> int:

@@ -6,7 +6,10 @@
         [--resume] [--eval-every N [--eval-envs E]] \
         [--twin-critic 1] [--target-policy-sigma 0.2] \
         [--compute-dtype bfloat16] [--n-step 3] [--actor-lr 1e-4] \
-        [--critic-lr 1e-3] [--sigma-max 0.4] [--ladder-alpha 7]
+        [--critic-lr 1e-3] [--sigma-max 0.4] [--ladder-alpha 7] \
+        [--pipeline 1 [--pipeline-depth 2] [--trace-sample 0.1]] \
+        [--minutes M] [--watchdog 0|1] [--watchdog-grad-norm X] \
+        [--watchdog-param-norm X] [--nan-inject-phase K]
 
 ``--phases N`` counts TRAIN phases, as in the JAX CLI: a fresh run does
 the config's warm-up and replay-fill phases, then N train phases (one when
@@ -14,6 +17,25 @@ the config's warm-up and replay-fill phases, then N train phases (one when
 and stops at ``max(start, fill) + N``.  Every ``--log-every`` phases it
 prints the same line as the JAX ``Trainer.run`` (and, with ``--logdir``,
 writes the scalars as a CSV row of ``<logdir>/metrics.csv``).
+
+``--minutes`` bounds the wall clock as well (whichever of ``--phases`` and
+``--minutes`` comes first).
+
+``--pipeline 1`` runs the train phases through the pipelined collect/learn
+executor (``training/pipeline.py``): a collector thread and the learner
+overlap over a staging queue of ``--pipeline-depth`` phases, on two CUDA
+streams on a card.  It saves the final checkpoint only (a periodic
+``--checkpoint-every`` says so and falls back), runs no in-run evals, and
+prints one ``pipeline:`` stats line at the end.  ``--trace-sample RATE``
+records that share of its staged batches' hops (collect, enqueue,
+arena_add, learn) into ``<logdir>/trace.json``.
+
+The divergence watchdog (``--watchdog 1``, the default) checks the learner
+metrics on the log cadence of either schedule: a NaN/Inf, or a grad or
+param norm past its threshold, dumps the flight recorder into
+``<logdir>/flight.jsonl``, names the last checkpoint on disk, skips the
+final save and exits with code 2.  ``--nan-inject-phase K`` poisons the
+actor params after the K-th train phase (a drill of that path).
 
 ``--checkpoint-dir`` saves every ``--checkpoint-every`` phases (-1: the
 final save only; 0: none) and at the end; ``--checkpoint-light`` saves the
@@ -31,12 +53,21 @@ import argparse
 import dataclasses
 import json
 import os
+import sys
+
+import torch
 
 from r2d2dpg_torch.configs import CONFIGS, ExperimentConfig, get_config
 from r2d2dpg_torch.device import device_name
-from r2d2dpg_torch.obs import get_flight_recorder
+from r2d2dpg_torch.obs import (
+    DivergenceError,
+    DivergenceWatchdog,
+    WatchdogConfig,
+    get_flight_recorder,
+)
 from r2d2dpg_torch.training.draws import Draws
 from r2d2dpg_torch.training.evaluator import Evaluator
+from r2d2dpg_torch.training.pipeline import PipelineConfig, PipelineExecutor
 from r2d2dpg_torch.training.trainer import TrainerState
 from r2d2dpg_torch.utils.checkpoint import CheckpointManager, resume_state
 from r2d2dpg_torch.utils.metrics import MetricLogger
@@ -46,6 +77,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m r2d2dpg_torch.train", description=__doc__)
     p.add_argument("--config", required=True, choices=sorted(CONFIGS))
     p.add_argument("--phases", type=int, default=None, help="train phases to run")
+    p.add_argument(
+        "--minutes", type=float, default=None,
+        help="wall-clock budget (stops at whichever of --phases/--minutes hits first)")
     p.add_argument("--log-every", type=int, default=50, help="phases between logs")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
@@ -75,6 +109,35 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="TD3 target-policy smoothing noise scale (0 = off)")
     p.add_argument("--compute-dtype", default=None, choices=["float32", "bfloat16"],
                    help="net compute dtype (params/optimizer stay float32)")
+    p.add_argument(
+        "--pipeline", type=int, default=0, choices=[0, 1],
+        help="run train phases through the pipelined collect/learn "
+        "executor (training/pipeline.py): collection and learning overlap "
+        "in two threads over a bounded staging queue (1 = on)")
+    p.add_argument(
+        "--pipeline-depth", type=int, default=2,
+        help="staging-queue capacity in collect phases (backpressure bound)")
+    p.add_argument(
+        "--trace-sample", type=float, default=0.0, metavar="RATE",
+        help="experience-path tracing: sample this fraction of staged "
+        "batches and record per-hop spans (collect -> enqueue -> arena_add "
+        "-> learn) into r2d2dpg_trace_*_seconds histograms and a "
+        "Chrome-trace/Perfetto trace.json next to flight.jsonl (0 = off)")
+    p.add_argument(
+        "--watchdog", type=int, default=1, choices=[0, 1],
+        help="divergence watchdog on the log cadence: NaN/Inf or norm "
+        "blow-up in learner outputs aborts loudly with a flight-recorder "
+        "dump and a last-good-checkpoint pointer (1 = on)")
+    p.add_argument("--watchdog-grad-norm", type=float, default=1e6,
+                   help="watchdog trip threshold for grad_norm")
+    p.add_argument("--watchdog-param-norm", type=float, default=1e7,
+                   help="watchdog trip threshold for param_norm")
+    p.add_argument(
+        "--nan-inject-phase", type=int, default=None, metavar="K",
+        help="FAULT INJECTION (tests/drills): poison the actor params with "
+        "NaN after the K-th train phase, so the next learner update "
+        "produces non-finite outputs and the watchdog path is exercised "
+        "end to end")
     return p.parse_args(argv)
 
 
@@ -94,6 +157,105 @@ def _apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:
     if args.compute_dtype is not None:
         cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype)
     return cfg
+
+
+def _poison_actor_params(train):
+    """--nan-inject-phase: NaN in every actor param, so the next learner
+    update's outputs go non-finite through the real propagation path."""
+    return dataclasses.replace(train, actor_params={
+        k: torch.full_like(v, float("nan")) for k, v in train.actor_params.items()})
+
+
+def _abort_on_divergence(e, flight, flight_path, ckpt) -> None:
+    """Watchdog trip: dump the flight ring, name the last checkpoint on
+    disk, exit with code 2."""
+    flight.record("abort", reason=str(e), step=e.step)
+    dumped = flight.dump(flight_path) if flight_path else None
+    if ckpt is not None and ckpt.latest_step is not None:
+        # The watchdog reads learner outputs once per log cadence, so a
+        # save inside the last cadence may already carry the divergence.
+        pointer = (f"{ckpt.directory} step {ckpt.latest_step} (verify before "
+                   "resuming: a save inside the last log cadence may already "
+                   "carry the divergence)")
+    else:
+        pointer = "none on disk"
+    print(f"watchdog: DIVERGENCE at step {e.step}: {e.reason}\n"
+          f"watchdog: flight recorder dumped to {dumped}\n"
+          f"watchdog: last-good checkpoint: {pointer}",
+          file=sys.stderr, flush=True)
+    raise SystemExit(2)
+
+
+def _make_executor_metrics_fn(logger, watchdog, num_phases):
+    """The pipelined executor's log hook: print the phase-locked loop's
+    line, fold rates into the CSV row, and give the watchdog the raw
+    (pre-rates) scalars."""
+
+    def metrics_fn(phase: int, scalars) -> None:
+        scalars = dict(scalars)
+        watch = dict(scalars)
+        learn = {k: v for k, v in scalars.items() if k not in (
+            "episode_return_mean", "episodes", "env_steps", "learner_steps")}
+        print(f"phase {phase}/{num_phases} "
+              f"env_steps {int(scalars['env_steps'])} "
+              f"return {scalars['episode_return_mean']:.1f} "
+              f"({int(scalars['episodes'])} eps) "
+              + " ".join(f"{k} {v:.3g}" for k, v in learn.items()), flush=True)
+        if logger is not None:
+            scalars.update(logger.rates(
+                env_steps=scalars.get("env_steps", 0.0),
+                learner_steps=scalars.get("learner_steps", 0.0)))
+            logger.log(phase, scalars)
+        if watchdog is not None:
+            watchdog.check(phase, watch)
+
+    return metrics_fn
+
+
+def _fold_executor_stats(prefix: str, stats: dict) -> None:
+    """Print an executor's end-of-run stats line."""
+    if stats:
+        print(f"{prefix}: " + " ".join(
+            f"{k} {v:.4g}" for k, v in sorted(stats.items())), flush=True)
+
+
+def _run_pipelined(trainer, state, stop_at, logger, ckpt, args, watchdog,
+                   flight, flight_path) -> TrainerState:
+    """Drive the run through the pipelined executor (``--pipeline 1``): it
+    owns the warm-up -> fill -> train schedule and the log cadence; the
+    final checkpoint is saved when a checkpoint dir is set."""
+    executor = PipelineExecutor(trainer, PipelineConfig(
+        enabled=True, queue_depth=args.pipeline_depth,
+        trace_sample=args.trace_sample))
+    if ckpt is not None and ckpt.save_every > 0:
+        # The state is split across two threads mid-run, so periodic saves
+        # are not composed with the executor: degrade LOUDLY to -1.
+        print("pipeline: periodic checkpoints not supported with --pipeline 1; "
+              "saving the final checkpoint only (--checkpoint-every -1 "
+              "semantics)", flush=True)
+    if args.eval_every:
+        print("pipeline: in-run evals (--eval-every) do not run under "
+              "--pipeline 1", flush=True)
+    hook = None
+    if args.nan_inject_phase is not None:
+        k_inject = args.nan_inject_phase
+
+        def hook(n, train):
+            return _poison_actor_params(train) if n == k_inject else train
+
+    try:
+        state = executor.run(
+            stop_at, state=state, log_every=args.log_every,
+            metrics_fn=_make_executor_metrics_fn(logger, watchdog, stop_at),
+            minutes=args.minutes, learner_hook=hook)
+        _fold_executor_stats("pipeline", executor.stats())
+        if ckpt is not None and ckpt.save_every:
+            ckpt.save_final(state.phase_idx, state)
+    except DivergenceError as e:
+        _abort_on_divergence(e, flight, flight_path, ckpt)
+    finally:
+        flight.dump_trace()  # no-op unless spans were sampled and a path is armed
+    return state
 
 
 def main(argv=None) -> TrainerState:
@@ -124,24 +286,48 @@ def main(argv=None) -> TrainerState:
         )
         eval_draws = Draws(cfg.trainer.seed + 1, trainer.device)
     logger = None
+    flight = get_flight_recorder()
+    flight_path = None
     if args.logdir:
         logger = MetricLogger(args.logdir)
-        get_flight_recorder().install(os.path.join(args.logdir, "flight.jsonl"))
+        flight_path = os.path.join(args.logdir, "flight.jsonl")
+        flight.install(flight_path)
+    watchdog = None
+    if args.watchdog:
+        watchdog = DivergenceWatchdog(WatchdogConfig(
+            grad_norm_max=args.watchdog_grad_norm,
+            param_norm_max=args.watchdog_param_norm))
 
     fill = trainer.window_fill_phases + trainer.replay_fill_phases
     start = state.phase_idx
     # --phases counts train phases of THIS invocation (the JAX CLI's rule).
-    stop_at = (
-        max(start, fill) + args.phases if args.phases is not None
-        else max(start, fill + 1)
-    )
+    if args.phases is not None:
+        stop_at = max(start, fill) + args.phases
+    elif args.minutes is not None:
+        stop_at = 10**9  # the wall-clock budget is the stop condition
+    else:
+        stop_at = max(start, fill + 1)
 
-    def on_phase(state: TrainerState, scalars) -> None:
+    if args.pipeline:
+        try:
+            return _run_pipelined(trainer, state, stop_at, logger, ckpt, args,
+                                  watchdog, flight, flight_path)
+        finally:
+            if logger is not None:
+                logger.close()
+
+    def on_phase(state: TrainerState, scalars):
         phase = state.phase_idx
-        if scalars is not None and logger is not None:
-            scalars.update(logger.rates(
-                env_steps=scalars["env_steps"], learner_steps=float(state.train.step)))
-            logger.log(phase, scalars)
+        if scalars is not None:
+            watch = dict(scalars)
+            if logger is not None:
+                scalars.update(logger.rates(
+                    env_steps=scalars["env_steps"],
+                    learner_steps=float(state.train.step)))
+                logger.log(phase, scalars)
+            if watchdog is not None:
+                # After the log call, so the poisoned row is on disk.
+                watchdog.check(phase, watch)
         if ckpt is not None:
             ckpt.maybe_save(phase, state)
         if evaluator is not None and phase > fill and (phase - fill) % args.eval_every == 0:
@@ -150,6 +336,10 @@ def main(argv=None) -> TrainerState:
             print("eval " + json.dumps({"phase": phase, **ev}), flush=True)
             if logger is not None:
                 logger.log(phase, ev)
+        if (args.nan_inject_phase is not None
+                and phase - max(start, fill) == args.nan_inject_phase):
+            return dataclasses.replace(state, train=_poison_actor_params(state.train))
+        return None
 
     try:
         state = trainer.run(
@@ -158,9 +348,12 @@ def main(argv=None) -> TrainerState:
             log_every=args.log_every,
             log_fn=lambda line: print(line, flush=True),
             on_phase=on_phase,
+            minutes=args.minutes,
         )
         if ckpt is not None and ckpt.save_every:
             ckpt.save_final(state.phase_idx, state)
+    except DivergenceError as e:
+        _abort_on_divergence(e, flight, flight_path, ckpt)
     finally:
         if logger is not None:
             logger.close()

@@ -12,6 +12,18 @@ draws the sampling uniforms ``[B]``, then, with target-policy smoothing on
 (``target_policy_sigma > 0``), the smoothing normal ``[U + n, B, A]``
 (time-major; JAX draws it from ``fold_in(key, 1)`` of the same learner
 step's key).
+
+With ``_learn_many(prefetch=True)`` (the pipelined drain) the order of a
+phase's K learner steps is: uniforms 0; then for each step k, uniforms
+k+1 (for k < K-1 only), then step k's smoothing normal (when on).  The
+JAX scan draws batch k from ``keys[k]`` in both branches, so a parity test
+feeds ``uniform(keys[0]), uniform(keys[1]), normal(fold_in(keys[0], 1)),
+uniform(keys[2]), ...``; the JAX scan's extra trailing sample after the
+last update has no counterpart here.
+
+In the pipelined executor the collector keeps the state's draws and the
+learner gets a second ``Draws`` (``training/pipeline.py``, ``split_state``
+states the rule), so two threads never draw from one generator.
 """
 
 from __future__ import annotations

@@ -15,19 +15,29 @@ random draw goes through the state's draws object (``training/draws.py``).
 With ``param_sync_every == 0`` the actors act with the fresh learner params;
 K > 0 refreshes a behaviour snapshot every K phases.
 
-The pipelined ``prefetch`` branch of ``_learn_many`` waits for the
-pipelined executor's slice.
+``_collect`` takes the nets it runs (``nets``, the agent's by default), so
+the pipelined executor's collector thread runs its own module copies
+(``training/pipeline.py``).  ``_learn_many(prefetch=True)`` is the
+executor's double-buffered drain: batch k+1 is sampled before update k's
+priority write-back (its draw order is in ``training/draws.py``).
+
+``Trainer.run`` opens the device monitor's run window (``obs/device.py``)
+and the log cadence publishes the trainer's, the arena's and the quality
+plane's gauges from its one host fetch (``_obs_publish``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from r2d2dpg_torch.agents.ddpg import R2D2DPG, TrainState
 from r2d2dpg_torch.envs.core import Environment
+from r2d2dpg_torch.obs import get_device_monitor, get_registry
+from r2d2dpg_torch.obs.quality import get_quality_plane
 from r2d2dpg_torch.ops import (
     anneal_beta,
     gaussian_noise,
@@ -44,6 +54,7 @@ from r2d2dpg_torch.training.assembler import (
     stack_steps,
 )
 from r2d2dpg_torch.training.draws import Draws
+from r2d2dpg_torch.utils.profiling import annotate
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -127,6 +138,23 @@ class Trainer:
             kind=config.ladder_kind,
             device=device,
         )
+        # Telemetry: registration is idempotent, so every Trainer of the
+        # process shares one instrument per name.
+        self._device = get_device_monitor().install()
+        reg = get_registry()
+        self._obs_env_steps = reg.gauge(
+            "r2d2dpg_trainer_env_steps", "fleet-wide env steps collected"
+        )
+        self._obs_learner_steps = reg.gauge(
+            "r2d2dpg_trainer_learner_steps", "learner updates applied"
+        )
+        self._obs_return = reg.gauge(
+            "r2d2dpg_trainer_episode_return_mean",
+            "mean return of episodes completed since the previous log",
+        )
+        self._obs_episodes = reg.counter(
+            "r2d2dpg_trainer_episodes_total", "episodes completed"
+        )
 
     # ------------------------------------------------------------------ init
     def init(self, draws=None) -> TrainerState:
@@ -181,12 +209,15 @@ class Trainer:
 
     @torch.no_grad()
     def _policy_step(
-        self, behavior, critic_params, obs, reset, a_carry, c_carry, noise_st, draws
+        self, nets, behavior, critic_params, obs, reset, a_carry, c_carry,
+        noise_st, draws,
     ):
-        """One fleet-wide policy step: action + noise + clip + carry advance."""
+        """One fleet-wide policy step: action + noise + clip + carry advance.
+
+        ``nets`` is the (actor, critic) module pair that runs the params."""
         cfg = self.config
-        agent = self.agent
-        action, a_carry = agent.actor.apply_params(behavior, obs, a_carry, reset)
+        actor, critic = nets
+        action, a_carry = actor.apply_params(behavior, obs, a_carry, reset)
         if cfg.noise == "gaussian":
             action = action + gaussian_noise(
                 action, self.sigmas, normal=draws.normal(action.shape)
@@ -198,17 +229,28 @@ class Trainer:
             )
             action = action + noise_st
         action = action.clamp(-1.0, 1.0)
-        _, c_carry = agent.critic.apply_params(
-            critic_params, obs, action, c_carry, reset
-        )
+        _, c_carry = critic.apply_params(critic_params, obs, action, c_carry, reset)
         return action, a_carry, c_carry, noise_st
 
     @torch.no_grad()
-    def _collect(self, state: TrainerState) -> TrainerState:
-        """``stride`` env steps of every lane: policy, noise, env, bookkeeping."""
+    def _collect(
+        self, state, behavior=None, critic_params=None, nets=None
+    ) -> TrainerState:
+        """``stride`` env steps of every lane: policy, noise, env, bookkeeping.
+
+        ``behavior`` / ``critic_params`` default to the state's own learner
+        params and ``nets`` to the agent's (actor, critic) modules (the
+        phase-locked path).  The pipelined collector passes all three: its
+        state has no learner subtree, and it must never run the learner
+        thread's modules (``functional_call`` swaps a module's parameters
+        for the length of a call)."""
         cfg = self.config
-        behavior = self._behavior_params(state)
-        critic_params = self.agent.behavior_critic_params(state.train)
+        if behavior is None:
+            behavior = self._behavior_params(state)
+        if critic_params is None:
+            critic_params = self.agent.behavior_critic_params(state.train)
+        if nets is None:
+            nets = (self.agent.actor, self.agent.critic)
         draws = state.draws
         env_state, obs, reset = state.env_state, state.obs, state.reset
         a_carry, c_carry = state.actor_carry, state.critic_carry
@@ -217,7 +259,7 @@ class Trainer:
         for _ in range(cfg.stride):
             pre_carries = {"actor": a_carry, "critic": c_carry}
             action, a_carry, c_carry, noise_st = self._policy_step(
-                behavior, critic_params, obs, reset, a_carry, c_carry,
+                nets, behavior, critic_params, obs, reset, a_carry, c_carry,
                 noise_st, draws,
             )
             env_state, ts = self.env.step(env_state, action, draws)
@@ -309,25 +351,48 @@ class Trainer:
         )
         return train, arena, metrics
 
+    def _sample(self, arena, draws):
+        b = self.config.batch_size
+        return self.arena.sample(arena, b, uniforms=draws.uniform((b,)))
+
+    def _smoothing_normal(self, res, draws):
+        """Step's target-policy smoothing normal, or None when it is off."""
+        acfg = self.agent.config
+        if acfg.target_policy_sigma <= 0:
+            return None
+        b, a_dim = res.batch.action.shape[0], res.batch.action.shape[-1]
+        return draws.normal((acfg.unroll + acfg.n_step, b, a_dim))
+
     def _learn_step(self, train, arena, draws):
         """ONE learner update: sample -> IS weights -> update -> write-back."""
-        b = self.config.batch_size
-        res = self.arena.sample(arena, b, uniforms=draws.uniform((b,)))
-        acfg = self.agent.config
-        normal = None
-        if acfg.target_policy_sigma > 0:
-            a_dim = res.batch.action.shape[-1]
-            normal = draws.normal((acfg.unroll + acfg.n_step, b, a_dim))
-        return self._update_step(train, arena, res, normal)
+        res = self._sample(arena, draws)
+        return self._update_step(train, arena, res, self._smoothing_normal(res, draws))
 
     def _learn_many(
-        self, train, arena, draws
+        self, train, arena, draws, *, prefetch: bool = False
     ) -> Tuple[TrainState, ArenaState, Metrics]:
-        """K learner updates; metrics are the mean over the K steps."""
+        """K learner updates; metrics are the mean over the K steps.
+
+        ``prefetch=True`` double-buffers the batch (the pipelined drain):
+        batch k+1 is drawn and gathered BEFORE update k and its priority
+        write-back, so it is sampled against priorities one update stale.
+        Unlike the JAX scan, no trailing batch is sampled after the last
+        update.  With uniform replay both branches are the same updates.
+        """
+        k_steps = self.config.learner_steps
         steps = []
-        for _ in range(self.config.learner_steps):
-            train, arena, m = self._learn_step(train, arena, draws)
-            steps.append(m)
+        if not prefetch:
+            for _ in range(k_steps):
+                train, arena, m = self._learn_step(train, arena, draws)
+                steps.append(m)
+        else:
+            res = self._sample(arena, draws)
+            for k in range(k_steps):
+                nxt = self._sample(arena, draws) if k + 1 < k_steps else None
+                normal = self._smoothing_normal(res, draws)
+                train, arena, m = self._update_step(train, arena, res, normal)
+                steps.append(m)
+                res = nxt
         metrics = {k: torch.stack([m[k] for m in steps]).mean() for k in steps[0]}
         return train, arena, metrics
 
@@ -368,20 +433,46 @@ class Trainer:
     def pop_episode_metrics(
         self, state: TrainerState
     ) -> Tuple[TrainerState, Dict[str, float]]:
-        """Drain the completed-episode accumulators (one host fetch)."""
-        count, ret_sum = torch.stack(
-            [state.completed_count, state.completed_return_sum]
+        """Drain the completed-episode accumulators (one host fetch, which
+        also carries the arena's priority sum to its gauge)."""
+        count, ret_sum, psum = torch.stack(
+            [state.completed_count, state.completed_return_sum,
+             state.arena.priority.sum()]
         ).tolist()
         metrics = {
             "episode_return_mean": ret_sum / max(count, 1.0),
             "episodes": count,
             "env_steps": float(state.env_steps),
         }
+        self.arena.observe_state_scalars(
+            float(self.arena.size(state.arena)), psum,
+            float(state.arena.total_added),
+        )
+        self._obs_publish(metrics)
         zero = torch.zeros((), device=self.device)
         state = dataclasses.replace(
             state, completed_return_sum=zero, completed_count=zero.clone()
         )
         return state, metrics
+
+    def _obs_publish(self, metrics: Dict[str, float]) -> None:
+        """Fold one log cadence's host-side scalars onto the registry (the
+        phase-locked and pipelined log paths share it)."""
+        if "env_steps" in metrics:
+            self._obs_env_steps.set(metrics["env_steps"])
+        if "episode_return_mean" in metrics:
+            self._obs_return.set(metrics["episode_return_mean"])
+        if "learner_steps" in metrics:
+            self._obs_learner_steps.set(metrics["learner_steps"])
+        if metrics.get("episodes"):
+            self._obs_episodes.inc(metrics["episodes"])
+        if any(k.startswith("quality_") for k in metrics):
+            get_quality_plane().publish_scalars(
+                ess_frac=metrics.get("quality_ess_frac"),
+                is_saturation=metrics.get("quality_is_saturation"),
+                replay_age_mean=metrics.get("quality_replay_age"),
+            )
+        self._device.publish()
 
     # ----------------------------------------------------------- main loop
     def run(
@@ -390,7 +481,10 @@ class Trainer:
         state: Optional[TrainerState] = None,
         log_every: int = 50,
         log_fn=print,
-        on_phase: Optional[Callable[[TrainerState, Optional[Dict[str, float]]], None]] = None,
+        on_phase: Optional[
+            Callable[[TrainerState, Optional[Dict[str, float]]], Optional[TrainerState]]
+        ] = None,
+        minutes: Optional[float] = None,
     ) -> TrainerState:
         """Drive the static phase schedule (warm-up -> fill -> train) from
         ``state.phase_idx`` (0 for a fresh state) up to phase ``num_phases``.
@@ -398,35 +492,60 @@ class Trainer:
         Every ``log_every`` phases the episode metrics are drained and
         ``log_fn`` gets one line.  ``on_phase(state, scalars)`` runs after
         every phase: ``scalars`` holds what was logged (episode metrics and
-        the last learner metrics) on a log phase, and is None otherwise.
+        the last learner metrics) on a log phase, and is None otherwise; a
+        state it returns replaces the run's.  ``minutes`` bounds the wall
+        clock: no phase starts once it is spent.
         """
         state = self.init() if state is None else state
+        deadline = time.monotonic() + minutes * 60 if minutes is not None else None
         warm, fill = self.window_fill_phases, self.replay_fill_phases
         last_metrics: Metrics = {}
-        for phase in range(state.phase_idx, num_phases):
-            if phase < warm:
-                state = self.collect_phase(state)
-            elif phase < warm + fill:
-                state = self.fill_phase(state)
-            else:
-                state, last_metrics = self.train_phase(state)
-            scalars = None
-            if log_every and (phase + 1) % log_every == 0:
-                state, scalars = self.pop_episode_metrics(state)
-                names = list(last_metrics)
-                values = (
-                    torch.stack([last_metrics[k] for k in names]).tolist()
-                    if names
-                    else []
-                )
-                scalars.update(zip(names, values))
-                log_fn(
-                    f"phase {phase + 1}/{num_phases} "
-                    f"env_steps {int(scalars['env_steps'])} "
-                    f"return {scalars['episode_return_mean']:.1f} "
-                    f"({int(scalars['episodes'])} eps) "
-                    + " ".join(f"{k} {v:.3g}" for k, v in zip(names, values))
-                )
-            if on_phase is not None:
-                on_phase(state, scalars)
+        mon = self._device
+        mon.begin_run()
+        train_done = 0
+        try:
+            for phase in range(state.phase_idx, num_phases):
+                if deadline is not None and time.monotonic() >= deadline:
+                    break
+                if phase < warm:
+                    with annotate("trainer/collect_phase"):
+                        state = self.collect_phase(state)
+                elif phase < warm + fill:
+                    with annotate("trainer/fill_phase"):
+                        state = self.fill_phase(state)
+                else:
+                    mon.on_phase(train_done + 1)
+                    with annotate("trainer/train_phase"), mon.program("train_phase"):
+                        state, last_metrics = self.train_phase(state)
+                    mon.note_learn()
+                    train_done += 1
+                    if train_done == 1:
+                        mon.mark_steady()
+                scalars = None
+                if log_every and (phase + 1) % log_every == 0:
+                    with mon.expected("log_fetch"):
+                        state, scalars = self.pop_episode_metrics(state)
+                        names = list(last_metrics)
+                        values = (
+                            torch.stack([last_metrics[k] for k in names]).tolist()
+                            if names
+                            else []
+                        )
+                    learn = dict(zip(names, values))
+                    self._obs_publish(
+                        {"learner_steps": float(state.train.step), **learn})
+                    scalars.update(learn)
+                    log_fn(
+                        f"phase {phase + 1}/{num_phases} "
+                        f"env_steps {int(scalars['env_steps'])} "
+                        f"return {scalars['episode_return_mean']:.1f} "
+                        f"({int(scalars['episodes'])} eps) "
+                        + " ".join(f"{k} {v:.3g}" for k, v in zip(names, values))
+                    )
+                if on_phase is not None:
+                    replaced = on_phase(state, scalars)
+                    if replaced is not None:
+                        state = replaced
+        finally:
+            mon.end_run()
         return state

@@ -34,3 +34,20 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
         return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
     raise TypeError(f"tree_map: unsupported node {type(tree).__name__}")
 
+
+
+def tree_leaves(tree: Any) -> list:
+    """The tensors of ``tree`` in ``tree_map``'s order; ``None``, numbers
+    and strings (a state's counters) are no leaves."""
+    if tree is None or isinstance(tree, (int, float, str)):
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree):
+        return [x for f in dataclasses.fields(tree)
+                for x in tree_leaves(getattr(tree, f.name))]
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    raise TypeError(f"tree_leaves: unsupported node {type(tree).__name__}")

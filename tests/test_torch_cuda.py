@@ -16,6 +16,9 @@ walker_r2d2's actor width serves each of 8 interleaved sessions bitwise
 what the session alone in row 0 of a 32-row step gets, and within 1e-5
 absolute of the plain one-row rollout (``policy_step_fn``, no row-wise
 form; actions are about 0.1, and the two differed by 2.9e-9 on an H100).
+The scatter launched on a side stream equals the plain version, and the
+pipelined executor at pendulum_tiny on the card keeps its schedule's counts
+with one scatter launch per learner step.
 """
 
 import numpy as np
@@ -170,3 +173,45 @@ def test_service_is_bitwise_across_buckets_on_the_card():
             np.testing.assert_array_equal(action, want[0].cpu().numpy())
             a1, carry1 = plain(params, o[:1], carry1, reset[:1])
             np.testing.assert_allclose(action, a1[0].cpu().numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_priority_scatter_on_a_side_stream_matches_plain_exactly():
+    dev = _card()
+    prio, idx, vals = scatter_case("mixed", 50_000, 64, 11)
+    want = _plain(prio, idx, vals)
+    got = torch.from_numpy(prio).to(dev)
+    i, v = torch.from_numpy(idx).to(dev), torch.from_numpy(vals).to(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        priority_scatter(got, i, v)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_pipelined_executor_on_the_card():
+    """pendulum_tiny through the pipelined executor on two streams: the
+    schedule's counts, one scatter launch per learner step, finite
+    priorities, and the collector's own modules."""
+    from r2d2dpg_torch.configs import PENDULUM_TINY
+    from r2d2dpg_torch.training.pipeline import PipelineConfig, PipelineExecutor
+
+    dev = _card()
+    trainer = PENDULUM_TINY.build(dev)
+    ex = PipelineExecutor(trainer, PipelineConfig(enabled=True, queue_depth=2))
+    assert ex.collector_nets[0] is not trainer.agent.actor
+    warm, fill = trainer.window_fill_phases, trainer.replay_fill_phases
+    n_train = 10
+    before = PRIORITY_SCATTER.launches
+    state = ex.run(warm + fill + n_train, log_every=3, log_fn=lambda *_: None)
+    torch.cuda.synchronize()
+    tc = PENDULUM_TINY.trainer
+    assert PRIORITY_SCATTER.launches - before == n_train * tc.learner_steps
+    assert state.train.step == n_train * tc.learner_steps
+    assert state.env_steps == (warm + fill + n_train) * tc.stride * tc.num_envs
+    assert trainer.arena.size(state.arena) == (fill + n_train) * tc.num_envs
+    assert bool(torch.isfinite(state.arena.priority).all())
+    assert ex.stats()["train_phases"] == n_train

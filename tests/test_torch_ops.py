@@ -212,6 +212,9 @@ _PORT_MODULES = {
     "r2d2dpg_torch.serving.sessions", "r2d2dpg_torch.serving.batcher",
     "r2d2dpg_torch.serving.health", "r2d2dpg_torch.serving.service",
     "r2d2dpg_torch.serving.reload", "r2d2dpg_torch.serving.router",
+    "r2d2dpg_torch.training.pipeline", "r2d2dpg_torch.utils.profiling",
+    "r2d2dpg_torch.obs.trace", "r2d2dpg_torch.obs.watchdog",
+    "r2d2dpg_torch.obs.quality", "r2d2dpg_torch.obs.device",
 }
 
 
@@ -237,6 +240,8 @@ def test_no_cpu_fallback_without_cuda(monkeypatch):
         PENDULUM_TINY.build()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--config", "pendulum_tiny", "--phases", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--config", "pendulum_tiny", "--phases", "1", "--pipeline", "1"])
     from r2d2dpg_torch.eval import main as eval_main
     from r2d2dpg_torch.serve import main as serve_main
     from r2d2dpg_torch.serving import PolicyService, default_worker_devices
