@@ -66,8 +66,19 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    moved and finite, the executor's stats, the sampled hop spans; then 40
    phase-locked train phases timed in the same process and device-busy
    time of 3 pipelined ones;
-13. whether ``mujoco`` and ``dm_control`` import (informational);
-14. each phase's seconds, one JSON line per kernel summary (launches
+13. the actor fleet: ``train.main --config pendulum_r2d2 --actors 3
+   --phases 60`` with the learner on the card and 3 supervised actor
+   subprocesses on the CPU (``--device cpu``, no card visible), one actor
+   killed after 20 learner steps (exactly one restart required), counts
+   set to 0 just before and read just after (one launch per learner
+   step), one compute process on the card (nvidia-smi) and no actor
+   holding a card device file; the same with ``--fleet-wire bf16
+   --fleet-compress zlib --drain-coalesce 2``; then ``FleetLearner``'s
+   drain fed the same recorded batches (from the port's actor in a thread,
+   on the CPU, through the f32 wire codec) on the card and on the CPU,
+   params within 1e-4, and device-busy time of a drain-learn phase;
+14. whether ``mujoco`` and ``dm_control`` import (informational);
+15. each phase's seconds, one JSON line per kernel summary (launches
    summed over every path), then the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``r2d2dpg_tpu``.  Without a card,
@@ -1227,6 +1238,302 @@ def _serving_phase(torch, dev, sessions=64, steps=64):
         shutil.rmtree(ckdir, ignore_errors=True)
 
 
+FLEET_TRAIN_PHASES = 60  # drain-learn phases per fleet leg
+FLEET_ACTORS = 3
+FLEET_KILL_AT = 20  # learner steps before one actor is killed
+FLEET_CARD_VS_CPU_ATOL = 1e-4  # params, as the card-vs-CPU learner check
+
+
+def _proc_stat(pid):
+    """(cpu seconds, threads) of a live process from /proc, or None."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+    except OSError:
+        return None
+    ticks = os.sysconf("SC_CLK_TCK")
+    # After the ")": state is field 3; utime 14, stime 15, num_threads 20.
+    return (int(fields[11]) + int(fields[12])) / ticks, int(fields[17])
+
+
+def _card_fds(pid):
+    """The /dev/nvidia* files a process holds open (a CUDA context opens
+    the card's device file)."""
+    out = set()
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia"):
+                out.add(target)
+    except OSError:
+        pass
+    return sorted(out)
+
+
+def _compute_apps():
+    """nvidia-smi's compute processes on the card, one line each."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,process_name,used_memory",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    return [x.strip() for x in out.splitlines() if x.strip()]
+
+
+def _fleet_leg(torch, dev, label, flags):
+    """``train.main --actors 3`` at pendulum_r2d2: the learner on the card,
+    3 supervised actor subprocesses on the CPU; one actor killed after
+    ``FLEET_KILL_AT`` learner steps, exactly one restart required.  Launch
+    counts are set to 0 just before and read just after."""
+    import threading
+
+    from r2d2dpg_torch import kernels
+    from r2d2dpg_torch.fleet.supervisor import ActorSupervisor
+    from r2d2dpg_torch.train import main as train_main
+
+    tc = _config("pendulum_r2d2").trainer
+    logdir = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")
+    seen = {}
+    done = threading.Event()
+    plain_start = ActorSupervisor.start
+
+    def start(self):
+        seen["sup"] = self
+        return plain_start(self)
+
+    def watch():
+        """Samples the actors' CPU use; kills one actor part-way."""
+        usage, killed = {}, None
+        while not done.wait(0.25):
+            sup = seen.get("sup")
+            if sup is None:
+                continue
+            for i, pid in sup.pids().items():
+                st = _proc_stat(pid)
+                if st is not None:
+                    usage[(i, pid)] = st
+            if killed is None and kernels.PRIORITY_SCATTER.launches >= FLEET_KILL_AT:
+                apps = _compute_apps()
+                fds = {i: _card_fds(pid) for i, pid in sup.pids().items()}
+                killed = {"actor": 1, "at_learner_steps": kernels.PRIORITY_SCATTER.launches,
+                          "delivered": sup.kill_actor(1),
+                          "compute_apps": apps, "actor_card_fds": fds}
+        seen["usage"], seen["killed"] = usage, killed
+
+    ActorSupervisor.start = start
+    watcher = threading.Thread(target=watch, name="chip-smoke-fleet-watch", daemon=True)
+    buf = io.StringIO()
+    try:
+        for k in kernels.ALL_KERNELS:
+            k.launches = 0
+        watcher.start()
+        t0, cpu0 = time.perf_counter(), sum(os.times()[:2])
+        with contextlib.redirect_stdout(buf):
+            state = train_main([
+                "--config", "pendulum_r2d2", "--actors", str(FLEET_ACTORS),
+                "--phases", str(FLEET_TRAIN_PHASES),
+                "--log-every", str(max(FLEET_TRAIN_PHASES // 3, 1)),
+                "--logdir", logdir, *flags,
+            ])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        learner_cpu_s = sum(os.times()[:2]) - cpu0
+        launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
+    finally:
+        done.set()
+        watcher.join()
+        ActorSupervisor.start = plain_start
+        shutil.rmtree(logdir, ignore_errors=True)
+    lines = buf.getvalue().splitlines()
+    stats_line = next(x for x in lines if x.startswith("fleet: ") and "wall_s" in x)
+    words = stats_line.split()[1:]
+    stats = {k: float(v) for k, v in zip(words[::2], words[1::2])}
+    killed = seen.get("killed")
+    expected = FLEET_TRAIN_PHASES * tc.learner_steps
+    if killed is None or not killed["delivered"]:
+        raise AssertionError(f"{label}: no actor was killed ({killed})")
+    if stats["actor_restarts"] != 1:
+        raise AssertionError(f"{label}: {stats['actor_restarts']} restarts, expected 1")
+    if stats["train_phases"] != FLEET_TRAIN_PHASES or state.train.step != expected:
+        raise AssertionError(f"{label}: {stats['train_phases']} phases, step "
+                             f"{state.train.step}; expected {FLEET_TRAIN_PHASES}")
+    if launches["priority_scatter"] != expected:
+        raise AssertionError(f"{label}: scatter launches {launches}, expected {expected}")
+    last = [x for x in lines if x.startswith("phase ")][-1]
+    numbers = []
+    for word in last.split()[3:]:
+        try:
+            numbers.append(float(word.strip("()")))
+        except ValueError:
+            continue
+    if not all(math.isfinite(x) for x in numbers):
+        raise AssertionError(f"{label}: non-finite metrics: {last}")
+    if not bool(torch.isfinite(state.arena.priority).all()):
+        raise AssertionError(f"{label}: non-finite arena priorities")
+    usage = seen["usage"]
+    print("fleet stats line:", stats_line, flush=True)
+    print("last log line:", last, flush=True)
+    print(json.dumps({label: {
+        "flags": list(flags), "actors": FLEET_ACTORS,
+        "train_phases": FLEET_TRAIN_PHASES, "run_seconds": seconds,
+        "drain_phases_per_s": stats.get("train_drain_phases_per_sec"),
+        "arena_add_seqs_per_s": stats.get("train_arena_add_seqs_per_sec"),
+        "learner_steps_per_s": stats.get("train_learner_steps_per_sec"),
+        "learner_wait_ms": [stats["learner_wait_p50_ms"], stats["learner_wait_p99_ms"]],
+        "absorb_wait_ms": [stats["absorb_wait_p50_ms"], stats["absorb_wait_p99_ms"]],
+        "drain_learn_ms": [stats["drain_learn_p50_ms"], stats["drain_learn_p99_ms"]],
+        "sheds": stats["sheds"], "bytes_per_seq": stats["bytes_per_seq"],
+        "wire_ratio": stats["wire_ratio"], "restarts": stats["actor_restarts"],
+        "first_seqs_s": {k: v for k, v in stats.items() if k.endswith("_first_seqs_s")},
+        "killed": killed, "compute_apps_on_card": len(killed["compute_apps"]),
+        "host_cores": os.cpu_count(),
+        "actor_cpu": [{"actor": i, "pid": pid, "cpu_s": cpu, "threads": th}
+                      for (i, pid), (cpu, th) in sorted(usage.items())],
+        "learner_cpu_s": learner_cpu_s,
+        "stats": stats, "scatter_launches": launches["priority_scatter"],
+    }}), flush=True)
+    # One compute process on the card (the learner); no actor holds a card
+    # device file open.
+    if len(killed["compute_apps"]) != 1 or any(killed["actor_card_fds"].values()):
+        raise AssertionError(f"{label}: card processes {killed}")
+    return {label: launches["priority_scatter"]}
+
+
+class _HostDraws:
+    """A ``Draws`` that draws on a CPU generator and moves the numbers to
+    the learner's device, so a card run and a CPU run see the same draws."""
+
+    def __init__(self, seed, device):
+        import torch
+
+        self.device = torch.device(device)
+        self.generator = torch.Generator().manual_seed(seed)
+
+    def normal(self, shape):
+        import torch
+
+        return torch.randn(tuple(shape), generator=self.generator).to(self.device)
+
+    def uniform(self, shape, low=0.0, high=1.0):
+        import torch
+
+        u = torch.rand(tuple(shape), generator=self.generator)
+        return (u * (high - low) + low).to(self.device)
+
+
+def _fleet_card_vs_cpu(torch, dev, learn_phases=5, min_replay=32):
+    """FleetLearner's drain on the card against itself on the CPU, fed the
+    same recorded batches: pendulum_r2d2 width, the batches recorded from
+    the port's actor in a thread on the CPU (seed 0) and sent through the
+    f32 wire codec; ``min_replay`` cut to 32 (8 absorbed batches).  Then
+    device-busy time of drain-learn phases on the card."""
+    import dataclasses
+    import threading
+
+    from r2d2dpg_torch.fleet import FleetActor, FleetConfig, FleetLearner, put_staged, wire
+    from r2d2dpg_torch.training import pipeline
+    from r2d2dpg_torch.training.pipeline import LearnerState, drain_staged
+
+    config = _config("pendulum_r2d2")
+    config = dataclasses.replace(config, trainer=dataclasses.replace(
+        config.trainer, min_replay=min_replay))
+    n_batches = min_replay // config.trainer.num_envs + learn_phases
+    recorded = []
+
+    def record():
+        actor = FleetActor(config, actor_id=0, num_actors=1, address="unused:0",
+                           seed=0, device="cpu")
+        packer, unpacker = wire.TreePacker(wire.WireConfig()), wire.TreeUnpacker()
+        while len(recorded) < n_batches:
+            staged = actor.host_batch()
+            if staged is not None:
+                frame = b"".join(packer.pack({"phase": actor._phase, "staged": staged}))
+                recorded.append(unpacker.unpack(frame)["staged"])
+
+    th = threading.Thread(target=record, name="chip-smoke-thread-actor")
+    th.start()
+    th.join()
+    plain_draws = pipeline.learner_draws
+    pipeline.learner_draws = lambda draws, phase: _HostDraws(7, draws.device)
+    out, secs = {}, {}
+    try:
+        for d in ("cpu", dev):
+            t0 = time.perf_counter()
+            trainer = config.build(d)
+            learner = FleetLearner(trainer, FleetConfig(
+                num_actors=1, queue_depth=n_batches + 1))
+            learner.start()
+            try:
+                for b in recorded:
+                    learner.queue.put({"staged": b, "actor_id": "0"})
+                state = learner.run(learn_phases, log_every=0)
+            finally:
+                learner.close()
+            if d != "cpu":
+                torch.cuda.synchronize()
+            out[str(d)] = (trainer, state)
+            secs[str(d)] = time.perf_counter() - t0
+    finally:
+        pipeline.learner_draws = plain_draws
+    (_, sc), (tg, sg) = out["cpu"], out[str(dev)]
+    errs = {}
+    for part in ("actor_params", "critic_params", "target_actor_params",
+                 "target_critic_params"):
+        a, b = getattr(sc.train, part), getattr(sg.train, part)
+        errs[part] = max((a[k] - b[k].cpu()).abs().max().item() for k in a)
+    filled = sc.arena.priority > 0
+    prio_err = (sc.arena.priority[filled] - sg.arena.priority.cpu()[filled]).abs().max().item()
+    rec = {"batches": n_batches, "min_replay": min_replay, "learn_phases": learn_phases,
+           "steps": [sc.train.step, sg.train.step], "max_param_err": errs,
+           "max_priority_err": prio_err, "cpu_seconds": secs["cpu"],
+           "card_seconds": secs[str(dev)], "atol": FLEET_CARD_VS_CPU_ATOL}
+    ok = (sc.train.step == sg.train.step == learn_phases * config.trainer.learner_steps
+          and max(errs.values()) <= FLEET_CARD_VS_CPU_ATOL and prio_err <= 1e-3)
+
+    # Device-busy time of one drain-learn phase on the card (a recorded
+    # batch ranked, added, one learner step), against its wall time.
+    ls = LearnerState(train=sg.train, arena=sg.arena, draws=_HostDraws(8, dev))
+    batches = [recorded[i % len(recorded)] for i in range(64)]
+    k = [0]
+
+    def one_drain():
+        nonlocal ls
+        staged = put_staged([batches[k[0] % len(batches)]], dev)
+        k[0] += 1
+        with tg.arena.staged_writer():
+            ls, _ = drain_staged(tg, ls, staged, prefetch=True)
+
+    for _ in range(3):
+        one_drain()
+    torch.cuda.synchronize()
+    n = 20
+    t1 = time.perf_counter()
+    for _ in range(n):
+        one_drain()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t1) / n * 1e3
+    device_ms, top, events = _device_profile(one_drain, 3)
+    rec.update(drain_phase_wall_ms=wall_ms, device_busy_ms_per_drain_phase=device_ms,
+               device_events_per_drain_phase=events,
+               device_idle_share=None if device_ms is None else 1 - device_ms / wall_ms,
+               top_device_ms_per_drain_phase=top)
+    print(json.dumps({"fleet_card_vs_cpu": rec}), flush=True)
+    if not ok:
+        raise AssertionError(f"fleet drain card vs CPU: {rec}")
+
+
+def _fleet_phase(torch, dev):
+    """The fleet main path: both legs, then the card-vs-CPU drain."""
+    launches = _fleet_leg(torch, dev, "fleet_f32", ())
+    launches.update(_fleet_leg(torch, dev, "fleet_bf16_zlib", (
+        "--fleet-wire", "bf16", "--fleet-compress", "zlib", "--drain-coalesce", "2")))
+    _fleet_card_vs_cpu(torch, dev)
+    return launches
+
+
 def _mujoco_probe():
     """Whether ``mujoco`` and ``dm_control`` import here, with their versions.
 
@@ -1302,6 +1609,7 @@ def main() -> int:
     side_err = timed("side_stream_scatter", _side_stream_scatter, torch, dev)
     timed("pipeline_off_anchor", _pipeline_off_anchor, torch, dev)
     launches.update(timed("pipelined", _pipelined_phase, torch, dev))
+    launches.update(timed("fleet", _fleet_phase, torch, dev))
     timed("mujoco_probe", _mujoco_probe)
     phase_seconds["total"] = time.perf_counter() - t_start
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)

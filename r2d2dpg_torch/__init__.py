@@ -1,8 +1,8 @@
 """PyTorch/CUDA port of r2d2dpg_tpu, beside the JAX package it is held against.
 
 The port mirrors the JAX package's module names (``ops``, ``models``,
-``replay``, ``agents``, ``envs``, ``training``, ``configs``, ``train``) so a
-reader finds each counterpart by name.  It imports neither JAX nor anything
+``replay``, ``agents``, ``envs``, ``training``, ``configs``, ``fleet``,
+``train``) so a reader finds each counterpart by name.  It imports neither JAX nor anything
 of ``r2d2dpg_tpu``; constants it shares with the JAX package are copied.
 
 Every entry point runs on ``cuda`` unless the caller passes

@@ -1,0 +1,68 @@
+"""Actor fleet: supervised out-of-process actors feeding the learner.
+
+Port of the single-learner path of ``r2d2dpg_tpu/fleet/`` (the Ape-X
+topology, PAPERS.md 1803.00933).  N actor subprocesses each own their env
+lanes and a stale net copy, rank fresh sequences locally, and stream
+``replay.StagedSequences`` over a CRC-checked framed protocol to the
+learner's ingest server, which drains them through the pipelined
+executor's drain body into the replay arena.  ``--actors 0`` is the
+untouched phase-locked schedule.
+
+- ``transport``  -- length-prefixed CRC32 frames over TCP/Unix sockets,
+  HELLO authentication, ``to_host`` (one batched device-to-host copy).
+- ``wire``       -- the zero-copy SEQS/PARAMS payload codec, byte-equal to
+  the JAX package's (f32 and bf16 lanes, zlib/zstd, sampler frames).
+- ``actor``      -- the worker-process collect loop and the per-actor slice
+  of the noise ladder (``python -m r2d2dpg_torch.fleet.actor``).
+- ``ingest``     -- ``IngestServer`` (N connections -> staging queue) and
+  ``FleetLearner`` (the queue's single consumer: drain -> add -> learn).
+- ``supervisor`` -- spawn/monitor/restart-with-backoff of the actors.
+
+Not ported yet (ROADMAP.md): the sampler, the shard tier and the direct
+data plane, chaos drills, the autoscaler with the supervisor's resize
+API, and the fleet telemetry (TELEM) plane.
+"""
+
+from r2d2dpg_torch.fleet.actor import (
+    FleetActor,
+    FleetActorTrainer,
+    actor_seed,
+    build_actor_trainer,
+    structural_argv,
+)
+from r2d2dpg_torch.fleet.ingest import (
+    FleetConfig,
+    FleetLearner,
+    IngestServer,
+    load_fleet_counters,
+    prune_fleet_counters,
+    put_staged,
+    save_fleet_counters,
+    snapshot_params,
+)
+from r2d2dpg_torch.fleet.supervisor import (
+    ActorSupervisor,
+    SupervisorConfig,
+    default_actor_argv,
+)
+from r2d2dpg_torch.fleet.wire import WireConfig
+
+__all__ = [
+    "ActorSupervisor",
+    "FleetActor",
+    "FleetActorTrainer",
+    "FleetConfig",
+    "FleetLearner",
+    "IngestServer",
+    "SupervisorConfig",
+    "WireConfig",
+    "actor_seed",
+    "build_actor_trainer",
+    "default_actor_argv",
+    "load_fleet_counters",
+    "prune_fleet_counters",
+    "put_staged",
+    "save_fleet_counters",
+    "snapshot_params",
+    "structural_argv",
+]

@@ -1,0 +1,1173 @@
+"""Learner-side experience ingest: N actor connections -> one staging queue.
+
+Port of the central-drain part of ``r2d2dpg_tpu/fleet/ingest.py``.  Out-of-
+process actors stream ``replay.StagedSequences`` batches over the fleet
+wire (``fleet/transport.py``, ``fleet/wire.py``); this server puts them on
+a bounded staging queue, and ``FleetLearner`` drains it into the replay
+arena through the pipelined executor's drain body
+(``training/pipeline.py::drain_staged``).
+
+Per-connection protocol (one handler thread per actor; that thread is the
+connection's only writer, so acks and param pushes never interleave)::
+
+    actor                          ingest handler
+    -----                          --------------
+    HELLO {actor_id, wire...} ->        (wire mismatch: ACK refused_wire
+                                         + close)
+                              <-   [PARAMS {version, params}]   (if any)
+                              <-   ACK {code: ok, param_version}
+    SEQS {staged, stats}      ->   staging_queue.put (bounded wait)
+                              <-   [PARAMS]     (actor's version is stale)
+                              <-   ACK {code: ok | shed_ingest_queue_full}
+    ...
+    BYE                       ->   (or either side just closes)
+
+Backpressure and shedding: the actor blocks on the ACK, so it has at most
+one unacknowledged batch in flight; the handler waits ``shed_after_s`` for
+queue room and then sheds loudly (``SHED_INGEST`` ack, a ``shed`` flight
+event, the per-actor shed counter).  The scalar stats of a shed batch are
+banked and folded back by the learner: experience may be dropped, the
+accounting may not.
+
+What the card needs (handler threads make no CUDA call at all):
+
+- **Decoded frames stay numpy.**  A SEQS frame decodes into read-only
+  views over the received bytes.  ``put_staged`` stacks a drain's batches
+  on the host straight into one fresh byte buffer and makes ONE
+  host-to-device copy of it, on the learner's thread and current stream;
+  the leaves are typed views of that device buffer.  Nothing reads the
+  frames' memory after the copy.
+- **Params are published by copy.**  ``snapshot_params`` copies the four
+  param trees to the host in one synchronous transfer
+  (``transport.to_host``), which waits for the step that produced them;
+  handler threads pack that numpy snapshot once per version.
+- **No module sharing.**  Neither handlers nor the supervisor call an
+  agent module (``functional_call`` swaps a module's parameters for the
+  length of a call); only the learner's thread runs the nets.
+
+Not ported: the shard/sampler branches, the shard assignment adverts, the
+remote registry mirror and TELEM folding, the per-width MFU accounting,
+and the JAX learner's background compile of the coalesce widths (eager
+torch has no compile to hide: the pull limit is ``drain_coalesce`` from
+the first drain).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hmac
+import json
+import os
+import queue
+import socket
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from r2d2dpg_torch.fleet import transport, wire
+from r2d2dpg_torch.fleet.transport import (
+    HEADER_BYTES,
+    K_ACK,
+    K_BYE,
+    K_HELLO,
+    K_PARAMS,
+    K_SEQS,
+    FrameError,
+    PeerDeadError,
+    pack_obj,
+    recv_frame,
+    recv_frame_heartbeat,
+    flatten_tree,
+    send_frame,
+    to_host,
+)
+from r2d2dpg_torch.obs import flight_event, get_device_monitor, get_registry
+from r2d2dpg_torch.obs import trace as obs_trace
+from r2d2dpg_torch.obs.quality import (
+    get_quality_plane,
+    policy_lags,
+    quality_stats_columns,
+)
+from r2d2dpg_torch.replay.arena import StagedSequences, staged_nbytes
+from r2d2dpg_torch.training.pipeline import (
+    coalesce_from_queue,
+    drain_staged,
+    merge_state,
+    split_state,
+)
+from r2d2dpg_torch.training.trainer import Trainer, TrainerState
+from r2d2dpg_torch.utils.codes import OK, REFUSED_AUTH, REFUSED_WIRE, SHED_INGEST
+from r2d2dpg_torch.utils.metrics import PercentileWindow
+from r2d2dpg_torch.utils.profiling import annotate
+
+
+# Sheds are suppressed (handlers wait this long instead) until the first
+# drain-learn has run: startup (actor spawn, replay fill) must not cost
+# every actor one shed.
+STARTUP_SHED_GRACE_S = 120.0
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """Static fleet knobs (the trainer's own config governs the rest)."""
+
+    num_actors: int
+    address: str = "127.0.0.1:0"  # "host:port" (0 = ephemeral) | "unix:/path"
+    queue_depth: int = 4  # staging-queue capacity, in staged batches
+    publish_every: int = 1  # drain phases between param publications
+    shed_after_s: float = 1.0  # handler waits this long before shedding
+    idle_timeout_s: float = 300.0  # no batch for this long = starved, abort
+    # One encoding/compression per fleet, negotiated at HELLO.
+    wire: wire.WireConfig = wire.WireConfig()
+    # Max queued staged batches stacked into ONE drain (1 = one drain per
+    # batch); widths are powers of two.
+    drain_coalesce: int = 1
+    # Liveness: per-connection read deadline; the window between HELLO and
+    # the first SEQS frame uses the larger of this and
+    # transport.WARMUP_DEADLINE_S.
+    heartbeat_s: float = transport.READ_DEADLINE_S
+    # Shared-secret HELLO authentication (hmac.compare_digest); None = off.
+    auth_token: Optional[str] = None
+
+
+class IngestServer:
+    """Accepts actor connections and feeds the learner's staging queue."""
+
+    def __init__(
+        self,
+        staging_queue: "queue.Queue",
+        *,
+        address: str = "127.0.0.1:0",
+        shed_after_s: float = 1.0,
+        startup_shed_grace_s: float = STARTUP_SHED_GRACE_S,
+        wire_config: Optional[wire.WireConfig] = None,
+        read_deadline_s: float = transport.READ_DEADLINE_S,
+        auth_token: Optional[str] = None,
+    ):
+        self.queue = staging_queue
+        self._request_address = address
+        self.shed_after_s = shed_after_s
+        self.startup_shed_grace_s = startup_shed_grace_s
+        self.wire_config = (wire_config or wire.WireConfig()).validate()
+        self.read_deadline_s = read_deadline_s
+        self.warmup_deadline_s = max(transport.WARMUP_DEADLINE_S, read_deadline_s)
+        self.auth_token = auth_token
+        self.stop_join_s = 5.0  # handler join bound before leak reporting
+        # Param snapshots are packed once per version and broadcast to every
+        # handler, so every frame inlines its schema (a restarted actor must
+        # decode it standalone).
+        self._params_packer = wire.TreePacker(
+            self.wire_config,
+            always_inline=True,
+        )
+        # Until the first drain-learn has run (mark_steady), handlers wait
+        # out the startup grace instead of shedding; the grace also expires
+        # startup_shed_grace_s after the first queue hand-off.
+        self._steady = threading.Event()
+        self._first_put_at: Optional[float] = None
+        self.address: Optional[str] = None  # resolved at start()
+        # What actors dial: ``address``, or loopback for a wildcard bind.
+        self.connect_address: Optional[str] = None
+        self._unix_path: Optional[str] = None
+        self._listener: Optional[socket.socket] = None
+        self._accept_thread: Optional[threading.Thread] = None
+        self._handlers: List[threading.Thread] = []
+        self._conns: Dict[int, socket.socket] = {}  # ident -> live socket
+        self._conn_actors: Dict[int, str] = {}  # ident -> actor id (HELLO'd)
+        self._conn_seq = 0
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        # Latest published params: host trees swapped in by the learner,
+        # packed ONCE per version on the first handler push.
+        self._params_obj: Optional[Any] = None
+        self._params_frame: Optional[bytes] = None
+        self._param_version = 0
+        self.shed_total = 0
+        self.seqs_total = 0
+        # Wire accounting (every SEQS frame, shed or not; under _lock).
+        self.seqs_received_total = 0
+        self.seqs_bytes_total = 0
+        self.seqs_raw_bytes_total = 0
+        # Monotonic time of each actor id's first SEQS frame.
+        self.first_seqs_at: Dict[str, float] = {}
+        self._shed_stats = {
+            "env_steps_delta": 0.0, "ep_return_sum": 0.0, "ep_count": 0.0,
+        }
+        reg = get_registry()
+        self._obs_frames = reg.counter(
+            "r2d2dpg_fleet_frames_total",
+            "experience frames received from actors",
+            labelnames=("actor",),
+        )
+        self._obs_seqs = reg.counter(
+            "r2d2dpg_fleet_sequences_total",
+            "sequences received from actors (pre-shed)",
+            labelnames=("actor",),
+        )
+        self._obs_shed = reg.counter(
+            "r2d2dpg_fleet_shed_total",
+            "staged batches shed on a full staging queue",
+            labelnames=("actor",),
+        )
+        self._obs_staleness = reg.gauge(
+            "r2d2dpg_fleet_param_staleness_versions",
+            "published param version minus the actor's last-applied version",
+            labelnames=("actor",),
+        )
+        self._obs_connected = reg.gauge(
+            "r2d2dpg_fleet_actors_connected", "live actor connections"
+        )
+        self._obs_connected.set_fn(lambda: float(len(self._conns)))
+        self._obs_peer_dead = reg.counter(
+            "r2d2dpg_fleet_peer_dead_total",
+            "connections reaped after a silent heartbeat deadline (the "
+            "peer answered neither frames nor the PING probe)",
+            labelnames=("actor",),
+        )
+        self._obs_bytes_in = reg.counter(
+            "r2d2dpg_fleet_bytes_in_total",
+            "bytes received off the fleet wire (frames + headers)",
+            labelnames=("actor",),
+        )
+        self._obs_bytes_out = reg.counter(
+            "r2d2dpg_fleet_bytes_out_total",
+            "bytes sent on the fleet wire (acks + param pushes)",
+            labelnames=("actor",),
+        )
+        self._obs_ratio = reg.gauge(
+            "r2d2dpg_fleet_compress_ratio",
+            "declared decompressed size over received payload size of the "
+            "last SEQS frame (1.0 = uncompressed wire)",
+        )
+
+    # ------------------------------------------------------------- lifecycle
+    def start(self) -> "IngestServer":
+        if self._listener is not None:
+            raise RuntimeError("ingest server already started")
+        family, target = transport.parse_address(self._request_address)
+        sock = socket.socket(family, socket.SOCK_STREAM)
+        if family == socket.AF_INET:
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        elif os.path.exists(target):
+            # A stale socket file would fail the bind; unlink it only if
+            # nothing answers (never steal a live run's address).
+            probe = socket.socket(family, socket.SOCK_STREAM)
+            probe.settimeout(0.5)
+            try:
+                probe.connect(target)
+            except OSError:
+                os.unlink(target)
+            else:
+                raise RuntimeError(
+                    f"ingest address unix:{target} already has a live "
+                    f"server; is another fleet run using it?"
+                )
+            finally:
+                probe.close()
+        sock.bind(target)
+        sock.listen(64)
+        if family == socket.AF_INET:
+            host, port = sock.getsockname()[:2]
+            self.address = f"{host}:{port}"
+            dial_host = "127.0.0.1" if host in ("0.0.0.0", "::", "") else host
+            self.connect_address = f"{dial_host}:{port}"
+        else:
+            self.address = f"unix:{target}"
+            self.connect_address = self.address
+            self._unix_path = target
+        self._listener = sock
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, name="fleet-ingest-accept", daemon=True
+        )
+        self._accept_thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._listener is not None:
+            # A bare close does not wake a thread blocked in accept(2): TCP
+            # listeners are shut down; an AF_UNIX one is poked awake.
+            try:
+                self._listener.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            if self._unix_path is not None:
+                try:
+                    poke = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+                    poke.settimeout(0.5)
+                    poke.connect(self._unix_path)
+                    poke.close()
+                except OSError:
+                    pass
+            try:
+                self._listener.close()
+            except OSError:
+                pass
+            if self._unix_path is not None:
+                try:
+                    os.unlink(self._unix_path)
+                except OSError:
+                    pass
+        with self._lock:
+            conns = list(self._conns.values())
+        for conn in conns:
+            try:
+                conn.close()
+            except OSError:
+                pass
+        if self._accept_thread is not None:
+            self._accept_thread.join(timeout=5)
+        for t in list(self._handlers):
+            t.join(timeout=self.stop_join_s)
+            if t.is_alive():
+                print(
+                    f"fleet ingest: handler thread {t.name} still alive "
+                    f"{self.stop_join_s:.0f}s after stop; leaked (wedged "
+                    f"handler; see flight.jsonl)",
+                    flush=True,
+                )
+                flight_event("ingest_handler_leaked", thread=t.name)
+
+    def mark_steady(self) -> None:
+        """Startup is over (the first drain-learn has run): queue-full
+        waits shed after ``shed_after_s`` from here on."""
+        self._steady.set()
+
+    # ---------------------------------------------------------------- params
+    def publish_params(self, version: int, params: Any) -> None:
+        """Swap in a new versioned param snapshot (numpy trees: the caller
+        copies from the device, ``snapshot_params``).  Handlers push it to
+        each actor ahead of that actor's next ack."""
+        with self._lock:
+            self._param_version = int(version)
+            self._params_obj = params
+            self._params_frame = None
+
+    def _params_snapshot(self):
+        """Lazy pack on the FIRST push (a handler thread), once per
+        version, outside the server lock; the payload is one bytes object
+        broadcast to every handler."""
+        with self._lock:
+            version = self._param_version
+            frame, obj = self._params_frame, self._params_obj
+        if frame is None and obj is not None:
+            frame = b"".join(
+                self._params_packer.pack({"version": version, "params": obj})
+            )
+            with self._lock:
+                if self._param_version == version and self._params_frame is None:
+                    self._params_frame = frame
+        return version, frame
+
+    def pop_shed_stats(self) -> Dict[str, float]:
+        """Drain the scalar stats banked off shed messages."""
+        with self._lock:
+            out = dict(self._shed_stats)
+            for k in self._shed_stats:
+                self._shed_stats[k] = 0.0
+        return out
+
+    def drop_connection(self, actor: Optional[str] = None) -> Optional[str]:
+        """Abruptly close one live actor connection (a mid-run network
+        reset).  ``actor`` picks by HELLO'd id; ``None`` (or an id with no
+        live connection) drops the oldest live connection.  Returns the
+        dropped actor id, or None when no connection is live."""
+        with self._lock:
+            ident = None
+            if actor is not None:
+                for i, a in self._conn_actors.items():
+                    if a == str(actor) and i in self._conns:
+                        ident = i
+                        break
+            if ident is None and self._conns:
+                ident = next(iter(self._conns))
+            if ident is None:
+                return None
+            conn = self._conns[ident]
+            dropped = self._conn_actors.get(ident, "?")
+        try:
+            # SHUT_RDWR first: close() alone does not wake a blocked recv.
+            conn.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
+            conn.close()
+        except OSError:
+            pass
+        return dropped
+
+    # ------------------------------------------------------------ connection
+    def _accept_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._listener.accept()
+            except OSError:
+                return  # listener closed
+            if self._stop.is_set():
+                try:
+                    conn.close()
+                except OSError:
+                    pass
+                return
+            transport.configure_socket(conn)
+            # Warm-up deadline until the first SEQS frame (a fresh actor's
+            # start-up is legitimate silence).
+            conn.settimeout(self.warmup_deadline_s)
+            with self._lock:
+                self._conn_seq += 1
+                ident = self._conn_seq
+                self._conns[ident] = conn
+            self._handlers = [t for t in self._handlers if t.is_alive()]
+            t = threading.Thread(
+                target=self._handle,
+                args=(ident, conn),
+                name=f"fleet-ingest-conn{ident}",
+                daemon=True,
+            )
+            self._handlers.append(t)
+            t.start()
+
+    def _push_params_if_stale(
+        self, conn: socket.socket, sent_version: int, bytes_out
+    ) -> int:
+        version, frame = self._params_snapshot()
+        if frame is not None and version > sent_version:
+            bytes_out.inc(
+                send_frame(conn, K_PARAMS, frame)
+            )
+            return version
+        return sent_version
+
+    def _put_or_shed(self, msg) -> bool:
+        """Bounded-wait enqueue: True = queued, False = shed.
+
+        The bound is ``shed_after_s`` once the learner marks steady (or the
+        grace has elapsed since the first hand-off), the startup grace
+        before that.  The wait runs in short slices, so a stopping server
+        reclaims its handlers quickly."""
+        now = time.monotonic()
+        in_grace = not self._steady.is_set() and (
+            self._first_put_at is None
+            or now - self._first_put_at < self.startup_shed_grace_s
+        )
+        if in_grace:
+            anchor = now if self._first_put_at is None else self._first_put_at
+            deadline = max(
+                now + self.shed_after_s,
+                anchor + self.startup_shed_grace_s,
+            )
+        else:
+            deadline = now + self.shed_after_s
+        while not self._stop.is_set():
+            try:
+                self.queue.put(
+                    msg,
+                    timeout=min(0.25, max(deadline - time.monotonic(), 0.0)),
+                )
+                if self._first_put_at is None:
+                    self._first_put_at = time.monotonic()
+                return True
+            except queue.Full:
+                if time.monotonic() >= deadline:
+                    return False
+        return False  # stopping: drop silently, the run is over
+
+    def _handle(self, ident: int, conn: socket.socket) -> None:
+        actor = "?"
+        # Per-connection wire state: the peer's packer lives on its side of
+        # this socket, so the schema cache dies with it too.
+        unpacker = wire.TreeUnpacker()
+        try:
+            kind, payload = recv_frame(conn)
+            if kind != K_HELLO:
+                raise FrameError(f"expected HELLO, got kind {kind}")
+            # JSON, never pickle: this parse runs BEFORE the auth check.
+            hello = transport.unpack_hello(payload)
+            actor = str(hello.get("actor_id", "?"))
+            if self.auth_token is not None:
+                # Constant-time comparison, before any per-actor state.
+                want = transport.hello_auth_proof(self.auth_token)
+                got = str(hello.get("auth", ""))
+                if not hmac.compare_digest(want, got):
+                    flight_event("auth_refused", actor=actor)
+                    send_frame(
+                        conn,
+                        K_ACK,
+                        pack_obj(  # wire-lint: control
+                            {"code": REFUSED_AUTH, "param_version": 0}
+                        ),
+                    )
+                    return
+            with self._lock:
+                self._conn_actors[ident] = actor
+            bytes_in = self._obs_bytes_in.labels(actor=actor)
+            bytes_out = self._obs_bytes_out.labels(actor=actor)
+            bytes_in.inc(HEADER_BYTES + len(payload))
+            mismatch = wire.check_negotiation(hello, self.wire_config)
+            if mismatch is not None:
+                # One fleet, one wire format: refuse at the door, loudly.
+                flight_event("wire_refused", actor=actor, reason=mismatch)
+                bytes_out.inc(
+                    send_frame(
+                        conn,
+                        K_ACK,
+                        pack_obj(  # wire-lint: control
+                            {
+                                "code": REFUSED_WIRE,
+                                "param_version": 0,
+                                "reason": mismatch,
+                                "expect": wire.negotiation_fields(
+                                    self.wire_config
+                                ),
+                            }
+                        ),
+                    )
+                )
+                return
+            sent_version = self._push_params_if_stale(conn, 0, bytes_out)
+            bytes_out.inc(
+                send_frame(
+                    conn,
+                    K_ACK,
+                    pack_obj(  # wire-lint: control
+                        {"code": OK, "param_version": sent_version}
+                    ),
+                )
+            )
+            streaming = False  # the first SEQS tightens the read deadline
+            while not self._stop.is_set():
+                kind, payload = recv_frame_heartbeat(
+                    conn,
+                    bytes_in=bytes_in.inc,
+                    bytes_out=bytes_out.inc,
+                )
+                t_recv = time.time()
+                bytes_in.inc(HEADER_BYTES + len(payload))
+                if kind == K_BYE:
+                    return
+                if kind != K_SEQS:
+                    raise FrameError(f"expected SEQS/BYE, got kind {kind}")
+                if not streaming:
+                    conn.settimeout(self.read_deadline_s)
+                    streaming = True
+                    with self._lock:
+                        self.first_seqs_at.setdefault(actor, time.monotonic())
+                msg = unpacker.unpack(payload)
+                if not (isinstance(msg, dict)
+                        and isinstance(msg.get("staged"), StagedSequences)):
+                    raise FrameError("SEQS payload carries no staged batch")
+                t_decode_end = time.time()
+                tr = unpacker.last_trace
+                if tr is not None:
+                    # The sampled batch's actor-side stamps and this
+                    # handler's receive/decode times ride the message; the
+                    # learner records all 8 hops of the batches it trains.
+                    msg["trace"] = {
+                        "id": tr.trace_id,
+                        "actor": actor,
+                        "t_collect_start": tr.t_collect_start,
+                        "t_collect_end": tr.t_collect_end,
+                        "t_encode_end": tr.t_encode_end,
+                        "t_recv": t_recv,
+                        "t_enqueue_start": t_decode_end,
+                    }
+                msg["actor_id"] = actor
+                n_seqs = int(np.shape(msg["staged"].seq.reward)[0])
+                self._obs_frames.labels(actor=actor).inc()
+                self._obs_seqs.labels(actor=actor).inc(n_seqs)
+                self._obs_staleness.labels(actor=actor).set(
+                    self._param_version - int(msg.get("param_version", 0))
+                )
+                self._obs_ratio.set(
+                    unpacker.last_raw_len / max(unpacker.last_payload_len, 1)
+                )
+                with self._lock:
+                    self.seqs_received_total += n_seqs
+                    self.seqs_bytes_total += HEADER_BYTES + len(payload)
+                    self.seqs_raw_bytes_total += unpacker.last_raw_len
+                if self._put_or_shed(msg):
+                    code = OK
+                    with self._lock:
+                        self.seqs_total += n_seqs
+                else:
+                    if self._stop.is_set():
+                        return
+                    code = SHED_INGEST
+                    with self._lock:
+                        self.shed_total += 1
+                        for k in self._shed_stats:
+                            self._shed_stats[k] += float(msg.get(k, 0.0))
+                    self._obs_shed.labels(actor=actor).inc()
+                    flight_event(
+                        "shed", code=code, actor=actor,
+                        phase=int(msg.get("phase", -1)),
+                    )
+                sent_version = self._push_params_if_stale(
+                    conn, sent_version, bytes_out
+                )
+                bytes_out.inc(
+                    send_frame(
+                        conn,
+                        K_ACK,
+                        pack_obj(  # wire-lint: control
+                            {"code": code, "param_version": sent_version}
+                        ),
+                    )
+                )
+        except PeerDeadError as e:
+            if not self._stop.is_set():
+                # The liveness verdict: a peer that answered neither frames
+                # nor the PING probe is reaped, loudly attributed.
+                flight_event(
+                    "peer_dead",
+                    actor=actor,
+                    deadline_s=self.read_deadline_s,
+                    error=str(e),
+                )
+                self._obs_peer_dead.labels(actor=actor).inc()
+        except (FrameError, OSError) as e:
+            if not self._stop.is_set():
+                # A crashed actor's torn stream: note it and drop the
+                # connection; the supervisor owns the restart.
+                flight_event(
+                    "ingest_conn_error",
+                    actor=actor,
+                    error=f"{type(e).__name__}: {e}",
+                )
+        finally:
+            with self._lock:
+                self._conns.pop(ident, None)
+                self._conn_actors.pop(ident, None)
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+
+# ------------------------------------------------------------ host staging
+def put_staged(batches: List[StagedSequences], device) -> StagedSequences:
+    """Stack decoded (numpy) staged batches along B and place them on
+    ``device`` with ONE host-to-device copy.
+
+    Each leaf's rows are written straight from the frames into one fresh
+    host byte buffer (the stacking is that write: no intermediate numpy
+    concatenation), the buffer crosses to the device in one copy on the
+    current stream, and the leaves are typed views of the device buffer.
+    On the CPU the buffer itself backs the tensors.  Priorities must be
+    resolved on every batch or on none (mixing raises); provenance present
+    on only some batches is dropped, as ``replay.stack_staged`` does."""
+    if not batches:
+        raise ValueError("put_staged needs at least one batch")
+    resolved = [b.priorities is not None for b in batches]
+    if any(resolved) != all(resolved):
+        raise ValueError(
+            "put_staged: cannot mix resolved and unresolved priorities"
+        )
+    if not all(b.behavior_version is not None and b.collect_id is not None
+               for b in batches):
+        batches = [dataclasses.replace(b, behavior_version=None, collect_id=None)
+                   for b in batches]
+    per_batch: List[List[np.ndarray]] = []
+    build = None
+    for b in batches:
+        leaves, fn = flatten_tree(b, lambda x: isinstance(x, np.ndarray))
+        build = build or fn
+        if per_batch and len(leaves) != len(per_batch[0]):
+            raise ValueError("put_staged: batches of different structure")
+        per_batch.append(leaves)
+    columns = list(zip(*per_batch))
+    layout, total = [], 0
+    for col in columns:
+        shape = (sum(a.shape[0] for a in col),) + tuple(col[0].shape[1:])
+        dtype = col[0].dtype
+        nbytes = int(np.prod(shape)) * dtype.itemsize
+        layout.append((total, nbytes, shape, dtype))
+        total += -(-nbytes // 16) * 16  # 16-byte aligned views
+    host = np.empty(total, np.uint8)
+    for col, (off, nbytes, shape, dtype) in zip(columns, layout):
+        out = host[off:off + nbytes].view(dtype).reshape(shape)
+        np.concatenate(col, axis=0, out=out)
+    dev = torch.from_numpy(host).to(device)
+    tensors = [
+        dev[off:off + nbytes].view(torch.from_numpy(np.empty(0, dtype)).dtype)
+        .view(shape)
+        for off, nbytes, shape, dtype in layout
+    ]
+    return build(tensors)
+
+
+# -------------------------------------------------------- fleet checkpoints
+# The learner-recovery contract: a fleet checkpoint is the LEARNER subtree
+# (a light checkpoint) plus this sidecar of host-side monotone counters.
+# The replay arena is not checkpointed: a resumed run re-absorbs to
+# min_replay from fresh actor experience, and every counter continues
+# from where the checkpoint left it.
+def fleet_counters_path(directory: str, step: int) -> str:
+    return os.path.join(
+        os.path.abspath(directory), f"fleet_counters_{int(step)}.json"
+    )
+
+
+def save_fleet_counters(directory: str, step: int, counters: Dict) -> str:
+    """Atomically write the counter sidecar next to the checkpoint step
+    (tmp + rename).  Returns the path."""
+    path = fleet_counters_path(directory, step)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump({k: float(v) for k, v in counters.items()}, f)
+    os.replace(tmp, path)
+    return path
+
+
+def load_fleet_counters(directory: str, step: int) -> Dict[str, float]:
+    """The sidecar for ``step``; a missing file gives an empty dict
+    (callers warn: counters would restart at zero)."""
+    path = fleet_counters_path(directory, step)
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        return {k: float(v) for k, v in json.load(f).items()}
+
+
+def prune_fleet_counters(directory: str, keep_steps) -> None:
+    """Drop sidecars whose checkpoint step was pruned (``max_to_keep``)."""
+    keep = {int(s) for s in keep_steps}
+    directory = os.path.abspath(directory)
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return
+    for name in names:
+        if not (name.startswith("fleet_counters_") and name.endswith(".json")):
+            continue
+        try:
+            step = int(name[len("fleet_counters_"):-len(".json")])
+        except ValueError:
+            continue
+        if step not in keep:
+            try:
+                os.unlink(os.path.join(directory, name))
+            except OSError:
+                pass
+
+
+class FleetLearner:
+    """The staging queue's single consumer: drain -> arena add -> K updates.
+
+    Owns the ingest server and runs on the calling thread and its current
+    stream.  ``--actors 0`` never constructs this class: the phase-locked
+    ``Trainer.run`` path is untouched."""
+
+    def __init__(self, trainer: Trainer, config: FleetConfig):
+        if getattr(trainer, "axis", None) is not None:
+            raise ValueError(
+                "FleetLearner needs a host-visible drain boundary; "
+                "shard_map trainers fuse whole phases; use the base Trainer"
+            )
+        if config.num_actors < 1:
+            raise ValueError(
+                "FleetLearner requires num_actors >= 1 (fleet=off runs "
+                "Trainer.run directly; there is nothing to ingest)"
+            )
+        if config.queue_depth < 1:
+            raise ValueError("queue_depth must be >= 1")
+        if config.drain_coalesce < 1:
+            raise ValueError("drain_coalesce must be >= 1")
+        config.wire.validate()
+        self.trainer = trainer
+        self.config = config
+        self.queue: "queue.Queue" = queue.Queue(maxsize=config.queue_depth)
+        self.server = IngestServer(
+            self.queue,
+            address=config.address,
+            shed_after_s=config.shed_after_s,
+            wire_config=config.wire,
+            read_deadline_s=config.heartbeat_s,
+            auth_token=config.auth_token,
+        )
+        reg = get_registry()
+        self._obs_queue_depth = reg.gauge(
+            "r2d2dpg_fleet_staging_queue_depth",
+            "staged batches awaiting drain",
+        )
+        self._obs_queue_depth.set_fn(self.queue.qsize)
+        # Absorb-phase waits (actor spawn and start-up, replay fill) are
+        # expected and kept apart from the learn-phase starvation waits.
+        self.learner_wait = reg.histogram(
+            "r2d2dpg_fleet_learner_wait_seconds",
+            "learner thread blocked on the fleet staging queue AFTER "
+            "absorb (starvation)",
+        )
+        self.absorb_wait = reg.histogram(
+            "r2d2dpg_fleet_absorb_wait_seconds",
+            "learner thread blocked on the staging queue during the "
+            "absorb-to-min_replay phase (cold start and --resume re-entry)",
+        )
+        self._obs_coalesce = reg.gauge(
+            "r2d2dpg_fleet_drain_coalesce_width",
+            "staged batches stacked into the most recent drain",
+        )
+        self._stats: Dict[str, float] = {}
+        self._counters: Dict[str, float] = {}
+
+    # ------------------------------------------------------------- lifecycle
+    def start(self) -> str:
+        """Bind and start the ingest server; returns the dialable address
+        the supervisor hands to actor subprocesses."""
+        self.server.start()
+        return self.server.connect_address
+
+    def close(self) -> None:
+        """Stop the ingest server (stop the supervisor first, so an actor
+        losing its connection is not read as a crash)."""
+        self.server.stop()
+        self._obs_queue_depth.set(0.0)
+
+    def stats(self) -> Dict[str, float]:
+        """Instrumentation from the most recent ``run``."""
+        return dict(self._stats)
+
+    def counters(self) -> Dict[str, float]:
+        """The monotone counters at the end of the most recent ``run``: what
+        the final checkpoint's sidecar records for a later resume."""
+        return dict(self._counters)
+
+    def _save_checkpoint(
+        self, ckpt, step: int, state, cstate, lstate, counters: Dict
+    ) -> None:
+        """One periodic learner checkpoint (a light manager keeps the
+        ``train`` subtree) plus the counter sidecar, pruned in lockstep."""
+        ckpt.save(step, merge_state(state, cstate, lstate))
+        save_fleet_counters(ckpt.directory, step, counters)
+        prune_fleet_counters(ckpt.directory, ckpt.all_steps())
+
+    # ------------------------------------------------------------------- run
+    def run(
+        self,
+        num_train_phases: int,
+        state: Optional[TrainerState] = None,
+        log_every: int = 50,
+        log_fn=print,
+        metrics_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
+        minutes: Optional[float] = None,
+        ckpt=None,
+        checkpoint_every: int = 0,
+        resume_from: Optional[Dict[str, float]] = None,
+        health_fn: Optional[Callable[[], None]] = None,
+    ) -> TrainerState:
+        """Absorb staged batches until ``min_replay`` sequences are
+        resident, then run ``num_train_phases`` drain-learn phases (one
+        drain + K updates each).  The server must already be started; the
+        caller owns the actors (the supervisor).
+
+        ``ckpt`` (a LIGHT ``CheckpointManager``) + ``checkpoint_every`` arm
+        periodic learner checkpoints with the counter sidecar;
+        ``resume_from`` (``load_fleet_counters`` of the restored step)
+        continues counters, phase numbering and param versions, and
+        ``num_train_phases`` stays the TOTAL across incarnations.
+        ``health_fn()`` runs whenever the queue wait times out and may
+        raise to abort the run (the train CLI checks that the supervisor
+        has not given actors up)."""
+        if self.server.address is None:
+            raise RuntimeError("call start() before run()")
+        t = self.trainer
+        mon = get_device_monitor().install()
+        mon.begin_run()
+        state = t.init() if state is None else state
+        cstate, lstate = split_state(state)
+        deadline = (
+            time.monotonic() + minutes * 60 if minutes is not None else None
+        )
+        self.learner_wait.reset()
+        self.absorb_wait.reset()
+        resume_from = resume_from or {}
+        version = int(resume_from.get("param_version", 0)) + 1
+        self.server.publish_params(version, snapshot_params(lstate.train))
+
+        min_seqs = t.config.min_replay
+        absorbed = 0
+        drained = int(resume_from.get("drained", 0))
+        drained_at_start = drained
+        last_metrics: Dict[str, Any] = {}
+        # Host-side episode accounting: actors ship DELTAS as plain floats,
+        # so the sums stay monotone across supervised actor restarts.
+        ep_ret_sum = float(resume_from.get("ep_return_sum", 0.0))
+        ep_count = float(resume_from.get("ep_count", 0.0))
+        env_steps_total = float(resume_from.get("env_steps_total", 0.0))
+        episodes_total = float(resume_from.get("episodes_total", 0.0))
+        last_batch_t = time.monotonic()
+        t0 = time.monotonic()
+        # Steady-state window for throughput: from the first drain-learn's end.
+        train_t0: Optional[float] = None
+        seqs_at_train_t0 = 0
+        drain_s = PercentileWindow()
+
+        def emit_log(phase: int, scalars: Dict[str, float]) -> None:
+            if metrics_fn is not None:
+                metrics_fn(phase, scalars)
+                return
+            log_fn(
+                f"fleet phase {phase}/{num_train_phases} "
+                + " ".join(f"{k} {v:.3g}" for k, v in scalars.items())
+            )
+
+        coalesce_sum = 0
+        coalesce_n = 0
+        try:
+            while drained < num_train_phases:
+                if deadline is not None and time.monotonic() >= deadline:
+                    break
+                t_wait = time.monotonic()
+                wait_hist = (
+                    self.learner_wait if absorbed > min_seqs else self.absorb_wait
+                )
+                try:
+                    first = self.queue.get(timeout=0.5)
+                except queue.Empty:
+                    wait_hist.add(time.monotonic() - t_wait)
+                    if health_fn is not None:
+                        health_fn()
+                    # Cold start: the FIRST batch pays actor spawn, imports
+                    # and window fill, so it gets double the bound.
+                    bound = self.config.idle_timeout_s * (
+                        2.0 if absorbed == 0 else 1.0
+                    )
+                    if time.monotonic() - last_batch_t > bound:
+                        raise RuntimeError(
+                            f"fleet starved: no staged batch in "
+                            f"{self.config.idle_timeout_s:.0f}s; are the "
+                            f"actors alive? (the supervisor restarts crashed "
+                            f"ones; check flight.jsonl)"
+                        )
+                    continue
+                wait_hist.add(time.monotonic() - t_wait)
+                last_batch_t = time.monotonic()
+                t_dequeue = time.time()
+                # Coalesced drain: the got batch plus whatever backlog the
+                # queue already holds, up to the power-of-two bucket of
+                # drain_coalesce; absorb-phase pulls take one batch.
+                limit = 1 if absorbed < min_seqs else self.config.drain_coalesce
+                msgs = coalesce_from_queue(self.queue, first, limit)
+                coalesce_sum += len(msgs)
+                coalesce_n += 1
+                self._obs_coalesce.set(float(len(msgs)))
+                # Fold shed-banked accounting every iteration.
+                shed_stats = self.server.pop_shed_stats()
+                env_steps_total += shed_stats["env_steps_delta"]
+                ep_ret_sum += shed_stats["ep_return_sum"]
+                ep_count += shed_stats["ep_count"]
+                episodes_total += shed_stats["ep_count"]
+                host_staged = [m["staged"] for m in msgs]
+                for msg in msgs:
+                    ep_ret_sum += float(msg.get("ep_return_sum", 0.0))
+                    ep_count += float(msg.get("ep_count", 0.0))
+                    episodes_total += float(msg.get("ep_count", 0.0))
+                    env_steps_total += float(msg.get("env_steps_delta", 0.0))
+                traces = [m["trace"] for m in msgs if m.get("trace")]
+                t_drain = time.monotonic()
+                with annotate("fleet/drain"):
+                    staged = put_staged(host_staged, t.device)
+                t_stack_end = time.time()
+                n_seqs = int(staged.seq.reward.shape[0])
+                absorbed += n_seqs
+                if absorbed <= min_seqs:
+                    with t.arena.staged_writer():
+                        lstate, _ = drain_staged(t, lstate, staged, learn=False)
+                    continue
+                # Experience-quality fold on the decoded host batch.
+                qplane = get_quality_plane()
+                if staged.behavior_version is not None:
+                    qplane.observe_lags(policy_lags(version, np.concatenate(
+                        [b.behavior_version for b in host_staged])))
+                for m_q in msgs:
+                    qplane.note_trained(
+                        m_q["actor_id"],
+                        int(np.shape(m_q["staged"].seq.reward)[0]),
+                    )
+                mon.on_phase(drained + 1)
+                with t.arena.staged_writer(), annotate("fleet/drain"), \
+                        mon.program("fleet_drain"):
+                    lstate, last_metrics = drain_staged(t, lstate, staged, prefetch=True)
+                mon.note_learn()
+                t_dispatch_end = time.time()
+                if traces:
+                    # One synchronization per SAMPLED drain makes the learn
+                    # hop honest; unsampled drains pay nothing.
+                    if t.device.type == "cuda":
+                        torch.cuda.synchronize(t.device)
+                    t_done = time.time()
+                    nbytes = staged_nbytes(staged)
+                    for tr in traces:
+                        tid, act = tr["id"], tr.get("actor")
+                        obs_trace.record_hop(
+                            "collect", tr["t_collect_start"],
+                            tr["t_collect_end"], tid, actor=act)
+                        obs_trace.record_hop(
+                            "encode", tr["t_collect_end"],
+                            tr["t_encode_end"], tid, actor=act)
+                        obs_trace.record_hop(
+                            "transit", tr["t_encode_end"], tr["t_recv"],
+                            tid, actor=act)
+                        obs_trace.record_hop(
+                            "decode", tr["t_recv"], tr["t_enqueue_start"],
+                            tid, actor=act)
+                        obs_trace.record_hop(
+                            "enqueue", tr["t_enqueue_start"], t_dequeue,
+                            tid, actor=act)
+                        obs_trace.record_hop(
+                            "coalesce", t_dequeue, t_stack_end,
+                            tid, actor=act, width=len(msgs))
+                        obs_trace.record_hop(
+                            "arena_add", t_stack_end, t_dispatch_end,
+                            tid, actor=act, bytes=nbytes, seqs=n_seqs)
+                        obs_trace.record_hop(
+                            "learn", t_dispatch_end, t_done, tid, actor=act)
+                drained += 1
+                drain_s.add(time.monotonic() - t_drain)
+                if train_t0 is None:
+                    train_t0 = time.monotonic()
+                    seqs_at_train_t0 = absorbed
+                    # Startup is over: handlers shed on the real bound now.
+                    self.server.mark_steady()
+                    mon.mark_steady()
+                if (
+                    ckpt is not None
+                    and checkpoint_every > 0
+                    and drained % checkpoint_every == 0
+                ):
+                    self._save_checkpoint(
+                        ckpt, drained, state, cstate, lstate,
+                        {
+                            "drained": drained,
+                            "env_steps_total": env_steps_total,
+                            "ep_return_sum": ep_ret_sum,
+                            "ep_count": ep_count,
+                            "episodes_total": episodes_total,
+                            "param_version": version,
+                        },
+                    )
+                if drained % max(self.config.publish_every, 1) == 0:
+                    version += 1
+                    self.server.publish_params(
+                        version, snapshot_params(lstate.train)
+                    )
+                    if log_every and drained % log_every == 0:
+                        flight_event("param_publish", version=version)
+                if log_every and drained % log_every == 0:
+                    # ONE fetch per log cadence: the learn metrics and the
+                    # arena's priority sum.
+                    with mon.expected("log_fetch"):
+                        names = list(last_metrics)
+                        fetched = torch.stack(
+                            [lstate.arena.priority.sum()]
+                            + [last_metrics[k].float() for k in names]
+                        ).tolist()
+                    t.arena.observe_state_scalars(
+                        float(t.arena.size(lstate.arena)), fetched[0],
+                        float(lstate.arena.total_added),
+                    )
+                    scalars = {
+                        "episode_return_mean": ep_ret_sum / max(ep_count, 1.0),
+                        "episodes": ep_count,
+                        "env_steps": env_steps_total,
+                        "learner_steps": float(lstate.train.step),
+                        **dict(zip(names, fetched[1:])),
+                    }
+                    ep_ret_sum = 0.0
+                    ep_count = 0.0
+                    t._obs_publish(scalars)
+                    emit_log(drained, scalars)
+        finally:
+            if t.device.type == "cuda":
+                torch.cuda.synchronize(t.device)
+            mon.end_run()
+            t_end = time.monotonic()
+            wall = max(t_end - t0, 1e-9)
+            _, lw_total, lw_p50, lw_p99 = self.learner_wait.snapshot()
+            _, aw_total, aw_p50, aw_p99 = self.absorb_wait.snapshot()
+            _, _, dr_p50, dr_p99 = drain_s.snapshot()
+            srv = self.server
+            drained_here = drained - drained_at_start
+            self._counters = {
+                "drained": float(drained),
+                "env_steps_total": env_steps_total,
+                "ep_return_sum": ep_ret_sum,
+                "ep_count": ep_count,
+                "episodes_total": episodes_total,
+                "param_version": float(version),
+            }
+            self._stats = {
+                "train_phases": float(drained_here),
+                "train_phases_total": float(drained),
+                "absorbed_seqs": float(absorbed),
+                "wall_s": wall,
+                "learner_steps_per_sec": (
+                    drained_here * t.config.learner_steps / wall
+                ),
+                "arena_add_seqs_per_sec": absorbed / wall,
+                "sheds": float(srv.shed_total),
+                "learner_wait_p50_ms": lw_p50 * 1e3,
+                "learner_wait_p99_ms": lw_p99 * 1e3,
+                "learner_wait_total_s": lw_total,
+                "absorb_wait_p50_ms": aw_p50 * 1e3,
+                "absorb_wait_p99_ms": aw_p99 * 1e3,
+                "absorb_wait_s": aw_total,
+                "drain_learn_p50_ms": dr_p50 * 1e3,
+                "drain_learn_p99_ms": dr_p99 * 1e3,
+                "overlap_fraction": max(0.0, 1.0 - (lw_total + aw_total) / wall),
+                "bytes_in_total": float(srv.seqs_bytes_total),
+                "bytes_per_seq": (
+                    srv.seqs_bytes_total / max(srv.seqs_received_total, 1)
+                ),
+                "bytes_per_trained_seq": (
+                    srv.seqs_bytes_total
+                    / max(drained_here * t.config.learner_steps
+                          * t.config.batch_size, 1)
+                ),
+                "wire_ratio": (
+                    srv.seqs_raw_bytes_total / max(srv.seqs_bytes_total, 1)
+                ),
+                "drain_coalesce_width_mean": coalesce_sum / max(coalesce_n, 1),
+                **quality_stats_columns(),
+                **mon.run_stats(),
+            }
+            if train_t0 is not None:
+                # Steady-state rates (the whole-run rates above include
+                # start-up).
+                train_wall = max(t_end - train_t0, 1e-9)
+                self._stats["train_wall_s"] = train_wall
+                self._stats["train_drain_phases_per_sec"] = (
+                    max(drained_here - 1, 0) / train_wall
+                )
+                self._stats["train_arena_add_seqs_per_sec"] = (
+                    absorbed - seqs_at_train_t0
+                ) / train_wall
+                self._stats["train_learner_steps_per_sec"] = (
+                    max(drained_here - 1, 0) * t.config.learner_steps / train_wall
+                )
+        # phase_idx is a collector-slice field the learner never advances;
+        # stamp the drained-phase count so the final checkpoint step
+        # reflects the trained run.
+        return dataclasses.replace(
+            merge_state(state, cstate, lstate),
+            phase_idx=cstate.phase_idx + drained,
+        )
+
+
+def snapshot_params(train) -> Any:
+    """The published snapshot: everything an actor needs to act AND to rank
+    fresh sequences locally (online and target nets of both cores), copied
+    to the host in one transfer (``transport.to_host``): a copy, never a
+    view of the learner's tensors."""
+    return to_host(
+        {
+            "actor_params": train.actor_params,
+            "critic_params": train.critic_params,
+            "target_actor_params": train.target_actor_params,
+            "target_critic_params": train.target_critic_params,
+            "step": int(train.step),
+        }
+    )

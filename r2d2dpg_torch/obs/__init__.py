@@ -16,6 +16,7 @@ from r2d2dpg_torch.obs.flight import (
     chrome_trace,
     flight_event,
     get_flight_recorder,
+    set_flight_identity,
 )
 from r2d2dpg_torch.obs.registry import (
     Counter,
@@ -45,4 +46,5 @@ __all__ = [
     "get_device_monitor",
     "get_flight_recorder",
     "get_registry",
+    "set_flight_identity",
 ]

@@ -8,6 +8,10 @@ manager's ``checkpoint_save``.  The ring is bounded (old events fall off),
 recording is a deque append under a lock, and nothing touches the disk
 until a dump: at interpreter exit once ``install`` armed it, or on demand.
 
+``set_flight_identity(**fields)`` stamps who-is-recording fields (a fleet
+actor's ``actor`` id) onto every later event and span, so the dumps of a
+fleet's processes stay attributable when read side by side.
+
 A dump is JSONL (one event per line, oldest first), written to a temporary
 file and renamed, so a crash mid-dump never leaves a torn file.  Each event
 carries::
@@ -88,6 +92,13 @@ class FlightRecorder:
         self._installed_path: Optional[str] = None
         self._trace_path: Optional[str] = None
         self._fault_file = None
+        self._identity: Dict[str, object] = {}
+
+    def set_identity(self, **fields) -> None:
+        """Stamp who-is-recording fields onto every later event and span.
+        Merges: a later call adds or overwrites keys, dropping none."""
+        with self._lock:
+            self._identity.update(fields)
 
     def record(self, kind: str, **fields) -> None:
         event = {
@@ -98,7 +109,8 @@ class FlightRecorder:
             "pid": os.getpid(),
         }
         with self._lock:
-            event.update(fields)
+            event.update(self._identity)
+            event.update(fields)  # explicit fields win over the identity
             event["seq"] = self._seq
             self._seq += 1
             self._ring.append(event)
@@ -120,8 +132,9 @@ class FlightRecorder:
             "dur_s": float(dur_s),
             "pid": os.getpid(),
         }
-        span.update({k: v for k, v in attrs.items() if v is not None})
         with self._lock:
+            span.update(self._identity)
+            span.update({k: v for k, v in attrs.items() if v is not None})
             self._spans.append(span)
 
     def spans(self) -> List[Dict]:
@@ -220,3 +233,9 @@ def get_flight_recorder() -> FlightRecorder:
 def flight_event(kind: str, **fields) -> None:
     """Record one event into the process recorder (the library-side API)."""
     _RECORDER.record(kind, **fields)
+
+
+def set_flight_identity(**fields) -> None:
+    """Stamp identity fields (``actor``, ...) onto every later event and
+    span of the process recorder (``FlightRecorder.set_identity``)."""
+    _RECORDER.set_identity(**fields)

@@ -7,7 +7,14 @@
         [--twin-critic 1] [--target-policy-sigma 0.2] \
         [--compute-dtype bfloat16] [--n-step 3] [--actor-lr 1e-4] \
         [--critic-lr 1e-3] [--sigma-max 0.4] [--ladder-alpha 7] \
+        [--num-envs E] [--batch-size B] [--learner-steps K] \
+        [--min-replay N] [--param-sync-every K] [--lr-scale-batch 1] \
         [--pipeline 1 [--pipeline-depth 2] [--trace-sample 0.1]] \
+        [--actors N [--fleet-address A] [--fleet-queue-depth Q] \
+         [--fleet-publish-every P] [--fleet-idle-timeout S] \
+         [--fleet-shed-after S] [--fleet-wire f32|bf16] \
+         [--fleet-compress none|zlib|zstd] [--drain-coalesce K] \
+         [--fleet-heartbeat S] [--fleet-token T] [--trace-sample R]] \
         [--minutes M] [--watchdog 0|1] [--watchdog-grad-norm X] \
         [--watchdog-param-norm X] [--nan-inject-phase K]
 
@@ -29,6 +36,18 @@ streams on a card.  It saves the final checkpoint only (a periodic
 prints one ``pipeline:`` stats line at the end.  ``--trace-sample RATE``
 records that share of its staged batches' hops (collect, enqueue,
 arena_add, learn) into ``<logdir>/trace.json``.
+
+``--actors N`` makes this process the learner of an actor fleet
+(``fleet/``): an ingest server feeds a staging queue, a supervisor owns N
+actor subprocesses on the CPU (spawned with ``--device cpu`` and no card
+visible; restarted with backoff when they crash), and the drain loop runs
+here: absorb to ``min_replay``, then ``--phases`` drain-learn phases, the
+actors' parameters republished every ``--fleet-publish-every`` phases.
+Checkpoints under ``--actors`` are always light, with a counter sidecar,
+and ``--resume`` continues the counters.  It prints one ``fleet:`` stats
+line at the end.  The wire and drain flags refuse to run without
+``--actors``; ``--fleet-token`` defaults to ``$R2D2DPG_FLEET_TOKEN`` and
+reaches the actors through their environment, never their argv.
 
 The divergence watchdog (``--watchdog 1``, the default) checks the learner
 metrics on the log cadence of either schedule: a NaN/Inf, or a grad or
@@ -109,6 +128,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="TD3 target-policy smoothing noise scale (0 = off)")
     p.add_argument("--compute-dtype", default=None, choices=["float32", "bfloat16"],
                    help="net compute dtype (params/optimizer stay float32)")
+    # Orchestration scale overrides, as in the JAX CLI.
+    p.add_argument("--num-envs", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument(
+        "--lr-scale-batch", type=int, default=0, choices=[0, 1],
+        help="scale actor/critic learning rates linearly with the batch "
+        "size (PAPERS.md 1803.02811): the resolved lrs are multiplied by "
+        "batch_size / <config default batch>, after --actor-lr/--critic-lr")
+    p.add_argument("--learner-steps", type=int, default=None)
+    p.add_argument("--min-replay", type=int, default=None)
+    p.add_argument(
+        "--param-sync-every", type=int, default=None,
+        help="refresh behavior params every K phases (0 = always fresh)")
     p.add_argument(
         "--pipeline", type=int, default=0, choices=[0, 1],
         help="run train phases through the pipelined collect/learn "
@@ -117,12 +149,62 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument(
         "--pipeline-depth", type=int, default=2,
         help="staging-queue capacity in collect phases (backpressure bound)")
+    # Fleet mode: supervised out-of-process actors.
+    p.add_argument(
+        "--actors", type=int, default=0, metavar="N",
+        help="spawn N supervised actor subprocesses streaming experience "
+        "to a learner-side ingest server (0 = off: the in-process "
+        "schedules, untouched)")
+    p.add_argument(
+        "--fleet-address", default="127.0.0.1:0",
+        help="ingest server bind: 'host:port' (port 0 = ephemeral) or "
+        "'unix:/path'")
+    p.add_argument(
+        "--fleet-queue-depth", type=int, default=4,
+        help="staging-queue capacity in staged batches (past it the "
+        "ingest server sheds loudly)")
+    p.add_argument(
+        "--fleet-publish-every", type=int, default=1,
+        help="drain phases between versioned param publications to actors")
+    p.add_argument(
+        "--fleet-idle-timeout", type=float, default=300.0,
+        help="seconds without a staged batch before the learner aborts as "
+        "starved (the first batch gets double: actor spawn + start-up)")
+    p.add_argument(
+        "--fleet-shed-after", type=float, default=None, metavar="S",
+        help="seconds a queue-full ingest handler waits before shedding a "
+        "staged batch (past the startup grace; default 1.0)")
+    p.add_argument(
+        "--fleet-wire", default="f32", choices=["f32", "bf16"],
+        help="payload precision on the fleet wire: f32 = bit-exact "
+        "(default), bf16 = observations/carries/params at half the bytes "
+        "(rewards/priorities stay f32; restored to f32 learner-side)")
+    p.add_argument(
+        "--fleet-compress", default="none", choices=["none", "zlib", "zstd"],
+        help="fleet frame compression (zstd refused where the zstandard "
+        "module is absent)")
+    p.add_argument(
+        "--drain-coalesce", type=int, default=1, metavar="K",
+        help="stack up to K queue-backlogged staged batches into one "
+        "drain (1 = one drain per batch; widths are powers of two <= K)")
+    p.add_argument(
+        "--fleet-heartbeat", type=float, default=None, metavar="S",
+        help="liveness read deadline on both fleet wire ends (default "
+        "300): a peer silent past it is PINGed once and reaped on a "
+        "second silence")
+    p.add_argument(
+        "--fleet-token", default=None,
+        help="shared HELLO-authentication secret; defaults to "
+        "$R2D2DPG_FLEET_TOKEN (prefer the variable: an argv secret is "
+        "readable in ps) and reaches spawned actors through their "
+        "environment, never their command line")
     p.add_argument(
         "--trace-sample", type=float, default=0.0, metavar="RATE",
         help="experience-path tracing: sample this fraction of staged "
-        "batches and record per-hop spans (collect -> enqueue -> arena_add "
-        "-> learn) into r2d2dpg_trace_*_seconds histograms and a "
-        "Chrome-trace/Perfetto trace.json next to flight.jsonl (0 = off)")
+        "batches and record per-hop spans into r2d2dpg_trace_*_seconds "
+        "histograms and a Chrome-trace/Perfetto trace.json next to "
+        "flight.jsonl (0 = off); --pipeline 1 records collect -> enqueue "
+        "-> arena_add -> learn, --actors N the 8 wire hops")
     p.add_argument(
         "--watchdog", type=int, default=1, choices=[0, 1],
         help="divergence watchdog on the log cadence: NaN/Inf or norm "
@@ -142,8 +224,12 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def _apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:
-    """The flags given on the command line, written into ``cfg``."""
-    t = {f: getattr(args, f) for f in ("seed", "sigma_max", "ladder_alpha")}
+    """The flags given on the command line, written into ``cfg``; then
+    ``--lr-scale-batch``'s rule on the resolved learning rates."""
+    base_batch = cfg.trainer.batch_size
+    t = {f: getattr(args, f) for f in (
+        "num_envs", "batch_size", "learner_steps", "min_replay",
+        "param_sync_every", "seed", "sigma_max", "ladder_alpha")}
     t = {k: v for k, v in t.items() if v is not None}
     if t:
         cfg = dataclasses.replace(cfg, trainer=dataclasses.replace(cfg.trainer, **t))
@@ -156,7 +242,62 @@ def _apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:
         cfg = dataclasses.replace(cfg, agent=dataclasses.replace(cfg.agent, **a))
     if args.compute_dtype is not None:
         cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype)
+    if args.lr_scale_batch:
+        scale = cfg.trainer.batch_size / base_batch
+        cfg = dataclasses.replace(cfg, agent=dataclasses.replace(
+            cfg.agent, actor_lr=cfg.agent.actor_lr * scale,
+            critic_lr=cfg.agent.critic_lr * scale))
+        print(f"lr-scale-batch: linear rule (1803.02811) batch {base_batch} -> "
+              f"{cfg.trainer.batch_size}, scale {scale:g} (actor_lr "
+              f"{cfg.agent.actor_lr:g}, critic_lr {cfg.agent.critic_lr:g})",
+              flush=True)
     return cfg
+
+
+def _fleet_only_knobs(args) -> bool:
+    return (
+        args.fleet_wire != "f32"
+        or args.fleet_compress != "none"
+        or args.drain_coalesce != 1
+        or args.fleet_token is not None
+        or args.fleet_heartbeat is not None
+        or args.fleet_shed_after is not None
+    )
+
+
+def _refuse(args) -> None:
+    """The JAX CLI's refusals (``r2d2dpg_tpu/topology.py``: ``validate``
+    and its ``REFUSALS`` rows) for the flags the port has, with the same
+    messages."""
+    if args.fleet_heartbeat is not None and args.fleet_heartbeat <= 0:
+        raise SystemExit("--fleet-heartbeat must be > 0 seconds")
+    if not 0.0 <= args.trace_sample <= 1.0:
+        raise SystemExit("--trace-sample must be in [0, 1]")
+    if args.actors and args.pipeline:
+        raise SystemExit(
+            "--actors N does not compose with --pipeline 1: both executors "
+            "own the phase loop (docs/TOPOLOGY.md)")
+    if args.actors and args.eval_every:
+        raise SystemExit(
+            "--actors N does not compose with --eval-every: the fleet "
+            "learner owns the phase loop; run the final-checkpoint eval "
+            "instead (docs/TOPOLOGY.md)")
+    if args.actors and args.nan_inject_phase is not None:
+        raise SystemExit(
+            "--actors N does not compose with --nan-inject-phase: the "
+            "poison targets the in-process collect loop actors own "
+            "(docs/TOPOLOGY.md)")
+    if not args.actors and _fleet_only_knobs(args):
+        raise SystemExit(
+            "--fleet-wire/--fleet-compress/--drain-coalesce/"
+            "--fleet-heartbeat/--fleet-token/--fleet-shed-after "
+            "require --actors N (the in-process schedules have no fleet "
+            "wire; docs/TOPOLOGY.md)")
+    if args.trace_sample and not (args.actors or args.pipeline):
+        raise SystemExit(
+            "--trace-sample requires --actors N or --pipeline 1 (the "
+            "phase-locked fused schedule has no staging path to trace; "
+            "docs/TOPOLOGY.md)")
 
 
 def _poison_actor_params(train):
@@ -258,9 +399,147 @@ def _run_pipelined(trainer, state, stop_at, logger, ckpt, args, watchdog,
     return state
 
 
+def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
+               flight_path) -> TrainerState:
+    """Drive the run through the actor fleet (``--actors N``): this process
+    is the learner; an ingest server feeds the staging queue, a supervisor
+    owns the actor subprocesses, and the drain loop runs here.
+    ``--phases`` counts drain-learn phases."""
+    from r2d2dpg_torch.fleet import (
+        ActorSupervisor,
+        FleetConfig,
+        FleetLearner,
+        WireConfig,
+        default_actor_argv,
+        load_fleet_counters,
+        prune_fleet_counters,
+        save_fleet_counters,
+        structural_argv,
+    )
+    from r2d2dpg_torch.fleet import transport as fleet_transport
+
+    try:
+        wire_config = WireConfig(
+            encoding=args.fleet_wire, compress=args.fleet_compress).validate()
+    except ValueError as e:
+        # e.g. zstd without the zstandard module: refused at startup, not
+        # with a crash-looping fleet.
+        raise SystemExit(f"--fleet-compress: {e}")
+    fleet_token = args.fleet_token or os.environ.get("R2D2DPG_FLEET_TOKEN") or None
+    if not fleet_transport.is_loopback_address(args.fleet_address) and not fleet_token:
+        print(f"fleet: WARNING: binding routable address {args.fleet_address!r} "
+              "WITHOUT --fleet-token: any host that can reach this port can "
+              "stream experience into training", flush=True)
+        flight.record("fleet_unauthenticated_bind", address=args.fleet_address)
+    heartbeat_s = (args.fleet_heartbeat if args.fleet_heartbeat is not None
+                   else fleet_transport.READ_DEADLINE_S)
+    learner = FleetLearner(trainer, FleetConfig(
+        num_actors=args.actors,
+        address=args.fleet_address,
+        queue_depth=args.fleet_queue_depth,
+        publish_every=args.fleet_publish_every,
+        idle_timeout_s=args.fleet_idle_timeout,
+        shed_after_s=(args.fleet_shed_after
+                      if args.fleet_shed_after is not None else 1.0),
+        wire=wire_config,
+        drain_coalesce=args.drain_coalesce,
+        heartbeat_s=heartbeat_s,
+        auth_token=fleet_token,
+    ))
+    address = learner.start()
+    print(f"fleet: ingest on {address}; spawning {args.actors} actors", flush=True)
+    resume_from = None
+    if args.resume:
+        step = ckpt.latest_step
+        if step is None:
+            learner.close()
+            raise SystemExit(f"--resume: no checkpoint found under {args.checkpoint_dir}")
+        state = dataclasses.replace(state, train=ckpt.restore(state))
+        resume_from = load_fleet_counters(args.checkpoint_dir, step)
+        if not resume_from:
+            print(f"fleet: WARNING: checkpoint step {step} has no counter "
+                  "sidecar; counters restart at 0", flush=True)
+        print(f"fleet: resumed learner from step {step} (drained "
+              f"{int(resume_from.get('drained', 0))} phases, env_steps "
+              f"{resume_from.get('env_steps_total', 0.0):.0f})", flush=True)
+    # The actors mirror the learner's RESOLVED structure, ladder and wire.
+    extra = structural_argv(cfg) + [
+        "--wire", args.fleet_wire,
+        "--compress", args.fleet_compress,
+        "--max-frame-bytes", str(fleet_transport.MAX_FRAME_BYTES),
+    ]
+    if args.trace_sample:
+        extra += ["--trace-sample", str(args.trace_sample)]
+    extra += ["--read-deadline", str(heartbeat_s)]
+    spawn_env = None
+    if fleet_token:
+        # Through the environment, NOT argv (visible in ps).
+        spawn_env = dict(os.environ)
+        spawn_env["R2D2DPG_FLEET_TOKEN"] = fleet_token
+
+    def argv_fn(i: int):
+        argv = default_actor_argv(
+            i, config_name=args.config, address=address,
+            num_actors=args.actors, seed=cfg.trainer.seed, extra=extra)
+        if args.logdir:
+            argv += ["--flight-path",
+                     os.path.join(args.logdir, f"flight_actor{i}.jsonl")]
+        return argv
+
+    supervisor = ActorSupervisor(
+        argv_fn, args.actors, env=spawn_env,
+        log_path_fn=((lambda i: os.path.join(args.logdir, f"actor{i}.log"))
+                     if args.logdir else None))
+
+    def health() -> None:
+        gave = supervisor.gave_up()
+        if gave:
+            raise RuntimeError(
+                f"fleet: the supervisor gave up actor(s) {gave} (restart "
+                "budget spent or HELLO refused; see the flight recorder)")
+
+    if args.phases is not None:
+        num_phases = args.phases
+    elif args.minutes is not None:
+        num_phases = 10**9  # the wall-clock budget is the stop condition
+    else:
+        num_phases = 1
+    try:
+        supervisor.start()
+        state = learner.run(
+            num_phases, state=state, log_every=args.log_every,
+            metrics_fn=_make_executor_metrics_fn(logger, watchdog, num_phases),
+            minutes=args.minutes, ckpt=ckpt,
+            checkpoint_every=args.checkpoint_every, resume_from=resume_from,
+            health_fn=health)
+        health()
+        stats = dict(learner.stats())
+        stats["actor_restarts"] = float(supervisor.restarts_total)
+        for i in range(args.actors):
+            first = learner.server.first_seqs_at.get(str(i))
+            if first is not None:
+                stats[f"actor{i}_first_seqs_s"] = first - supervisor.first_started_at(i)
+        _fold_executor_stats("fleet", stats)
+        if ckpt is not None and ckpt.save_every:
+            step = state.phase_idx
+            ckpt.save_final(step, state)
+            save_fleet_counters(ckpt.directory, step, learner.counters())
+            prune_fleet_counters(ckpt.directory, ckpt.all_steps())
+    except DivergenceError as e:
+        _abort_on_divergence(e, flight, flight_path, ckpt)
+    finally:
+        # The supervisor first: its stopping flag makes an actor's lost
+        # connection an orderly exit, not a crash to restart.
+        supervisor.stop()
+        learner.close()
+        flight.dump_trace()  # no-op unless spans were sampled and a path is armed
+    return state
+
+
 def main(argv=None) -> TrainerState:
     """Run the CLI; returns the final trainer state."""
     args = parse_args(argv)
+    _refuse(args)
     cfg = _apply_overrides(get_config(args.config), args)
     if args.resume and not args.checkpoint_dir:
         raise SystemExit("--resume requires --checkpoint-dir")
@@ -268,12 +547,20 @@ def main(argv=None) -> TrainerState:
     print(f"backend: {device_name(trainer.device)}", flush=True)
     ckpt = None
     if args.checkpoint_dir:
+        light = args.checkpoint_light
+        if args.actors and not light:
+            # A fleet checkpoint is the learner subtree + counter sidecar;
+            # the arena is re-absorbed from the actors on resume.
+            print("fleet: checkpoints under --actors N are always light "
+                  "(learner subtree + counters; the arena is re-absorbed "
+                  "on resume)", flush=True)
+            light = True
         ckpt = CheckpointManager(
             args.checkpoint_dir,
             save_every=args.checkpoint_every,
-            light=args.checkpoint_light,
+            light=light,
         )
-    if args.resume:
+    if args.resume and not args.actors:
         state = resume_state(trainer, ckpt)
         print(f"resumed from phase {state.phase_idx} "
               f"(learner step {state.train.step})", flush=True)
@@ -308,8 +595,11 @@ def main(argv=None) -> TrainerState:
     else:
         stop_at = max(start, fill + 1)
 
-    if args.pipeline:
+    if args.pipeline or args.actors:
         try:
+            if args.actors:
+                return _run_fleet(cfg, trainer, state, logger, ckpt, args,
+                                  watchdog, flight, flight_path)
             return _run_pipelined(trainer, state, stop_at, logger, ckpt, args,
                                   watchdog, flight, flight_path)
         finally:

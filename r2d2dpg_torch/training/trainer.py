@@ -131,13 +131,7 @@ class Trainer:
             prioritized=config.prioritized,
             alpha=config.priority_alpha,
         )
-        self.sigmas = sigma_ladder(
-            config.num_envs,
-            sigma_max=config.sigma_max,
-            alpha=config.ladder_alpha,
-            kind=config.ladder_kind,
-            device=device,
-        )
+        self.sigmas = self._local_sigmas()
         # Telemetry: registration is idempotent, so every Trainer of the
         # process shares one instrument per name.
         self._device = get_device_monitor().install()
@@ -154,6 +148,19 @@ class Trainer:
         )
         self._obs_episodes = reg.counter(
             "r2d2dpg_trainer_episodes_total", "episodes completed"
+        )
+
+    def _local_sigmas(self) -> torch.Tensor:
+        """This trainer's per-lane exploration sigmas: the whole ladder over
+        ``num_envs`` lanes.  A subclass returns its own slice of a wider
+        ladder (a fleet actor's, ``fleet/actor.py``)."""
+        cfg = self.config
+        return sigma_ladder(
+            cfg.num_envs,
+            sigma_max=cfg.sigma_max,
+            alpha=cfg.ladder_alpha,
+            kind=cfg.ladder_kind,
+            device=self.device,
         )
 
     # ------------------------------------------------------------------ init

@@ -83,6 +83,13 @@ FLAG_SETS = [
     ("--twin-critic", "1", "--target-policy-sigma", "0.2", "--compute-dtype",
      "bfloat16", "--n-step", "4", "--actor-lr", "1e-3", "--critic-lr", "5e-4",
      "--sigma-max", "0.5", "--ladder-alpha", "3"),
+    ("--num-envs", "8"),
+    ("--batch-size", "32"),
+    ("--learner-steps", "3"),
+    ("--min-replay", "500"),
+    ("--param-sync-every", "2"),
+    ("--num-envs", "2", "--batch-size", "16", "--learner-steps", "2",
+     "--min-replay", "40", "--param-sync-every", "0", "--seed", "3"),
 ]
 
 
@@ -96,3 +103,22 @@ def test_cli_overrides_equal_jax(name, flags):
     _fields_equal(port.trainer, ref.trainer)
     for f in NET_FIELDS:
         assert getattr(port, f) == getattr(ref, f), f
+
+
+@pytest.mark.parametrize("name", ["pendulum_r2d2", "cheetah_pixels"])
+@pytest.mark.parametrize("flags", [
+    ("--batch-size", "128"), ("--batch-size", "16", "--actor-lr", "2e-4"),
+    ("--critic-lr", "3e-3"),
+], ids=lambda f: "_".join(f))
+def test_lr_scale_batch_equals_jax(name, flags, capsys):
+    """``--lr-scale-batch 1``: the JAX CLI scales the resolved learning
+    rates by batch_size / the config's batch in ``run`` (train.py), after
+    ``_apply_overrides``; the port does it inside ``_apply_overrides``."""
+    argv = ["--config", name, "--lr-scale-batch", "1", *flags]
+    port = _apply_overrides(get_config(name), parse_args(argv))
+    ref = j_apply_overrides(J_CONFIGS[name], j_parse_args(argv))
+    scale = ref.trainer.batch_size / J_CONFIGS[name].trainer.batch_size
+    assert port.agent.actor_lr == ref.agent.actor_lr * scale
+    assert port.agent.critic_lr == ref.agent.critic_lr * scale
+    _fields_equal(port.trainer, ref.trainer)
+    assert "lr-scale-batch: linear rule" in capsys.readouterr().out

@@ -18,7 +18,10 @@ absolute of the plain one-row rollout (``policy_step_fn``, no row-wise
 form; actions are about 0.1, and the two differed by 2.9e-9 on an H100).
 The scatter launched on a side stream equals the plain version, and the
 pipelined executor at pendulum_tiny on the card keeps its schedule's counts
-with one scatter launch per learner step.
+with one scatter launch per learner step.  The fleet: a read-only decoded
+SEQS frame reaches the card intact (``put_staged``), a parameter snapshot
+from the card equals the parameters and aliases none of them, and a drain
+fed by a thread actor launches the scatter once per learner step.
 """
 
 import numpy as np
@@ -215,3 +218,93 @@ def test_pipelined_executor_on_the_card():
     assert trainer.arena.size(state.arena) == (fill + n_train) * tc.num_envs
     assert bool(torch.isfinite(state.arena.priority).all())
     assert ex.stats()["train_phases"] == n_train
+
+
+@pytest.mark.cuda
+def test_decoded_frame_reaches_the_card_intact():
+    from r2d2dpg_torch.fleet import put_staged, wire
+    from r2d2dpg_torch.replay import StagedSequences
+
+    dev = _card()
+    rng = np.random.default_rng(0)
+    staged = StagedSequences(
+        seq=SequenceBatch(
+            obs=rng.normal(size=(4, 35, 3)).astype(np.float32),
+            action=rng.normal(size=(4, 35, 1)).astype(np.float32),
+            reward=rng.normal(size=(4, 35)).astype(np.float32),
+            discount=np.ones((4, 35), np.float32),
+            reset=np.zeros((4, 35), np.float32),
+            carries={"actor": (rng.normal(size=(4, 128)).astype(np.float32),) * 2},
+        ),
+        priorities=rng.random(4).astype(np.float32),
+        behavior_version=np.arange(4, dtype=np.int64),
+        collect_id=np.arange(4, dtype=np.int64),
+    )
+    frame = b"".join(wire.TreePacker(wire.WireConfig()).pack({"s": staged}))
+    decoded = wire.TreeUnpacker().unpack(frame)["s"]
+    assert not decoded.seq.obs.flags.writeable
+    on_card = put_staged([decoded, decoded], dev)
+    torch.cuda.synchronize()
+    assert on_card.seq.obs.device.type == "cuda"
+    for got, want in ((on_card.seq.obs, staged.seq.obs),
+                      (on_card.seq.carries["actor"][1], staged.seq.carries["actor"][1]),
+                      (on_card.priorities, staged.priorities),
+                      (on_card.collect_id, staged.collect_id)):
+        assert np.array_equal(got.cpu().numpy(), np.concatenate([want, want]))
+        assert got.dtype == torch.from_numpy(want).dtype
+
+
+@pytest.mark.cuda
+def test_param_snapshot_from_the_card_is_a_copy():
+    from r2d2dpg_torch.configs import PENDULUM_TINY
+    from r2d2dpg_torch.fleet import snapshot_params
+
+    dev = _card()
+    t = PENDULUM_TINY.build(dev)
+    train = t.agent.init(torch.Generator().manual_seed(0), dev)
+    snap = snapshot_params(train)
+    for f in ("actor_params", "critic_params", "target_actor_params",
+              "target_critic_params"):
+        for k, v in getattr(train, f).items():
+            assert isinstance(snap[f][k], np.ndarray)
+            assert np.array_equal(snap[f][k], v.cpu().numpy())
+    k0 = next(iter(train.actor_params))
+    before = snap["actor_params"][k0].copy()
+    train.actor_params[k0].add_(1.0)
+    torch.cuda.synchronize()
+    assert np.array_equal(snap["actor_params"][k0], before)
+
+
+@pytest.mark.cuda
+def test_fleet_drain_on_the_card_launches_once_per_learner_step():
+    import threading
+
+    from r2d2dpg_torch.configs import PENDULUM_TINY
+    from r2d2dpg_torch.fleet import FleetActor, FleetConfig, FleetLearner
+
+    dev = _card()
+    trainer = PENDULUM_TINY.build(dev)
+    learner = FleetLearner(trainer, FleetConfig(num_actors=1, idle_timeout_s=60))
+    address = learner.start()
+    actor = FleetActor(PENDULUM_TINY, actor_id=0, num_actors=1, address=address,
+                       seed=0, device="cpu")
+
+    def run():
+        try:
+            actor.run(max_phases=400)
+        except Exception:  # noqa: BLE001 - server teardown cuts the socket
+            pass
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    n = 5
+    before = PRIORITY_SCATTER.launches
+    try:
+        state = learner.run(n, log_every=0)
+    finally:
+        learner.close()
+        th.join(timeout=30)
+    torch.cuda.synchronize()
+    assert state.train.step == n * trainer.config.learner_steps
+    assert PRIORITY_SCATTER.launches - before == n * trainer.config.learner_steps
+    assert bool(torch.isfinite(state.arena.priority).all())
