@@ -77,8 +77,22 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    drain fed the same recorded batches (from the port's actor in a thread,
    on the CPU, through the f32 wire codec) on the card and on the CPU,
    params within 1e-4, and device-busy time of a drain-learn phase;
-14. whether ``mujoco`` and ``dm_control`` import (informational);
-15. each phase's seconds, one JSON line per kernel summary (launches
+14. in-network sampling: ``train.main --config pendulum_r2d2 --actors 3
+   --replay-shards 2 --phases 60`` (the in-learner loopback shards), then
+   the same with ``--shard-procs 2 --phases 150`` (two supervised shard
+   processes on the CPU; shard process 0 killed after 20 learner steps,
+   the longer run leaving room for its restart: exactly one
+   ``shard_dead``, one restart and one ``shard_rejoin`` under epoch 2
+   required, every pull while it is down drawn from the survivor), counts
+   set to 0 just before and read just after each run (the scatter must
+   launch 0 times: no device arena on this path), sheds and evictions 0,
+   one compute process on the card and no actor or shard process holding
+   a card device file; then pulled batches at ``--learner-steps 4``
+   learned on the card and on the CPU from the same params, params and
+   priorities within 1e-4 of each tensor's largest value, and device-busy
+   time of a whole pull-learn phase;
+15. whether ``mujoco`` and ``dm_control`` import (informational);
+16. each phase's seconds, one JSON line per kernel summary (launches
    summed over every path), then the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``r2d2dpg_tpu``.  Without a card,
@@ -1534,6 +1548,317 @@ def _fleet_phase(torch, dev):
     return launches
 
 
+SAMPLER_TRAIN_PHASES = 60  # pull-learn phases of the loopback leg
+# The shard-procs leg runs longer: the killed shard process restarts on a
+# host whose cores the free-running actors keep busy, and its restart
+# (``import torch`` included) took over 20 s there, past 60 phases.
+SAMPLER_PROCS_TRAIN_PHASES = 150
+SAMPLER_SHARDS = 2
+SAMPLER_KILL_AT = 20  # learner steps before shard process 0 is killed
+SAMPLER_CARD_VS_CPU_K = 4  # learner steps per pulled batch (K loop > 1)
+SAMPLER_CARD_VS_CPU_RTOL = 1e-4  # of each tensor's largest |value|
+
+
+def _sampler_leg(torch, dev, label, flags):
+    """``train.main --actors 3 --replay-shards 2`` at pendulum_r2d2, learner
+    on the card.  With ``--shard-procs`` in ``flags``, shard process 0 is
+    killed after ``SAMPLER_KILL_AT`` learner steps.  Launch counts are set
+    to 0 just before and read just after; the scatter must not launch."""
+    import threading
+
+    from r2d2dpg_torch import kernels
+    from r2d2dpg_torch.fleet.sampler import SamplerLearner
+    from r2d2dpg_torch.fleet.shard import ShardProcTier
+    from r2d2dpg_torch.fleet.supervisor import ActorSupervisor
+    from r2d2dpg_torch.obs import get_flight_recorder
+    from r2d2dpg_torch.train import main as train_main
+
+    kill = "--shard-procs" in flags
+    phases = SAMPLER_PROCS_TRAIN_PHASES if kill else SAMPLER_TRAIN_PHASES
+    tc = _config("pendulum_r2d2").trainer
+    logdir = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")
+    seen = {"sups": [], "pulls": []}
+    done = threading.Event()
+    plain_sup_start, plain_tier_start = ActorSupervisor.start, ShardProcTier.start
+    plain_pull = SamplerLearner._pull_phase_batches
+
+    def sup_start(self):
+        seen["sups"].append(self)
+        return plain_sup_start(self)
+
+    def tier_start(self):
+        seen["tier"] = self
+        return plain_tier_start(self)
+
+    def pull(self, n, rng, tr=None):
+        out = plain_pull(self, n, rng, tr)
+        seen["pulls"].append((time.time(), sorted(set(out[2][0].tolist())),
+                              self.shards.shards[0].alive if self._remote else True))
+        return out
+
+    def children():
+        return {(sup.role, i): pid for sup in seen["sups"] for i, pid in sup.pids().items()}
+
+    def watch():
+        """Samples the children's CPU use; kills shard process 0 part-way
+        (reads the card's processes and the children's device files there)."""
+        usage, probe = {}, None
+        while not done.wait(0.25):
+            for key, pid in children().items():
+                st = _proc_stat(pid)
+                if st is not None:
+                    usage[key + (pid,)] = st
+            if probe is None and len(seen["pulls"]) >= SAMPLER_KILL_AT:
+                probe = {"at_learner_steps": len(seen["pulls"]),
+                         "compute_apps": _compute_apps(),
+                         "child_card_fds": {f"{r}{i}": _card_fds(pid)
+                                            for (r, i), pid in children().items()},
+                         "children": len(children())}
+                if kill:
+                    probe["t_kill"] = time.time()
+                    probe["delivered"] = seen["tier"].kill_proc(0)
+        seen["usage"], seen["probe"] = usage, probe
+
+    ActorSupervisor.start, ShardProcTier.start = sup_start, tier_start
+    SamplerLearner._pull_phase_batches = pull
+    watcher = threading.Thread(target=watch, name="chip-smoke-sampler-watch", daemon=True)
+    buf = io.StringIO()
+    seq0 = max((e["seq"] for e in get_flight_recorder().events()), default=-1)
+    try:
+        for k in kernels.ALL_KERNELS:
+            k.launches = 0
+        watcher.start()
+        t0, cpu0 = time.perf_counter(), sum(os.times()[:2])
+        with contextlib.redirect_stdout(buf):
+            state = train_main([
+                "--config", "pendulum_r2d2", "--actors", str(FLEET_ACTORS),
+                "--replay-shards", str(SAMPLER_SHARDS),
+                "--phases", str(phases),
+                "--log-every", str(max(phases // 3, 1)),
+                "--logdir", logdir, *flags,
+            ])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        learner_cpu_s = sum(os.times()[:2]) - cpu0
+        launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
+    finally:
+        done.set()
+        watcher.join()
+        ActorSupervisor.start, ShardProcTier.start = plain_sup_start, plain_tier_start
+        SamplerLearner._pull_phase_batches = plain_pull
+        shutil.rmtree(logdir, ignore_errors=True)
+    events = [e for e in get_flight_recorder().events() if e["seq"] > seq0]
+    lines = buf.getvalue().splitlines()
+    stats_line = next(x for x in lines if x.startswith("fleet: ") and "wall_s" in x)
+    words = stats_line.split()[1:]
+    stats = {k: float(v) for k, v in zip(words[::2], words[1::2])}
+    probe, pulls = seen.get("probe"), seen["pulls"]
+    expected = phases * tc.learner_steps
+    if stats["train_phases"] != phases or state.train.step != expected:
+        raise AssertionError(f"{label}: {stats['train_phases']} phases, step "
+                             f"{state.train.step}; expected {phases}")
+    if any(launches.values()):
+        raise AssertionError(f"{label}: kernel launches {launches}, expected none "
+                             "(no device arena on the sampler path)")
+    if stats["sheds"] != 0 or stats["evictions"] != 0:
+        raise AssertionError(f"{label}: sheds {stats['sheds']}, evictions "
+                             f"{stats['evictions']}; expected 0")
+    last = [x for x in lines if x.startswith("phase ")][-1]
+    numbers = []
+    for word in last.split()[3:]:
+        try:
+            numbers.append(float(word.strip("()")))
+        except ValueError:
+            continue
+    if not all(math.isfinite(x) for x in numbers):
+        raise AssertionError(f"{label}: non-finite metrics: {last}")
+    gaps = [b[0] - a[0] for a, b in zip(pulls, pulls[1:])]
+    rec = {
+        "flags": list(flags), "actors": FLEET_ACTORS, "shards": SAMPLER_SHARDS,
+        "train_phases": phases, "run_seconds": seconds,
+        "phases_per_s": stats.get("train_phases_per_sec"),
+        "learner_steps_per_s": stats.get("train_learner_steps_per_sec"),
+        "sample_ms": [stats["sample_p50_ms"], stats["sample_p99_ms"]],
+        "sampler_wait_ms": [stats["sampler_wait_p50_ms"], stats["sampler_wait_p99_ms"]],
+        "sampler_wait_total_s": stats["sampler_wait_total_s"],
+        "absorb_s": stats["sampler_absorb_s"],
+        "put_ms": [stats["put_p50_ms"], stats["put_p99_ms"]],
+        "prio_fetch_ms": [stats["prio_fetch_p50_ms"], stats["prio_fetch_p99_ms"]],
+        "pull_learn_ms": [stats["pull_learn_p50_ms"], stats["pull_learn_p99_ms"]],
+        "bytes_per_trained_seq": stats["bytes_per_trained_seq"],
+        "sample_bytes_total": stats["sample_bytes_total"],
+        "trained_seqs_total": stats["trained_seqs_total"],
+        "sheds": stats["sheds"], "evictions": stats["evictions"],
+        "max_gap_between_phases_s": max(gaps) if gaps else None,
+        "probe": probe, "host_cores": os.cpu_count(),
+        "child_cpu": [{"child": f"{r}{i}", "pid": pid, "cpu_s": cpu, "threads": th}
+                      for (r, i, pid), (cpu, th) in sorted(seen["usage"].items())],
+        "learner_cpu_s": learner_cpu_s, "stats": stats,
+        "scatter_launches": launches["priority_scatter"],
+    }
+    if kill:
+        deaths = [e for e in events if e["kind"] == "shard_dead"]
+        rejoins = [e for e in events if e["kind"] == "shard_rejoin"]
+        restarts = [e for e in events if e["kind"] == "shard_restart"]
+        down = [p for p in pulls if not p[2]]
+        rec.update(
+            shard_deaths=[(e["shard"], e["t_wall"]) for e in deaths],
+            shard_rejoins=[(e["shard"], e["epoch"], e["previous_epoch"], e["t_wall"])
+                           for e in rejoins],
+            shard_restarts=stats["shard_restarts"],
+            pulls_while_shard0_down=len(down),
+            shards_drawn_while_down=sorted({s for p in down for s in p[1]}),
+            kill_to_rejoin_s=(rejoins[0]["t_wall"] - probe["t_kill"]
+                              if rejoins and probe else None),
+            kill_to_death_s=(deaths[0]["t_wall"] - probe["t_kill"]
+                             if deaths and probe else None),
+            kill_to_respawn_s=(restarts[0]["t_wall"] - probe["t_kill"]
+                               if restarts and probe else None),
+            phases_after_rejoin=(sum(p[0] > rejoins[0]["t_wall"] for p in pulls)
+                                 if rejoins else 0),
+        )
+    print("sampler stats line:", stats_line, flush=True)
+    print("last log line:", last, flush=True)
+    print(json.dumps({label: rec}), flush=True)
+    if probe is None or len(probe["compute_apps"]) != 1 or any(
+            probe["child_card_fds"].values()):
+        raise AssertionError(f"{label}: card processes {probe}")
+    if kill:
+        if not probe.get("delivered"):
+            raise AssertionError(f"{label}: no shard process was killed ({probe})")
+        if ([d[0] for d in rec["shard_deaths"]] != [0] or stats["shard_restarts"] != 1
+                or [(r[0], r[1], r[2]) for r in rec["shard_rejoins"]] != [(0, 2, 1)]):
+            raise AssertionError(f"{label}: expected one shard_dead, one restart and "
+                                 f"one rejoin of shard 0 under epoch 2: {rec}")
+        if not rec["pulls_while_shard0_down"] or rec["shards_drawn_while_down"] != [1]:
+            raise AssertionError(f"{label}: quotas not drawn over the survivor: {rec}")
+    return {label: launches["priority_scatter"]}
+
+
+def _sampler_card_vs_cpu(torch, dev, n_batches=64, phases=3):
+    """Pulled batches at ``--learner-steps 4`` learned on the card and on the
+    CPU from the same params: pendulum_r2d2 width, the batches recorded from
+    the port's actor in a thread on the CPU (seed 0) through the f32 wire
+    codec into a 2-shard loopback, pulled with seed 0.  Then device-busy
+    time of whole pull-learn phases on the card."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+
+    from r2d2dpg_torch.fleet import FleetActor, FleetConfig, SamplerLearner, wire
+
+    k = SAMPLER_CARD_VS_CPU_K
+    config = _config("pendulum_r2d2", "--learner-steps", str(k))
+    recorded = []
+
+    def record():
+        actor = FleetActor(config, actor_id=0, num_actors=1, address="unused:0",
+                           seed=0, device="cpu")
+        packer, unpacker = wire.TreePacker(wire.WireConfig()), wire.TreeUnpacker()
+        while len(recorded) < n_batches:
+            staged = actor.host_batch()
+            if staged is not None:
+                frame = b"".join(packer.pack({"phase": actor._phase, "staged": staged}))
+                recorded.append(unpacker.unpack(frame)["staged"])
+
+    th = threading.Thread(target=record, name="chip-smoke-thread-actor")
+    th.start()
+    th.join()
+
+    def filled(d, cfg):
+        learner = SamplerLearner(cfg.build(d), FleetConfig(num_actors=2),
+                                 num_shards=SAMPLER_SHARDS)
+        for i, b in enumerate(recorded):
+            learner.shards.add(learner.shards.route(i % 2), {"staged": b, "actor_id": i % 2})
+        return learner
+
+    src = filled("cpu", config)
+    rng = np.random.default_rng(0)
+    n = k * config.trainer.batch_size
+    pulls = []
+    for _ in range(phases):
+        seq, probs, handles, occ = src._pull_phase_batches(n, rng)
+        pulls.append((seq, probs, occ))
+    out, secs = {}, {}
+    for d in ("cpu", dev):
+        t0 = time.perf_counter()
+        learner = SamplerLearner(config.build(d), FleetConfig(num_actors=1),
+                                 num_shards=SAMPLER_SHARDS)
+        train = learner.trainer.agent.init(torch.Generator().manual_seed(0), d)
+        draws = _HostDraws(7, d)
+        prios = []
+        for seq, probs, occ in pulls:
+            seqs, pr = learner._place(seq, probs)
+            train, p, _ = learner._learn(train, seqs, pr, occ, draws)
+            prios.append(p.cpu())
+        out[str(d)] = (train, prios)
+        secs[str(d)] = time.perf_counter() - t0
+    (tc_, pc), (tg, pg) = out["cpu"], out[str(dev)]
+
+    def rel(a, b):
+        return (a - b.cpu()).abs().max().item() / max(a.abs().max().item(), 1e-12)
+
+    errs = {}
+    for part in ("actor_params", "critic_params", "target_actor_params",
+                 "target_critic_params"):
+        a, b = getattr(tc_, part), getattr(tg, part)
+        errs[part] = max(rel(a[key], b[key]) for key in a)
+    prio_err = max(rel(a, b) for a, b in zip(pc, pg))
+    rec = {"learner_steps": k, "phases": phases, "batches": n_batches,
+           "steps": [tc_.step, tg.step], "max_param_err_rel": errs,
+           "max_priority_err_rel": prio_err, "cpu_seconds": secs["cpu"],
+           "card_seconds": secs[str(dev)], "rtol_of_largest": SAMPLER_CARD_VS_CPU_RTOL}
+    ok = (tc_.step == tg.step == phases * k
+          and max(errs.values()) <= SAMPLER_CARD_VS_CPU_RTOL
+          and prio_err <= SAMPLER_CARD_VS_CPU_RTOL)
+
+    # Device-busy time of one whole pull-learn phase at K = 1 on the card:
+    # pull from the loopback shards, one copy in, one learner step, one
+    # copy out, PRIO write-back.
+    one = dataclasses.replace(config, trainer=dataclasses.replace(
+        config.trainer, learner_steps=1))
+    learner = filled(dev, one)
+    state = {"train": learner.trainer.agent.init(torch.Generator().manual_seed(0), dev)}
+    draws, prng = _HostDraws(8, dev), np.random.default_rng(1)
+    b = one.trainer.batch_size
+
+    def one_phase():
+        seq, probs, handles, occ = learner._pull_phase_batches(b, prng)
+        seqs, pr = learner._place(seq, probs)
+        state["train"], p, _ = learner._learn(state["train"], seqs, pr, occ, draws)
+        learner._write_back(handles, p.cpu().numpy())
+
+    for _ in range(3):
+        one_phase()
+    torch.cuda.synchronize()
+    n_timed = 20
+    t1 = time.perf_counter()
+    for _ in range(n_timed):
+        one_phase()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t1) / n_timed * 1e3
+    device_ms, top, events = _device_profile(one_phase, 3)
+    rec.update(pull_learn_phase_wall_ms=wall_ms,
+               device_busy_ms_per_pull_learn_phase=device_ms,
+               device_events_per_pull_learn_phase=events,
+               device_idle_share=None if device_ms is None else 1 - device_ms / wall_ms,
+               top_device_ms_per_pull_learn_phase=top)
+    print(json.dumps({"sampler_card_vs_cpu": rec}), flush=True)
+    if not ok:
+        raise AssertionError(f"sampler pull-learn card vs CPU: {rec}")
+
+
+def _sampler_phase(torch, dev):
+    """In-network sampling: the loopback leg, the standalone-tier leg with
+    one shard process killed, then the pull-learn step card vs CPU."""
+    launches = _sampler_leg(torch, dev, "sampler_loopback", ())
+    launches.update(_sampler_leg(torch, dev, "sampler_shard_procs",
+                                 ("--shard-procs", str(SAMPLER_SHARDS))))
+    _sampler_card_vs_cpu(torch, dev)
+    return launches
+
+
 def _mujoco_probe():
     """Whether ``mujoco`` and ``dm_control`` import here, with their versions.
 
@@ -1610,6 +1935,7 @@ def main() -> int:
     timed("pipeline_off_anchor", _pipeline_off_anchor, torch, dev)
     launches.update(timed("pipelined", _pipelined_phase, torch, dev))
     launches.update(timed("fleet", _fleet_phase, torch, dev))
+    launches.update(timed("sampler", _sampler_phase, torch, dev))
     timed("mujoco_probe", _mujoco_probe)
     phase_seconds["total"] = time.perf_counter() - t_start
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)

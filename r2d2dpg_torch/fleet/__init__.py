@@ -16,11 +16,18 @@ untouched phase-locked schedule.
   of the noise ladder (``python -m r2d2dpg_torch.fleet.actor``).
 - ``ingest``     -- ``IngestServer`` (N connections -> staging queue) and
   ``FleetLearner`` (the queue's single consumer: drain -> add -> learn).
-- ``supervisor`` -- spawn/monitor/restart-with-backoff of the actors.
+- ``supervisor`` -- spawn/monitor/restart-with-backoff of the actors and
+  of the shard processes.
+- ``sampler``    -- in-network experience sampling (``--replay-shards N``):
+  replay shards at the ingest edge, ``SamplerLearner`` pulls ``[K, B]``
+  batches through SAMPLE_REQ/BATCH frames and writes PRIO back.
+- ``shard``      -- the standalone shard tier (``--shard-procs N``): shard
+  processes, ``RemoteShardSet`` (reroute, renormalization, epoch-fenced
+  rejoin) and ``ShardProcTier`` (``python -m r2d2dpg_torch.fleet.shard``).
 
-Not ported yet (ROADMAP.md): the sampler, the shard tier and the direct
-data plane, chaos drills, the autoscaler with the supervisor's resize
-API, and the fleet telemetry (TELEM) plane.
+Not ported yet (ROADMAP.md): the direct actor-to-shard data plane
+(``--shard-direct``), chaos drills, the autoscaler with the rest of the
+supervisor's resize API, and the fleet telemetry (TELEM) plane.
 """
 
 from r2d2dpg_torch.fleet.actor import (
@@ -36,9 +43,18 @@ from r2d2dpg_torch.fleet.ingest import (
     IngestServer,
     load_fleet_counters,
     prune_fleet_counters,
+    put_host,
     put_staged,
     save_fleet_counters,
     snapshot_params,
+)
+from r2d2dpg_torch.fleet.sampler import SamplerLearner, ShardSet, shard_for_actor
+from r2d2dpg_torch.fleet.shard import (
+    RemoteShard,
+    RemoteShardSet,
+    ShardProcTier,
+    ShardServer,
+    ShardUnavailableError,
 )
 from r2d2dpg_torch.fleet.supervisor import (
     ActorSupervisor,
@@ -54,6 +70,13 @@ __all__ = [
     "FleetConfig",
     "FleetLearner",
     "IngestServer",
+    "RemoteShard",
+    "RemoteShardSet",
+    "SamplerLearner",
+    "ShardProcTier",
+    "ShardServer",
+    "ShardSet",
+    "ShardUnavailableError",
     "SupervisorConfig",
     "WireConfig",
     "actor_seed",
@@ -61,8 +84,10 @@ __all__ = [
     "default_actor_argv",
     "load_fleet_counters",
     "prune_fleet_counters",
+    "put_host",
     "put_staged",
     "save_fleet_counters",
+    "shard_for_actor",
     "snapshot_params",
     "structural_argv",
 ]

@@ -27,6 +27,8 @@ passes ``--device cpu`` and hides the card from the child, so no actor
 opens a CUDA context on the learner's card.  Frames leave as numpy: one
 batched device-to-host copy per phase (``transport.to_host``).
 
+Under ``--replay-shards`` the actor is unchanged: the learner's ingest
+server routes its SEQS batches into replay shards and always acks ``OK``.
 Not ported: the direct shard data plane (``--shard-direct``), TELEM pushes
 (``--telem-every``) and chaos drills (``--chaos-spec``); the parser refuses
 those flags.

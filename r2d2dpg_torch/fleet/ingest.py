@@ -1,11 +1,15 @@
 """Learner-side experience ingest: N actor connections -> one staging queue.
 
-Port of the central-drain part of ``r2d2dpg_tpu/fleet/ingest.py``.  Out-of-
-process actors stream ``replay.StagedSequences`` batches over the fleet
-wire (``fleet/transport.py``, ``fleet/wire.py``); this server puts them on
-a bounded staging queue, and ``FleetLearner`` drains it into the replay
+Port of ``r2d2dpg_tpu/fleet/ingest.py``.  Out-of-process actors stream
+``replay.StagedSequences`` batches over the fleet wire
+(``fleet/transport.py``, ``fleet/wire.py``); this server puts them on a
+bounded staging queue, and ``FleetLearner`` drains it into the replay
 arena through the pipelined executor's drain body
-(``training/pipeline.py::drain_staged``).
+(``training/pipeline.py::drain_staged``).  Given ``shards`` (the sampler
+path, ``fleet/sampler.py``), each handler instead writes an actor's
+batches straight into that actor's replay shard: in-learner numpy rings
+or, through ``fleet/shard.py``'s ``RemoteShardSet``, standalone shard
+processes.  Those acks are always ``OK``: a full shard ring evicts.
 
 Per-connection protocol (one handler thread per actor; that thread is the
 connection's only writer, so acks and param pushes never interleave)::
@@ -45,11 +49,11 @@ What the card needs (handler threads make no CUDA call at all):
   agent module (``functional_call`` swaps a module's parameters for the
   length of a call); only the learner's thread runs the nets.
 
-Not ported: the shard/sampler branches, the shard assignment adverts, the
-remote registry mirror and TELEM folding, the per-width MFU accounting,
-and the JAX learner's background compile of the coalesce widths (eager
-torch has no compile to hide: the pull limit is ``drain_coalesce`` from
-the first drain).
+Not ported: the direct data plane's shard assignment adverts and K_STATS
+frames, the remote registry mirror and TELEM folding, the per-width MFU
+accounting, and the JAX learner's background compile of the coalesce
+widths (eager torch has no compile to hide: the pull limit is
+``drain_coalesce`` from the first drain).
 """
 
 from __future__ import annotations
@@ -131,6 +135,11 @@ class FleetConfig:
     heartbeat_s: float = transport.READ_DEADLINE_S
     # Shared-secret HELLO authentication (hmac.compare_digest); None = off.
     auth_token: Optional[str] = None
+    # The sampler's pull loop (--replay-shards): concurrent SAMPLE_REQ
+    # pullers over the shards (0 = min(shards, 8); 1 = serial), and one
+    # phase of batch prefetch on the standalone tier (0 = off).
+    shard_pullers: int = 0
+    shard_prefetch: int = 0
 
 
 class IngestServer:
@@ -146,8 +155,13 @@ class IngestServer:
         wire_config: Optional[wire.WireConfig] = None,
         read_deadline_s: float = transport.READ_DEADLINE_S,
         auth_token: Optional[str] = None,
+        shards=None,
     ):
         self.queue = staging_queue
+        # The sampler path: ``route(actor)`` and ``add(shard_id, msg)``
+        # (``ShardSet`` or ``RemoteShardSet``) take every SEQS batch in
+        # place of the staging queue.
+        self.shards = shards
         self._request_address = address
         self.shed_after_s = shed_after_s
         self.startup_shed_grace_s = startup_shed_grace_s
@@ -561,6 +575,10 @@ class IngestServer:
                     raise FrameError("SEQS payload carries no staged batch")
                 t_decode_end = time.time()
                 tr = unpacker.last_trace
+                if tr is not None and self.shards is not None:
+                    # The sampler traces its own pull chain; a SEQS chain
+                    # would never complete here, so none is started.
+                    tr = None
                 if tr is not None:
                     # The sampled batch's actor-side stamps and this
                     # handler's receive/decode times ride the message; the
@@ -588,7 +606,15 @@ class IngestServer:
                     self.seqs_received_total += n_seqs
                     self.seqs_bytes_total += HEADER_BYTES + len(payload)
                     self.seqs_raw_bytes_total += unpacker.last_raw_len
-                if self._put_or_shed(msg):
+                if self.shards is not None:
+                    # Routed per frame: on the standalone tier the route
+                    # follows shard liveness, and the accounting deltas
+                    # bank learner-side inside ``add`` either way.
+                    self.shards.add(self.shards.route(actor), msg)
+                    code = OK
+                    with self._lock:
+                        self.seqs_total += n_seqs
+                elif self._put_or_shed(msg):
                     code = OK
                     with self._lock:
                         self.seqs_total += n_seqs
@@ -678,7 +704,21 @@ def put_staged(batches: List[StagedSequences], device) -> StagedSequences:
         if per_batch and len(leaves) != len(per_batch[0]):
             raise ValueError("put_staged: batches of different structure")
         per_batch.append(leaves)
-    columns = list(zip(*per_batch))
+    return build(_put_columns(list(zip(*per_batch)), device))
+
+
+def put_host(tree: Any, device) -> Any:
+    """A tree of numpy arrays on ``device`` with ONE host-to-device copy:
+    ``put_staged``'s single fresh buffer for one tree (the sampler's
+    pulled batch); the leaves are typed views of the device buffer."""
+    leaves, build = flatten_tree(tree, lambda x: isinstance(x, np.ndarray))
+    return build(_put_columns([[x] for x in leaves], device))
+
+
+def _put_columns(columns, device) -> List[torch.Tensor]:
+    """Each column's row blocks stacked into one fresh host byte buffer
+    (16-byte aligned per column), one copy to ``device``, one typed view
+    per column."""
     layout, total = [], 0
     for col in columns:
         shape = (sum(a.shape[0] for a in col),) + tuple(col[0].shape[1:])
@@ -691,12 +731,11 @@ def put_staged(batches: List[StagedSequences], device) -> StagedSequences:
         out = host[off:off + nbytes].view(dtype).reshape(shape)
         np.concatenate(col, axis=0, out=out)
     dev = torch.from_numpy(host).to(device)
-    tensors = [
+    return [
         dev[off:off + nbytes].view(torch.from_numpy(np.empty(0, dtype)).dtype)
         .view(shape)
         for off, nbytes, shape, dtype in layout
     ]
-    return build(tensors)
 
 
 # -------------------------------------------------------- fleet checkpoints

@@ -1,21 +1,27 @@
 """Actor supervision: spawn, watch, restart with exponential backoff.
 
-Port of ``r2d2dpg_tpu/fleet/supervisor.py`` without its runtime-resize API
-(``spawn_slot``/``retire_slot``/``set_target``, which comes with the
+Port of ``r2d2dpg_tpu/fleet/supervisor.py`` without the rest of its
+runtime-resize API (``retire_slot``/``set_target``, which come with the
 autoscaler).  The supervisor owns the fleet's processes: it spawns each
-actor as a subprocess, polls liveness on a monitor thread, and restarts
+worker as a subprocess, polls liveness on a monitor thread, and restarts
 any actor that exits while the fleet is live, after an exponential backoff
 (a crash-looping actor must not fork-bomb the host) that resets once an
 incarnation survives ``healthy_after_s``.  Every crash lands in the flight
-recorder (``actor_crash`` with actor id, returncode, restart count).  A
+recorder (``actor_crash`` with actor id, returncode, restart count).
+``role`` names the process class: ``"actor"`` (the fleet's actors) or
+``"shard"`` (the standalone replay shards, ``fleet/shard.py``), whose
+metrics are ``r2d2dpg_shard_alive``/``r2d2dpg_shard_restarts_total`` and
+whose events are ``shard_crash``/``shard_restart``/``shard_gave_up``,
+keyed by ``id_field`` (``shard_proc``: a process hosts several shards).  A
 slot is given up after ``max_restarts``, or at once when the actor exits
 with a HELLO-refusal code (``utils/codes.py``: every restart would be
 refused again); ``gave_up()`` names such slots, and the fleet learner
 treats them as an error.
 
-Actors run on the CPU: the child environment hides every card
-(``CUDA_VISIBLE_DEVICES=""``) and the argv carries ``--device cpu``, so no
-actor opens a CUDA context on the learner's card.
+Every child runs on the CPU: its environment hides every card
+(``CUDA_VISIBLE_DEVICES=""``), an actor's argv carries ``--device cpu``
+and a shard process makes no CUDA call, so only the learner opens a CUDA
+context on the card.
 """
 
 from __future__ import annotations
@@ -70,6 +76,8 @@ class ActorSupervisor:
         env: Optional[Dict[str, str]] = None,
         log_path_fn: Optional[Callable[[int], str]] = None,
         clock: Callable[[], float] = time.monotonic,
+        role: str = "actor",
+        id_field: Optional[str] = None,
     ):
         if num_actors < 1:
             raise ValueError("num_actors must be >= 1")
@@ -77,6 +85,8 @@ class ActorSupervisor:
         self.num_actors = num_actors
         self.config = config
         self.log_path_fn = log_path_fn
+        self.role = role
+        self.id_field = id_field or role
         self._clock = clock
         self._env = dict(os.environ if env is None else env)
         # CPU discipline (module docstring): no card is visible to a child.
@@ -92,14 +102,20 @@ class ActorSupervisor:
         self._lock = threading.Lock()
         self._stopping = threading.Event()
         self._monitor: Optional[threading.Thread] = None
+        # Per-role metric names: an actor fleet and a shard tier in one
+        # learner never share a series.
         reg = get_registry()
-        self._obs_alive = reg.gauge(
-            "r2d2dpg_fleet_actors_alive", "live supervised actor subprocesses"
-        )
+        if role == "actor":
+            alive_name = "r2d2dpg_fleet_actors_alive"
+            restarts_name = "r2d2dpg_fleet_actor_restarts_total"
+        else:
+            alive_name = f"r2d2dpg_{role}_alive"
+            restarts_name = f"r2d2dpg_{role}_restarts_total"
+        self._obs_alive = reg.gauge(alive_name, f"live supervised {role} subprocesses")
         self._obs_alive.set_fn(lambda: float(self.alive_count()))
         self._obs_restarts = reg.counter(
-            "r2d2dpg_fleet_actor_restarts_total",
-            "supervised actor restarts (crash -> backoff -> respawn)",
+            restarts_name,
+            f"supervised {role} restarts (crash -> backoff -> respawn)",
         )
 
     # ------------------------------------------------------------- lifecycle
@@ -166,7 +182,7 @@ class ActorSupervisor:
                     if s.proc is not None and s.proc.poll() is None}
 
     def kill_actor(self, actor_id: int) -> bool:
-        """Drill hook: hard-kill one actor (the supervisor sees a crash and
+        """Drill hook: hard-kill one worker (the supervisor sees a crash and
         walks the restart path).  True when a kill was delivered; False for
         a slot that is already dead or in backoff."""
         with self._lock:
@@ -175,6 +191,33 @@ class ActorSupervisor:
             proc.kill()
             return True
         return False
+
+    def spawn_slot(self, actor_id: int, *, origin: str = "resize") -> bool:
+        """Explicitly (re)spawn one slot, a given-up one included.  False
+        (the caller retries later) while the slot's process is alive, while
+        the backoff ladder owns a pending respawn, or when the spawn fails
+        (a ``<role>_spawn_failed`` event)."""
+        with self._lock:
+            if self._stopping.is_set():
+                return False
+            slot = self._slots[actor_id]
+            if slot.proc is not None and slot.proc.poll() is None:
+                return False
+            if slot.restart_at is not None and not slot.gave_up:
+                return False
+            resurrected = slot.gave_up
+            slot.gave_up = False
+            slot.consecutive_crashes = 0
+            try:
+                self._spawn(actor_id)
+            except Exception as e:  # noqa: BLE001 - an event, never a raise
+                flight_event(f"{self.role}_spawn_failed",
+                             **{self.id_field: actor_id},
+                             error=f"{type(e).__name__}: {e}")
+                return False
+            flight_event(f"{self.role}_spawn", **{self.id_field: actor_id},
+                         origin=origin, resurrected=resurrected)
+            return True
 
     # -------------------------------------------------------------- internal
     def _spawn(self, actor_id: int) -> None:
@@ -230,8 +273,8 @@ class ActorSupervisor:
                         cfg.backoff_max_s,
                     )
                     flight_event(
-                        "actor_crash",
-                        actor=actor_id,
+                        f"{self.role}_crash",
+                        **{self.id_field: actor_id},
                         returncode=rc,
                         restarts=slot.restarts,
                         backoff_s=round(backoff, 3),
@@ -241,8 +284,8 @@ class ActorSupervisor:
                         # again within milliseconds.
                         slot.gave_up = True
                         flight_event(
-                            "actor_gave_up",
-                            actor=actor_id,
+                            f"{self.role}_gave_up",
+                            **{self.id_field: actor_id},
                             restarts=slot.restarts,
                             reason=TERMINAL_ACTOR_EXITS[rc],
                         )
@@ -253,8 +296,8 @@ class ActorSupervisor:
                     ):
                         slot.gave_up = True
                         flight_event(
-                            "actor_gave_up",
-                            actor=actor_id,
+                            f"{self.role}_gave_up",
+                            **{self.id_field: actor_id},
                             restarts=slot.restarts,
                         )
                         continue
@@ -266,8 +309,8 @@ class ActorSupervisor:
                         self._spawn(actor_id)
                     except Exception as e:  # noqa: BLE001
                         flight_event(
-                            "actor_spawn_failed",
-                            actor=actor_id,
+                            f"{self.role}_spawn_failed",
+                            **{self.id_field: actor_id},
                             error=f"{type(e).__name__}: {e}",
                         )
                         slot.restart_at = now + cfg.backoff_max_s
@@ -275,8 +318,8 @@ class ActorSupervisor:
                     slot.restarts += 1
                     self._obs_restarts.inc()
                     flight_event(
-                        "actor_restart",
-                        actor=actor_id,
+                        f"{self.role}_restart",
+                        **{self.id_field: actor_id},
                         restarts=slot.restarts,
                     )
 

@@ -14,7 +14,9 @@
          [--fleet-publish-every P] [--fleet-idle-timeout S] \
          [--fleet-shed-after S] [--fleet-wire f32|bf16] \
          [--fleet-compress none|zlib|zstd] [--drain-coalesce K] \
-         [--fleet-heartbeat S] [--fleet-token T] [--trace-sample R]] \
+         [--fleet-heartbeat S] [--fleet-token T] [--trace-sample R] \
+         [--replay-shards M [--shard-procs P] [--shard-pullers N] \
+          [--shard-prefetch 1]]] \
         [--minutes M] [--watchdog 0|1] [--watchdog-grad-norm X] \
         [--watchdog-param-norm X] [--nan-inject-phase K]
 
@@ -49,6 +51,22 @@ line at the end.  The wire and drain flags refuse to run without
 ``--actors``; ``--fleet-token`` defaults to ``$R2D2DPG_FLEET_TOKEN`` and
 reaches the actors through their environment, never their argv.
 
+``--replay-shards M`` (with ``--actors``) moves replay into M host-side
+shards at the ingest edge (``fleet/sampler.py``): each actor's batches go
+to its shard, and ``SamplerLearner`` pulls ``[K, B]`` batches through
+SAMPLE_REQ/BATCH frames, learns on the card and writes the TD priorities
+back in PRIO frames.  The shards own the config's capacity (split evenly,
+which must divide); the trainer's device arena shrinks to
+``max(num_envs, batch_size)`` slots, since nothing samples it.
+``--shard-procs P`` hosts the M shards in P supervised shard processes
+(``fleet/shard.py``, M % P == 0): a dead shard's quota renormalizes over
+the survivors and it rejoins under a bumped epoch.  ``--shard-pullers N``
+(0 = one per shard, at most 8; 1 = serial) and ``--shard-prefetch 1``
+(the standalone tier only) shape the pull.  The ``fleet:`` line then also
+carries ``sample_bytes_total``, ``trained_seqs_total``, ``evictions`` and
+``shard_restarts``.  ``--replay-shards 1 --actors 0`` runs the untouched
+phase-locked loop.
+
 The divergence watchdog (``--watchdog 1``, the default) checks the learner
 metrics on the log cadence of either schedule: a NaN/Inf, or a grad or
 param norm past its threshold, dumps the flight recorder into
@@ -72,7 +90,9 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import sys
+import tempfile
 
 import torch
 
@@ -188,6 +208,31 @@ def parse_args(argv=None) -> argparse.Namespace:
         help="stack up to K queue-backlogged staged batches into one "
         "drain (1 = one drain per batch; widths are powers of two <= K)")
     p.add_argument(
+        "--replay-shards", type=int, default=0, metavar="N",
+        help="shard prioritized replay across N ingest-edge shards "
+        "(fleet/sampler.py): each actor's SEQS traffic feeds its shard, and "
+        "the learner PULLS batches via SAMPLE_REQ/BATCH frames with quotas "
+        "proportional to each shard's priority sum; TD priorities ride back "
+        "as PRIO frames.  Requires --actors N (with --actors 0 only "
+        "--replay-shards 1 is accepted and runs the untouched phase-locked "
+        "loop).  0 = off (central drain)")
+    p.add_argument(
+        "--shard-procs", type=int, default=0, metavar="N",
+        help="host the --replay-shards M shards in N supervised standalone "
+        "shard processes (fleet/shard.py; M %% N == 0): a dead shard "
+        "degrades sampling, never training, and rejoins empty under a "
+        "bumped epoch.  0 = in-learner loopback")
+    p.add_argument(
+        "--shard-pullers", type=int, default=0, metavar="N",
+        help="concurrent SAMPLE_REQ pullers over the replay shards (one "
+        "in-flight request per live shard, up to N; the pulled batch is "
+        "bitwise the serial loop's).  0 = one per shard, at most 8; 1 = "
+        "serial")
+    p.add_argument(
+        "--shard-prefetch", type=int, default=0, choices=[0, 1],
+        help="1: pull the next phase's batch while the current one trains "
+        "(its priorities are one phase stale); standalone tier only.  0 = off")
+    p.add_argument(
         "--fleet-heartbeat", type=float, default=None, metavar="S",
         help="liveness read deadline on both fleet wire ends (default "
         "300): a peer silent past it is PINGed once and reaped on a "
@@ -269,6 +314,19 @@ def _refuse(args) -> None:
     """The JAX CLI's refusals (``r2d2dpg_tpu/topology.py``: ``validate``
     and its ``REFUSALS`` rows) for the flags the port has, with the same
     messages."""
+    if args.replay_shards and args.replay_shards < 1:
+        raise SystemExit("--replay-shards must be >= 1 (0 = off)")
+    if args.shard_procs < 0:
+        raise SystemExit("--shard-procs must be >= 0 (0 = in-learner loopback)")
+    if args.shard_procs and args.replay_shards and args.replay_shards % args.shard_procs:
+        raise SystemExit(
+            f"--shard-procs: {args.replay_shards} replay shards not "
+            f"divisible by {args.shard_procs} shard processes (contiguous "
+            f"equal slices per process)")
+    if args.shard_pullers < 0:
+        raise SystemExit(
+            "--shard-pullers must be >= 0 (0 = one puller per shard, "
+            "capped at 8)")
     if args.fleet_heartbeat is not None and args.fleet_heartbeat <= 0:
         raise SystemExit("--fleet-heartbeat must be > 0 seconds")
     if not 0.0 <= args.trace_sample <= 1.0:
@@ -293,6 +351,30 @@ def _refuse(args) -> None:
             "--fleet-heartbeat/--fleet-token/--fleet-shed-after "
             "require --actors N (the in-process schedules have no fleet "
             "wire; docs/TOPOLOGY.md)")
+    if not args.actors and args.replay_shards and args.replay_shards > 1:
+        raise SystemExit(
+            "--replay-shards N >= 2 requires --actors N (replay shards "
+            "are fed by actor SEQS traffic; --replay-shards 1 --actors 0 "
+            "routes the untouched phase-locked loop — the determinism "
+            "anchor; docs/TOPOLOGY.md)")
+    if args.replay_shards and args.drain_coalesce != 1:
+        raise SystemExit(
+            "--replay-shards does not compose with --drain-coalesce: "
+            "there is no central drain to coalesce on the sampler path "
+            "(docs/TOPOLOGY.md)")
+    if args.shard_procs and not (args.actors and args.replay_shards):
+        raise SystemExit(
+            "--shard-procs N requires --actors N --replay-shards M: the "
+            "standalone shard tier hosts the sampler path's replay "
+            "shards, which are fed by actor SEQS traffic "
+            "(--shard-procs 0 is the in-learner loopback — the pinned "
+            "off-setting; docs/TOPOLOGY.md)")
+    if not args.replay_shards and (args.shard_pullers or args.shard_prefetch):
+        raise SystemExit(
+            "--shard-pullers/--shard-prefetch require --replay-shards N: "
+            "the concurrent pullers and the batch prefetch belong to the "
+            "sampler learner's pull loop, which the central-drain and "
+            "in-process schedules do not run (docs/TOPOLOGY.md)")
     if args.trace_sample and not (args.actors or args.pipeline):
         raise SystemExit(
             "--trace-sample requires --actors N or --pipeline 1 (the "
@@ -400,15 +482,19 @@ def _run_pipelined(trainer, state, stop_at, logger, ckpt, args, watchdog,
 
 
 def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
-               flight_path) -> TrainerState:
+               flight_path, replay_capacity) -> TrainerState:
     """Drive the run through the actor fleet (``--actors N``): this process
-    is the learner; an ingest server feeds the staging queue, a supervisor
-    owns the actor subprocesses, and the drain loop runs here.
-    ``--phases`` counts drain-learn phases."""
+    is the learner; an ingest server feeds the staging queue (or, under
+    ``--replay-shards``, the replay shards), a supervisor owns the actor
+    subprocesses (and another the shard processes), and the drain or pull
+    loop runs here.  ``--phases`` counts drain-learn (pull-learn) phases;
+    ``replay_capacity`` is the config's capacity, which the shards own."""
     from r2d2dpg_torch.fleet import (
         ActorSupervisor,
         FleetConfig,
         FleetLearner,
+        SamplerLearner,
+        ShardProcTier,
         WireConfig,
         default_actor_argv,
         load_fleet_counters,
@@ -433,7 +519,9 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
         flight.record("fleet_unauthenticated_bind", address=args.fleet_address)
     heartbeat_s = (args.fleet_heartbeat if args.fleet_heartbeat is not None
                    else fleet_transport.READ_DEADLINE_S)
-    learner = FleetLearner(trainer, FleetConfig(
+    if args.resume and ckpt.latest_step is None:
+        raise SystemExit(f"--resume: no checkpoint found under {args.checkpoint_dir}")
+    fleet_config = FleetConfig(
         num_actors=args.actors,
         address=args.fleet_address,
         queue_depth=args.fleet_queue_depth,
@@ -445,15 +533,51 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
         drain_coalesce=args.drain_coalesce,
         heartbeat_s=heartbeat_s,
         auth_token=fleet_token,
-    ))
+        shard_pullers=args.shard_pullers,
+        shard_prefetch=args.shard_prefetch,
+    )
+    # The standalone tier's processes are spawned inside the try below,
+    # beside the actor supervisor: an early SystemExit must not orphan them.
+    shard_tier, shard_dir = None, None
+    if args.shard_procs:
+        if args.logdir:
+            shard_dir = os.path.join(args.logdir, "shards")
+        else:
+            shard_dir = tempfile.mkdtemp(prefix="r2d2dpg_shards_")
+        shard_tier = ShardProcTier(
+            num_shards=args.replay_shards,
+            num_procs=args.shard_procs,
+            capacity_per_shard=replay_capacity // args.replay_shards,
+            alpha=cfg.trainer.priority_alpha,
+            prioritized=cfg.trainer.prioritized,
+            dirpath=shard_dir,
+            seed=cfg.trainer.seed,
+            wire_config=wire_config,
+            auth_token=fleet_token,
+            heartbeat_s=heartbeat_s,
+            flight_dir=args.logdir,
+        )
+    if args.replay_shards:
+        try:
+            learner = SamplerLearner(
+                trainer, fleet_config, num_shards=args.replay_shards,
+                total_capacity=replay_capacity,
+                shard_set=shard_tier.shard_set if shard_tier is not None else None)
+        except ValueError as e:
+            if shard_dir is not None and not args.logdir:
+                shutil.rmtree(shard_dir, ignore_errors=True)
+            raise SystemExit(f"--replay-shards: {e}")
+    else:
+        learner = FleetLearner(trainer, fleet_config)
     address = learner.start()
-    print(f"fleet: ingest on {address}; spawning {args.actors} actors", flush=True)
+    print(f"fleet: ingest on {address}; spawning {args.actors} actors"
+          + (f"; {args.replay_shards} replay shards (learner-pulled sampling"
+             + (f", {args.shard_procs} standalone shard procs"
+                if args.shard_procs else "") + ")"
+             if args.replay_shards else ""), flush=True)
     resume_from = None
     if args.resume:
         step = ckpt.latest_step
-        if step is None:
-            learner.close()
-            raise SystemExit(f"--resume: no checkpoint found under {args.checkpoint_dir}")
         state = dataclasses.replace(state, train=ckpt.restore(state))
         resume_from = load_fleet_counters(args.checkpoint_dir, step)
         if not resume_from:
@@ -468,7 +592,9 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
         "--compress", args.fleet_compress,
         "--max-frame-bytes", str(fleet_transport.MAX_FRAME_BYTES),
     ]
-    if args.trace_sample:
+    if args.trace_sample and not args.replay_shards:
+        # The sampler traces its own pull chain, so the actors' SEQS
+        # sidecar would buy nothing there.
         extra += ["--trace-sample", str(args.trace_sample)]
     extra += ["--read-deadline", str(heartbeat_s)]
     spawn_env = None
@@ -504,17 +630,22 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
         num_phases = 10**9  # the wall-clock budget is the stop condition
     else:
         num_phases = 1
+    run_kwargs = {"trace_sample": args.trace_sample} if args.replay_shards else {}
     try:
+        if shard_tier is not None:
+            shard_tier.start()
         supervisor.start()
         state = learner.run(
             num_phases, state=state, log_every=args.log_every,
             metrics_fn=_make_executor_metrics_fn(logger, watchdog, num_phases),
             minutes=args.minutes, ckpt=ckpt,
             checkpoint_every=args.checkpoint_every, resume_from=resume_from,
-            health_fn=health)
+            health_fn=health, **run_kwargs)
         health()
         stats = dict(learner.stats())
         stats["actor_restarts"] = float(supervisor.restarts_total)
+        if shard_tier is not None:
+            stats["shard_restarts"] = float(shard_tier.restarts_total)
         for i in range(args.actors):
             first = learner.server.first_seqs_at.get(str(i))
             if first is not None:
@@ -531,7 +662,11 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
         # The supervisor first: its stopping flag makes an actor's lost
         # connection an orderly exit, not a crash to restart.
         supervisor.stop()
+        if shard_tier is not None:
+            shard_tier.stop()
         learner.close()
+        if shard_dir is not None and not args.logdir:
+            shutil.rmtree(shard_dir, ignore_errors=True)
         flight.dump_trace()  # no-op unless spans were sampled and a path is armed
     return state
 
@@ -540,9 +675,38 @@ def main(argv=None) -> TrainerState:
     """Run the CLI; returns the final trainer state."""
     args = parse_args(argv)
     _refuse(args)
+    if args.actors and args.replay_shards > args.actors:
+        print(f"replay-shards: WARNING — {args.replay_shards} shards but only "
+              f"{args.actors} actors: {args.replay_shards - args.actors} shards "
+              f"will never receive traffic and effective replay capacity is "
+              f"{args.actors}/{args.replay_shards} of the configured capacity",
+              flush=True)
     cfg = _apply_overrides(get_config(args.config), args)
     if args.resume and not args.checkpoint_dir:
         raise SystemExit("--resume requires --checkpoint-dir")
+    if args.replay_shards and not args.actors:
+        print("replay-shards: no fleet (--actors 0) — replay stays in the "
+              "central device arena and the phase-locked schedule runs "
+              "unchanged (the determinism anchor)", flush=True)
+    replay_capacity = cfg.trainer.capacity
+    if args.replay_shards and args.actors:
+        reachable = (replay_capacity // args.replay_shards) * min(
+            args.actors, args.replay_shards)
+        if cfg.trainer.min_replay > reachable:
+            # Only min(actors, shards) shards ever receive traffic: an
+            # unreachable absorb gate would starve a healthy fleet.
+            raise SystemExit(
+                f"--replay-shards: min_replay {cfg.trainer.min_replay} "
+                f"exceeds the reachable shard occupancy {reachable} "
+                f"({args.actors} actors feed min(actors, shards) of "
+                f"{args.replay_shards} shards x "
+                f"{replay_capacity // args.replay_shards} slots) — "
+                f"lower --min-replay or --replay-shards")
+        # The shards own the replay capacity; nothing samples the device
+        # arena, so it shrinks to a token allocation.
+        cfg = dataclasses.replace(cfg, trainer=dataclasses.replace(
+            cfg.trainer,
+            capacity=max(cfg.trainer.num_envs, cfg.trainer.batch_size)))
     trainer = cfg.build(args.device)
     print(f"backend: {device_name(trainer.device)}", flush=True)
     ckpt = None
@@ -599,7 +763,7 @@ def main(argv=None) -> TrainerState:
         try:
             if args.actors:
                 return _run_fleet(cfg, trainer, state, logger, ckpt, args,
-                                  watchdog, flight, flight_path)
+                                  watchdog, flight, flight_path, replay_capacity)
             return _run_pipelined(trainer, state, stop_at, logger, ckpt, args,
                                   watchdog, flight, flight_path)
         finally:

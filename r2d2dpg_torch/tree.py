@@ -1,9 +1,10 @@
 """A minimal ``tree_map`` over the port's containers.
 
 The JAX package threads pytrees through ``jax.tree_util``; the port's
-containers are dataclasses, dicts and tuples of tensors, and ``tree_map``
-walks them the same way (an empty tuple is the feedforward nets'
-empty carry and maps to itself).
+containers are dataclasses, dicts and tuples of tensors (or, on the host
+side of the replay shards, numpy arrays), and ``tree_map`` walks them the
+same way (an empty tuple is the feedforward nets' empty carry and maps to
+itself).
 """
 
 from __future__ import annotations
@@ -11,12 +12,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 
 def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
-    """Apply ``fn`` leaf-wise over same-structured trees of tensors."""
-    if isinstance(tree, torch.Tensor):
+    """Apply ``fn`` leaf-wise over same-structured trees of tensors or
+    numpy arrays."""
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
         return fn(tree, *rest)
     if dataclasses.is_dataclass(tree):
         return dataclasses.replace(

@@ -21,7 +21,10 @@ pipelined executor at pendulum_tiny on the card keeps its schedule's counts
 with one scatter launch per learner step.  The fleet: a read-only decoded
 SEQS frame reaches the card intact (``put_staged``), a parameter snapshot
 from the card equals the parameters and aliases none of them, and a drain
-fed by a thread actor launches the scatter once per learner step.
+fed by a thread actor launches the scatter once per learner step.  The
+sampler: a pulled batch (read-only decoded frame leaves) reaches the card
+intact in one copy as ``[K, B]`` views, and a 2-shard sampler learner fed
+by a thread actor learns on the card and launches the scatter not once.
 """
 
 import numpy as np
@@ -308,3 +311,70 @@ def test_fleet_drain_on_the_card_launches_once_per_learner_step():
     assert state.train.step == n * trainer.config.learner_steps
     assert PRIORITY_SCATTER.launches - before == n * trainer.config.learner_steps
     assert bool(torch.isfinite(state.arena.priority).all())
+
+
+@pytest.mark.cuda
+def test_pulled_batch_reaches_the_card_intact():
+    from r2d2dpg_torch.configs import PENDULUM_TINY
+    from r2d2dpg_torch.fleet import FleetConfig, SamplerLearner, wire
+
+    dev = _card()
+    t = PENDULUM_TINY.build(dev)
+    data = t.init().arena.data
+    rng = np.random.default_rng(0)
+    n = t.config.learner_steps * t.config.batch_size
+    seq = SequenceBatch(
+        **{f: rng.normal(size=(n,) + tuple(getattr(data, f).shape[1:])).astype(np.float32)
+           for f in ("obs", "action", "reward", "discount", "reset")},
+        carries={k: tuple(rng.normal(size=(n,) + tuple(x.shape[1:])).astype(np.float32)
+                          for x in v) for k, v in data.carries.items()},
+    )
+    frame = b"".join(wire.TreePacker(wire.WireConfig()).pack({"s": seq}))
+    decoded = wire.TreeUnpacker().unpack(frame)["s"]
+    assert not decoded.obs.flags.writeable
+    probs = rng.random(n)
+    learner = SamplerLearner(t, FleetConfig(num_actors=1), num_shards=1)
+    seqs, pr = learner._place(decoded, probs)
+    torch.cuda.synchronize()
+    assert pr.device.type == "cuda" and pr.dtype == torch.float32
+    assert np.array_equal(pr.cpu().numpy().ravel(), probs.astype(np.float32))
+    assert np.array_equal(seqs.obs.cpu().numpy().reshape(seq.obs.shape), seq.obs)
+    assert np.array_equal(seqs.carries["critic"][0].cpu().numpy().reshape(n, -1),
+                          seq.carries["critic"][0])
+
+
+@pytest.mark.cuda
+def test_sampler_learner_on_the_card_launches_no_scatter():
+    import threading
+
+    from r2d2dpg_torch.configs import PENDULUM_TINY
+    from r2d2dpg_torch.fleet import FleetActor, FleetConfig, SamplerLearner
+
+    dev = _card()
+    trainer = PENDULUM_TINY.build(dev)
+    learner = SamplerLearner(trainer, FleetConfig(num_actors=1, idle_timeout_s=60),
+                             num_shards=2)
+    address = learner.start()
+    actor = FleetActor(PENDULUM_TINY, actor_id=0, num_actors=1, address=address,
+                       seed=0, device="cpu")
+
+    def run():
+        try:
+            actor.run()
+        except Exception:  # noqa: BLE001 - server teardown cuts the socket
+            pass
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    n = 5
+    before = PRIORITY_SCATTER.launches
+    try:
+        state = learner.run(n, log_every=0)
+    finally:
+        learner.close()
+        th.join(timeout=30)
+    torch.cuda.synchronize()
+    assert state.train.step == n * trainer.config.learner_steps
+    assert PRIORITY_SCATTER.launches == before
+    assert next(iter(state.train.actor_params.values())).device.type == "cuda"
+    assert learner.stats()["sheds"] == 0
