@@ -39,6 +39,20 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    ``--twin-critic 1 --target-policy-sigma 0.2 --compute-dtype bfloat16``,
    with every launch count set to 0 just before and read just after each
    run;
+7b. telemetry: ``train.main --config pendulum_r2d2 --phases 12 --log-every 1
+   --obs-port 0 --obs-host 127.0.0.1 --profile-window 4:3
+   --device-peak-flops 6.7e13`` (the H100 SXM's dense fp32 peak), counts set
+   to 0 just before; a thread GETs ``/metrics``, ``/metrics.json``,
+   ``/health`` and ``/healthz`` every 0.25 s: every scrape 200, every
+   ``/metrics`` line a comment or ``name{labels} value``, ``/health`` ok,
+   ``r2d2dpg_device_mfu`` in (0, 1.05] and the HBM gauge of device 0 on the
+   scrape after the run; ``r2d2dpg_device_learn_flops_total`` equal to the
+   FLOPs of a train phase times the 12 phases; the scatter launched once
+   per learner step, and its kernel in the profile window's trace exactly
+   3 x ``learner_steps`` times; ``profile_start`` at phase 4 and
+   ``profile_stop`` at phase 7; ``python -m r2d2dpg_torch.obs.flight merge``
+   fuses one ``profile_window`` span; then ``flops_of`` of one
+   pendulum_tiny learner step equal on the card and on the CPU;
 8. checkpoints, on the plain run's final state: the latest checkpoint
    restored bitwise, a full and a light save timed; ``python -m
    r2d2dpg_torch.serve --selftest 256`` on the run's directory (every code
@@ -72,7 +86,9 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    killed after 20 learner steps (exactly one restart required), counts
    set to 0 just before and read just after (one launch per learner
    step), one compute process on the card (nvidia-smi) and no actor
-   holding a card device file; the same with ``--fleet-wire bf16
+   holding a card device file; the f32 leg serves ``/health`` (polled
+   every 0.2 s; whether ``actors_down`` showed during the killed actor's
+   restart is recorded, not held); the same with ``--fleet-wire bf16
    --fleet-compress zlib --drain-coalesce 2``; then ``FleetLearner``'s
    drain fed the same recorded batches (from the port's actor in a thread,
    on the CPU, through the f32 wire codec) on the card and on the CPU,
@@ -87,13 +103,19 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    set to 0 just before and read just after each run (the scatter must
    launch 0 times: no device arena on this path), sheds and evictions 0,
    one compute process on the card and no actor or shard process holding
-   a card device file; then pulled batches at ``--learner-steps 4``
+   a card device file; the shard-procs leg serves ``/health`` (polled every
+   0.2 s: ``shards_down`` at 1 of 2 between the kill and the rejoin) and
+   ends with ``health_final.json`` naming neither ``shards_down`` nor
+   ``actors_down`` and ``metrics_final.prom`` holding
+   ``r2d2dpg_shard_alive 2``; then pulled batches at ``--learner-steps 4``
    learned on the card and on the CPU from the same params, params and
    priorities within 1e-4 of each tensor's largest value, and device-busy
    time of a whole pull-learn phase;
 15. whether ``mujoco`` and ``dm_control`` import (informational);
 16. each phase's seconds, one JSON line per kernel summary (launches
-   summed over every path), then the last line ``{"ok": true, "device": {...}}``.
+   summed over every path, and the scatter's mean CUPTI µs inside the
+   telemetry run's profile window), then the last line ``{"ok": true,
+   "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``r2d2dpg_tpu``.  Without a card,
 or outside a checkout of the repo, it exits nonzero and prints no result.
@@ -106,6 +128,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -739,6 +762,218 @@ def _trainer_phase(torch, dev, label="pendulum_r2d2_trainer", flags=(), after_ru
     return {label: launches["priority_scatter"], **extra}
 
 
+TELEMETRY_TRAIN_PHASES = 12
+TELEMETRY_WINDOW = (4, 3)  # --profile-window P:N, train phases P..P+N-1
+# Dense fp32 peak of an H100 SXM (PERF.md section 3): the MFU denominator
+# of the telemetry run.
+H100_FP32_PEAK_FLOPS = 6.7e13
+SCRAPE_EVERY_S = 0.25
+_METRIC_LINE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{.*\})? \S+$")
+
+
+class _Scraper:
+    """A thread that GETs ``paths`` of a run's exporter every ``every`` s,
+    once ``<logdir>/obs_port.txt`` names its port; ``samples`` holds
+    ``(t_wall, path, status, ms, body)``."""
+
+    def __init__(self, logdir, paths, every):
+        import threading
+
+        self.logdir, self.paths, self.every = logdir, paths, every
+        self.samples = []
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="chip-smoke-scraper",
+                                        daemon=True)
+
+    def port(self):
+        try:
+            with open(os.path.join(self.logdir, "obs_port.txt")) as f:
+                return int(f.read())
+        except (OSError, ValueError):
+            return None
+
+    def get(self, path):
+        import urllib.error
+        import urllib.request
+
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{self.port()}{path}", timeout=10) as r:
+                status, body = r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            status, body = e.code, ""
+        sample = (time.time(), path, status, (time.perf_counter() - t0) * 1e3, body)
+        self.samples.append(sample)
+        return sample
+
+    def _run(self):
+        while not self._done.wait(self.every):
+            if self.port() is None:
+                continue
+            for path in self.paths:
+                self.get(path)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._done.set()
+        self._thread.join()
+        return False
+
+
+def _metric(text, name):
+    """The value of the unlabelled series ``name`` in a /metrics page."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    return None
+
+
+def _telemetry_phase(torch, dev):
+    """The train CLI with telemetry on, at pendulum_r2d2's full width:
+    ``--obs-port 0 --profile-window 4:3 --device-peak-flops`` (the H100
+    SXM's dense fp32 peak), its exporter scraped every 0.25 s, then the
+    flight ``merge`` CLI on its run directory."""
+    from r2d2dpg_torch import kernels
+    from r2d2dpg_torch.obs import get_device_monitor, get_flight_recorder, get_registry
+    from r2d2dpg_torch.train import main as train_main
+
+    tc = _config("pendulum_r2d2").trainer
+    p0, n = TELEMETRY_WINDOW
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    flops = get_registry().get("r2d2dpg_device_learn_flops_total")
+    flops_before = flops.value if flops is not None else 0.0
+    seq0 = get_flight_recorder().recorded_total
+    buf = io.StringIO()
+    try:
+        for k in kernels.ALL_KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        with _Scraper(logdir, ("/metrics", "/metrics.json", "/health", "/healthz"),
+                      SCRAPE_EVERY_S) as scraper, contextlib.redirect_stdout(buf):
+            state = train_main([
+                "--config", "pendulum_r2d2", "--phases", str(TELEMETRY_TRAIN_PHASES),
+                "--log-every", "1", "--logdir", logdir, "--obs-port", "0",
+                "--obs-host", "127.0.0.1", "--profile-window", f"{p0}:{n}",
+                "--device-peak-flops", str(H100_FP32_PEAK_FLOPS),
+            ])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
+            final_metrics = scraper.get("/metrics")
+            final_health = scraper.get("/health")
+        get_flight_recorder().dump(os.path.join(logdir, "flight.jsonl"))
+        per_phase = get_device_monitor()._learn_flops_per_dispatch
+        flops_run = get_registry().get("r2d2dpg_device_learn_flops_total").value - flops_before
+        # The profile window's trace: the scatter's kernels inside it.
+        (trace_name,) = os.listdir(os.path.join(logdir, "profile_window"))
+        with open(os.path.join(logdir, "profile_window", trace_name)) as f:
+            trace = json.load(f)["traceEvents"]
+        window_scatters = [e for e in trace if e.get("cat") == "kernel"
+                           and "scatter_last_wins" in e.get("name", "")]
+        merge = subprocess.run(
+            [sys.executable, "-m", "r2d2dpg_torch.obs.flight", "merge", logdir,
+             "-o", os.path.join(logdir, "merged.jsonl"),
+             "--trace-out", os.path.join(logdir, "fused.json")],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+            text=True, timeout=300)
+        fused = []
+        if merge.returncode == 0:
+            with open(os.path.join(logdir, "fused.json")) as f:
+                fused = [e for e in json.load(f)["traceEvents"]
+                         if e["name"] == "profile_window"]
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    events = [e for e in get_flight_recorder().events()
+              if e["seq"] >= seq0 and e["kind"] in ("profile_start", "profile_stop",
+                                                    "profile_failed")]
+    samples = scraper.samples
+    metrics_pages = [s for s in samples if s[1] == "/metrics"]
+    health = [json.loads(s[4])["verdict"] for s in samples if s[1] == "/health"
+              and s[2] == 200]
+    mfus = [_metric(s[4], "r2d2dpg_device_mfu") for s in metrics_pages]
+    bad_lines = [line for s in metrics_pages for line in s[4].splitlines()
+                 if line and not line.startswith("#") and not _METRIC_LINE.match(line)]
+    latency = {}
+    for path in ("/metrics", "/metrics.json", "/health", "/healthz"):
+        ms = sorted(s[3] for s in samples if s[1] == path)
+        latency[path] = {"n": len(ms), "p50_ms": statistics.median(ms) if ms else None,
+                         "p99_ms": ms[min(len(ms) - 1, int(0.99 * len(ms)))] if ms else None}
+    final_mfu = _metric(final_metrics[4], "r2d2dpg_device_mfu")
+    window_us = [e["dur"] for e in window_scatters]
+    rec = {
+        "train_phases": TELEMETRY_TRAIN_PHASES, "run_seconds": seconds,
+        "learn_flops_per_phase": per_phase, "learn_flops_run": flops_run,
+        "peak_flops": H100_FP32_PEAK_FLOPS, "mfu_final": final_mfu,
+        "mfu_max": max((m for m in mfus if m is not None), default=None),
+        "scrapes": len(samples), "scrape_latency": latency,
+        "health_verdicts": sorted(set(health)), "final_health": json.loads(final_health[4]),
+        "scatter_launches": launches["priority_scatter"],
+        "window_scatter_kernels": len(window_scatters),
+        "window_scatter_mean_cupti_us": statistics.mean(window_us) if window_us else None,
+        "profile_events": [(e["kind"], e.get("phase")) for e in events],
+        "trace_events_in_window": len(trace), "merge_rc": merge.returncode,
+        "merge_stderr": merge.stderr.strip().splitlines()[-2:],
+        "fused_profile_windows": len(fused),
+    }
+    print("last log line:", [x for x in buf.getvalue().splitlines()
+                             if x.startswith("phase ")][-1], flush=True)
+    print(json.dumps({"telemetry": rec}), flush=True)
+    k = tc.learner_steps
+    problems = []
+    if any(s[2] != 200 for s in samples) or not metrics_pages or not health:
+        problems.append("a scrape failed or none ran")
+    if bad_lines:
+        problems.append(f"malformed /metrics lines {bad_lines[:3]}")
+    if set(health) != {"ok"} or rec["final_health"]["verdict"] != "ok":
+        problems.append("/health not ok")
+    if not (final_mfu is not None and 0.0 < final_mfu <= 1.05) or any(
+            m is not None and not 0.0 <= m <= 1.05 for m in mfus):
+        problems.append("MFU outside (0, 1.05]")
+    if 'r2d2dpg_device_hbm_bytes_in_use{device="0"}' not in final_metrics[4]:
+        problems.append("no r2d2dpg_device_hbm_bytes_in_use{device=\"0\"}")
+    # The port counts every train phase (its cost is known once the first
+    # phase, run under the counter, ends); JAX's lazy cost adds 0 for the
+    # phases before the first publish evaluates it.
+    if not per_phase > 0 or flops_run != per_phase * TELEMETRY_TRAIN_PHASES:
+        problems.append("learn FLOPs counter != FLOPs per phase x train phases")
+    if launches["priority_scatter"] != TELEMETRY_TRAIN_PHASES * k:
+        problems.append("scatter launches != train phases x learner_steps")
+    if len(window_scatters) != n * k:
+        problems.append("scatter kernels in the window != window phases x learner_steps")
+    if rec["profile_events"] != [("profile_start", p0), ("profile_stop", p0 + n)]:
+        problems.append("profile_start/profile_stop flight events")
+    if merge.returncode != 0 or len(fused) != 1:
+        problems.append("flight merge did not fuse one profile_window span")
+    if problems:
+        raise AssertionError(f"telemetry: {problems}: {rec}")
+    return {"telemetry": launches["priority_scatter"]}, rec
+
+
+def _flop_parity(torch, dev):
+    """``flops_of`` of one learner step at pendulum_tiny width on the card
+    and on the CPU: the same ops, so exactly the same count (the backward
+    runs on autograd's CUDA thread on the card)."""
+    from r2d2dpg_torch.obs.device import flops_of
+
+    counts = {}
+    for d in ("cpu", dev):
+        trainer = _config("pendulum_tiny").build(d)
+        state = trainer.init()
+        warm, fill = trainer.window_fill_phases, trainer.replay_fill_phases
+        for phase in range(warm + fill):
+            state = (trainer.collect_phase(state) if phase < warm
+                     else trainer.fill_phase(state))
+        counts[str(d)] = flops_of(trainer._learn_step, state.train, state.arena,
+                                  state.draws)
+    print(json.dumps({"flop_parity": counts}), flush=True)
+    if not counts["cpu"] or counts["cpu"] != counts[str(dev)]:
+        raise AssertionError(f"flops_of card vs CPU: {counts}")
+
+
 def _side_stream_scatter(torch, dev):
     """The scatter launched on a side stream (where the pipelined learner
     launches it), bitwise against the plain version."""
@@ -1333,24 +1568,28 @@ def _fleet_leg(torch, dev, label, flags):
                 apps = _compute_apps()
                 fds = {i: _card_fds(pid) for i, pid in sup.pids().items()}
                 killed = {"actor": 1, "at_learner_steps": kernels.PRIORITY_SCATTER.launches,
-                          "delivered": sup.kill_actor(1),
+                          "t_kill": time.time(), "delivered": sup.kill_actor(1),
                           "compute_apps": apps, "actor_card_fds": fds}
         seen["usage"], seen["killed"] = usage, killed
 
     ActorSupervisor.start = start
     watcher = threading.Thread(target=watch, name="chip-smoke-fleet-watch", daemon=True)
     buf = io.StringIO()
+    # The f32 leg serves /health, polled every 0.2 s (recorded, not held).
+    health = not flags
+    obs_flags = ("--obs-port", "0", "--obs-host", "127.0.0.1") if health else ()
+    scraper = _Scraper(logdir, ("/health",) if health else (), 0.2)
     try:
         for k in kernels.ALL_KERNELS:
             k.launches = 0
         watcher.start()
         t0, cpu0 = time.perf_counter(), sum(os.times()[:2])
-        with contextlib.redirect_stdout(buf):
+        with scraper, contextlib.redirect_stdout(buf):
             state = train_main([
                 "--config", "pendulum_r2d2", "--actors", str(FLEET_ACTORS),
                 "--phases", str(FLEET_TRAIN_PHASES),
                 "--log-every", str(max(FLEET_TRAIN_PHASES // 3, 1)),
-                "--logdir", logdir, *flags,
+                "--logdir", logdir, *obs_flags, *flags,
             ])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
@@ -1408,12 +1647,27 @@ def _fleet_leg(torch, dev, label, flags):
                       for (i, pid), (cpu, th) in sorted(usage.items())],
         "learner_cpu_s": learner_cpu_s,
         "stats": stats, "scatter_launches": launches["priority_scatter"],
+        "actors_down_seen": _actors_down_seen(scraper.samples, killed),
     }}), flush=True)
     # One compute process on the card (the learner); no actor holds a card
     # device file open.
     if len(killed["compute_apps"]) != 1 or any(killed["actor_card_fds"].values()):
         raise AssertionError(f"{label}: card processes {killed}")
     return {label: launches["priority_scatter"]}
+
+
+def _actors_down_seen(samples, killed):
+    """/health polls in the 10 s after the actor kill (its restart's
+    backoff is 0.5 s) that named actors_down, as (seconds after the kill,
+    value, threshold); None when nothing polled."""
+    polls = [(t, json.loads(body)) for t, _, status, _, body in samples
+             if status == 200]
+    if not polls or killed is None:
+        return None
+    t_kill = killed["t_kill"]
+    return [(round(t - t_kill, 3), f["value"], f["threshold"]) for t, b in polls
+            if t_kill <= t <= t_kill + 10.0 for f in b["findings"]
+            if f["rule"] == "actors_down"]
 
 
 class _HostDraws:
@@ -1624,23 +1878,32 @@ def _sampler_leg(torch, dev, label, flags):
     watcher = threading.Thread(target=watch, name="chip-smoke-sampler-watch", daemon=True)
     buf = io.StringIO()
     seq0 = max((e["seq"] for e in get_flight_recorder().events()), default=-1)
+    # The killed leg serves /health, polled every 0.2 s through the kill.
+    obs_flags = ("--obs-port", "0", "--obs-host", "127.0.0.1") if kill else ()
+    scraper = _Scraper(logdir, ("/health",) if kill else (), 0.2)
+    final = {}
     try:
         for k in kernels.ALL_KERNELS:
             k.launches = 0
         watcher.start()
         t0, cpu0 = time.perf_counter(), sum(os.times()[:2])
-        with contextlib.redirect_stdout(buf):
+        with scraper, contextlib.redirect_stdout(buf):
             state = train_main([
                 "--config", "pendulum_r2d2", "--actors", str(FLEET_ACTORS),
                 "--replay-shards", str(SAMPLER_SHARDS),
                 "--phases", str(phases),
                 "--log-every", str(max(phases // 3, 1)),
-                "--logdir", logdir, *flags,
+                "--logdir", logdir, *obs_flags, *flags,
             ])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         learner_cpu_s = sum(os.times()[:2]) - cpu0
         launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
+        for name in ("health_final.json", "metrics_final.prom"):
+            path = os.path.join(logdir, name)
+            if os.path.exists(path):
+                with open(path) as f:
+                    final[name] = f.read()
     finally:
         done.set()
         watcher.join()
@@ -1717,6 +1980,24 @@ def _sampler_leg(torch, dev, label, flags):
             phases_after_rejoin=(sum(p[0] > rejoins[0]["t_wall"] for p in pulls)
                                  if rejoins else 0),
         )
+        # /health between the kill and the rejoin: shards_down (1 of 2).
+        t_kill = probe["t_kill"] if probe else float("inf")
+        t_rejoin = rejoins[0]["t_wall"] if rejoins else float("inf")
+        polls = [(t, json.loads(body)) for t, _, status, _, body in scraper.samples
+                 if status == 200]
+        down = [(t, f) for t, b in polls if t_kill <= t <= t_rejoin
+                for f in b["findings"] if f["rule"] == "shards_down"]
+        health_final = (json.loads(final["health_final.json"])
+                        if "health_final.json" in final else None)
+        rec.update(
+            health_polls=len(polls),
+            health_verdicts=sorted({b["verdict"] for _, b in polls}),
+            shards_down_seen=[(round(t - t_kill, 3), f["value"], f["threshold"])
+                              for t, f in down],
+            health_final=health_final,
+            final_shard_alive=_metric(final.get("metrics_final.prom", ""),
+                                      "r2d2dpg_shard_alive"),
+        )
     print("sampler stats line:", stats_line, flush=True)
     print("last log line:", last, flush=True)
     print(json.dumps({label: rec}), flush=True)
@@ -1732,6 +2013,14 @@ def _sampler_leg(torch, dev, label, flags):
                                  f"one rejoin of shard 0 under epoch 2: {rec}")
         if not rec["pulls_while_shard0_down"] or rec["shards_drawn_while_down"] != [1]:
             raise AssertionError(f"{label}: quotas not drawn over the survivor: {rec}")
+        if not any(v == 1.0 and th == 2.0 for _, v, th in rec["shards_down_seen"]):
+            raise AssertionError(f"{label}: /health never read shards_down (1 of 2) "
+                                 f"between the kill and the rejoin: {rec}")
+        final_rules = {f["rule"] for f in (rec["health_final"] or {}).get("findings", ())}
+        if (rec["health_final"] is None or final_rules & {"shards_down", "actors_down"}
+                or rec["final_shard_alive"] != 2.0):
+            raise AssertionError(f"{label}: final evidence {rec['health_final']}, "
+                                 f"r2d2dpg_shard_alive {rec['final_shard_alive']}")
     return {label: launches["priority_scatter"]}
 
 
@@ -1930,6 +2219,11 @@ def main() -> int:
     launches.update(timed(
         "trainer_td3_bf16", _trainer_phase,
         torch, dev, "pendulum_r2d2_td3_bf16_trainer", (*TD3_FLAGS, *BF16_FLAGS)))
+    # Before the serving and fleet phases: their gauges stay on the process
+    # registry, and a stopped fleet's would degrade this run's /health.
+    telemetry_launches, telemetry = timed("telemetry", _telemetry_phase, torch, dev)
+    launches.update(telemetry_launches)
+    timed("flop_parity", _flop_parity, torch, dev)
     timed("serving", _serving_phase, torch, dev)
     side_err = timed("side_stream_scatter", _side_stream_scatter, torch, dev)
     timed("pipeline_off_anchor", _pipeline_off_anchor, torch, dev)
@@ -1963,6 +2257,8 @@ def main() -> int:
         "library_us": t["library_ms"] * 1e3,
         "library_deterministic_us": t["library_deterministic_ms"] * 1e3,
         "library_event_us": t["library_event_ms"] * 1e3,
+        "train_window_cupti_us": telemetry["window_scatter_mean_cupti_us"],
+        "train_window_kernels": telemetry["window_scatter_kernels"],
         "card": card_name,
         "power_limit": power_limit,
     }]}

@@ -89,6 +89,7 @@ from r2d2dpg_torch.fleet.transport import (
     to_host,
 )
 from r2d2dpg_torch.obs import flight_event, get_device_monitor, get_registry
+from r2d2dpg_torch.obs.device import count_flops
 from r2d2dpg_torch.obs import trace as obs_trace
 from r2d2dpg_torch.obs.quality import (
     get_quality_plane,
@@ -156,6 +157,7 @@ class IngestServer:
         read_deadline_s: float = transport.READ_DEADLINE_S,
         auth_token: Optional[str] = None,
         shards=None,
+        expected_actors: Optional[int] = None,
     ):
         self.queue = staging_queue
         # The sampler path: ``route(actor)`` and ``add(shard_id, msg)``
@@ -235,6 +237,14 @@ class IngestServer:
             "r2d2dpg_fleet_actors_connected", "live actor connections"
         )
         self._obs_connected.set_fn(lambda: float(len(self._conns)))
+        if expected_actors:
+            # The spawn target on the scrape itself: the /health
+            # actors_down rule compares the supervisor's
+            # r2d2dpg_fleet_actors_alive against it.
+            reg.gauge(
+                "r2d2dpg_fleet_actors_expected",
+                "the fleet's actor spawn target (--actors N)",
+            ).set(float(expected_actors))
         self._obs_peer_dead = reg.counter(
             "r2d2dpg_fleet_peer_dead_total",
             "connections reaped after a silent heartbeat deadline (the "
@@ -826,6 +836,7 @@ class FleetLearner:
             wire_config=config.wire,
             read_deadline_s=config.heartbeat_s,
             auth_token=config.auth_token,
+            expected_actors=config.num_actors,
         )
         reg = get_registry()
         self._obs_queue_depth = reg.gauge(
@@ -955,6 +966,7 @@ class FleetLearner:
 
         coalesce_sum = 0
         coalesce_n = 0
+        drain_flops: Dict[int, Optional[float]] = {}  # drain width -> FLOPs
         try:
             while drained < num_train_phases:
                 if deadline is not None and time.monotonic() >= deadline:
@@ -1029,8 +1041,15 @@ class FleetLearner:
                 mon.on_phase(drained + 1)
                 with t.arena.staged_writer(), annotate("fleet/drain"), \
                         mon.program("fleet_drain"):
-                    lstate, last_metrics = drain_staged(t, lstate, staged, prefetch=True)
-                mon.note_learn()
+                    if n_seqs not in drain_flops:
+                        # The MFU numerator: each drain width runs once
+                        # under the FLOP counter (results unchanged).
+                        (lstate, last_metrics), drain_flops[n_seqs] = count_flops(
+                            drain_staged, t, lstate, staged, prefetch=True)
+                    else:
+                        lstate, last_metrics = drain_staged(
+                            t, lstate, staged, prefetch=True)
+                mon.note_learn(drain_flops[n_seqs])
                 t_dispatch_end = time.time()
                 if traces:
                     # One synchronization per SAMPLED drain makes the learn

@@ -84,6 +84,7 @@ from r2d2dpg_torch.fleet.ingest import (
     snapshot_params,
 )
 from r2d2dpg_torch.obs import flight_event, get_device_monitor, get_registry
+from r2d2dpg_torch.obs.device import count_flops
 from r2d2dpg_torch.obs import trace as obs_trace
 from r2d2dpg_torch.obs.quality import (
     PROVENANCE_ABSENT,
@@ -322,6 +323,7 @@ class SamplerLearner:
             read_deadline_s=config.heartbeat_s,
             auth_token=config.auth_token,
             shards=self.shards,
+            expected_actors=config.num_actors,
         )
         # Loopback codecs, one packer/unpacker pair per direction (the
         # sampler loop is their only caller).
@@ -838,8 +840,15 @@ class SamplerLearner:
                     seqs, probs = self._place(seq_np, probs_np)
                 put_s.add(time.monotonic() - t_put)
                 with mon.program("sampler_learn"), annotate("sampler/learn"):
-                    train, prios_dev, last_metrics = self._learn(
-                        train, seqs, probs, occ, draws)
+                    if drained == 0:
+                        # The MFU numerator: the first pull-learn runs
+                        # under the FLOP counter (results unchanged).
+                        (train, prios_dev, last_metrics), flops = count_flops(
+                            self._learn, train, seqs, probs, occ, draws)
+                        mon.set_learn_cost(flops)
+                    else:
+                        train, prios_dev, last_metrics = self._learn(
+                            train, seqs, probs, occ, draws)
                 mon.note_learn()
                 t_dispatch = time.time()
                 # The one device-to-host copy of the phase: the TD

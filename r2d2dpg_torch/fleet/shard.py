@@ -1046,7 +1046,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--proc-index", type=int, default=0)
     p.add_argument("--flight-path", default=None,
                    help="dump this process's flight ring here on exit (its trace "
-                   "spans beside it as trace_shard<i>.json)")
+                   "spans beside it as raw span lines, trace_shard<i>.jsonl)")
     return p.parse_args(argv)
 
 
@@ -1062,12 +1062,15 @@ def main(argv=None) -> None:
             # A predecessor incarnation's dump is evidence: dump beside it.
             root, ext = os.path.splitext(flight_path)
             flight_path = f"{root}.pid{os.getpid()}{ext}"
+        # Raw span lines, which ``obs.flight merge --trace-out`` folds into
+        # the run's one Perfetto timeline; never over a predecessor's dump.
         trace_path = os.path.join(os.path.dirname(os.path.abspath(flight_path)),
-                                  f"trace_shard{args.proc_index}.json")
+                                  f"trace_shard{args.proc_index}.jsonl")
         if os.path.exists(trace_path):
             troot, text = os.path.splitext(trace_path)
             trace_path = f"{troot}.pid{os.getpid()}{text}"
-        get_flight_recorder().install(flight_path, trace_path=trace_path)
+        get_flight_recorder().install(
+            flight_path, trace_path=trace_path, trace_format="jsonl")
         # The supervisor's teardown is a SIGTERM, whose default skips atexit.
         signal.signal(signal.SIGTERM, lambda *_: sys.exit(0))
     try:

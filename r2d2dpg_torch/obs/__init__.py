@@ -1,16 +1,36 @@
-"""Telemetry: the instrument registry, the flight recorder and its span
-ring, experience-path traces, the divergence watchdog, the experience-quality
-plane and the device plane's run window.
+"""Telemetry: one process-wide namespace for every subsystem's signals.
 
-Port of the part of ``r2d2dpg_tpu/obs/`` the port's loops publish into:
-``registry``, ``flight`` (event and span rings, ``trace.json``), ``trace``,
-``watchdog``, ``quality`` and the run-window subset of ``device``.  The
-exporter, the health engine, the flight ``merge`` CLI, the federation and
-the device plane's MFU and profiler window come with the rest of telemetry
-(ROADMAP queue 1 item 8).
+Port of ``r2d2dpg_tpu/obs/``, with the JAX package's module names:
+
+- ``registry``: typed Counter/Gauge/Histogram instruments with label sets
+  (``get_registry()`` is the process singleton), their Prometheus text
+  rendering, and the ``RemoteMirror`` federation of other processes'
+  snapshots (``merge_remote``);
+- ``exporter``: the stdlib-HTTP scrape point on ``--obs-port``
+  (``/metrics``, ``/metrics.json``, ``/health``, ``/healthz``);
+- ``health``: the ``/health`` rule engine, ``{verdict, findings[]}`` over
+  the registry and the mirror, each verdict transition a flight event;
+- ``flight``: bounded event and span rings dumped to ``flight.jsonl`` and
+  ``trace.json``, and the ``merge`` CLI that fuses a run directory's dumps;
+- ``watchdog``: NaN/Inf and norm checks on the log cadence;
+- ``trace``: sampled experience-path hop spans;
+- ``device``: the device plane (memory gauges, the MFU numerator by
+  ``FlopCounterMode``, the ``--profile-window`` capture by
+  ``torch.profiler``);
+- ``quality``: the experience-quality plane.
+
+The multi-process ``allgather_into_mirror`` comes with the multi-device
+slice.
 """
 
+from r2d2dpg_torch.obs import device  # noqa: F401 - obs.device.* is the API
 from r2d2dpg_torch.obs.device import DeviceMonitor, get_device_monitor
+from r2d2dpg_torch.obs.exporter import (
+    MetricsExporter,
+    current_exporter,
+    start_exporter,
+    stop_exporter,
+)
 from r2d2dpg_torch.obs.flight import (
     FlightRecorder,
     chrome_trace,
@@ -18,13 +38,25 @@ from r2d2dpg_torch.obs.flight import (
     get_flight_recorder,
     set_flight_identity,
 )
+from r2d2dpg_torch.obs.health import HealthConfig, HealthEngine
+from r2d2dpg_torch.obs import quality  # noqa: F401 - obs.quality.* is the API
+from r2d2dpg_torch.obs.quality import (
+    QualityPlane,
+    get_quality_plane,
+    reset_quality_plane,
+)
 from r2d2dpg_torch.obs.registry import (
     Counter,
     Gauge,
     Histogram,
     Registry,
+    RemoteMirror,
     get_registry,
+    get_remote_mirror,
+    merge_remote,
+    render_prometheus,
 )
+from r2d2dpg_torch.obs import trace  # noqa: F401 - obs.trace.* is the span API
 from r2d2dpg_torch.obs.watchdog import (
     DivergenceError,
     DivergenceWatchdog,
@@ -38,13 +70,29 @@ __all__ = [
     "DivergenceWatchdog",
     "FlightRecorder",
     "Gauge",
+    "HealthConfig",
+    "HealthEngine",
     "Histogram",
+    "MetricsExporter",
+    "QualityPlane",
     "Registry",
+    "RemoteMirror",
     "WatchdogConfig",
     "chrome_trace",
+    "current_exporter",
+    "device",
     "flight_event",
     "get_device_monitor",
     "get_flight_recorder",
+    "get_quality_plane",
     "get_registry",
+    "get_remote_mirror",
+    "merge_remote",
+    "quality",
+    "reset_quality_plane",
+    "render_prometheus",
     "set_flight_identity",
+    "start_exporter",
+    "stop_exporter",
+    "trace",
 ]

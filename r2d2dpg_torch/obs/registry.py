@@ -11,16 +11,24 @@ another spec it raises.  ``get_registry()`` is the process singleton the
 serving stack publishes into.
 
 Names follow ``r2d2dpg_<subsystem>_<metric>``, ``_total`` for counters and
-``_seconds`` for time histograms.  The Prometheus text rendering comes
-with the exporter (the telemetry slice), the cross-process federation
-(``RemoteMirror``, ``merge_remote``, ``allgather_into_mirror``) with the
-fleet and multi-device slices.
+``_seconds`` for time histograms.  ``scalars()`` is the flat view the
+``MetricLogger`` CSV bridge folds into its rows; ``render_prometheus`` is
+the text exposition the exporter serves, with per-entry and per-sample
+isolation (a broken instrument becomes a ``# ... omitted`` comment, and a
+newline in a remote-supplied string cannot forge a line).
+
+Federation: ``RemoteMirror`` holds other processes' snapshots under
+attribution labels (``actor=``, ``shard=``), and ``merge_remote`` folds
+them into one scrape, the attribution labels winning a collision.  The
+multi-process allgather that feeds it comes with the multi-device slice.
 """
 
 from __future__ import annotations
 
+import math
 import re
 import threading
+import time
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 from r2d2dpg_torch.utils.metrics import PercentileWindow
@@ -337,6 +345,140 @@ class Registry:
             }
         return out
 
+    def scalars(self) -> Dict[str, float]:
+        """Flat name -> float view — the MetricLogger CSV/TB bridge.
+
+        Labelled samples flatten to ``name{a=x,b=y}``; histograms expand to
+        ``name_count`` / ``name_total`` / ``name_p50`` / ``name_p99``."""
+        out: Dict[str, float] = {}
+        for name, entry in self.snapshot().items():
+            for s in entry["samples"]:
+                labels = s["labels"]
+                suffix = (
+                    "{" + ",".join(f"{k}={v}" for k, v in labels.items()) + "}"
+                    if labels
+                    else ""
+                )
+                if entry["kind"] == "histogram":
+                    for field in ("count", "total", "p50", "p99"):
+                        out[f"{name}{suffix}_{field}"] = float(s[field])
+                else:
+                    out[f"{name}{suffix}"] = float(s["value"])
+        return out
+
+    def prometheus_text(self) -> str:
+        """Prometheus text exposition (histograms as summaries)."""
+        return render_prometheus(self.snapshot())
+
+
+def render_prometheus(snapshot: Dict[str, dict]) -> str:
+    """Snapshot dict -> Prometheus text exposition.
+
+    Module-level so the exporter can render a MERGED snapshot (the local
+    registry plus remote-mirror sources) with one TYPE line per family.
+
+    Isolation (the one-bad-series contract): an entry carrying an
+    ``error`` field, or one that fails to render outright, becomes a
+    ``# <name> omitted: ...`` comment; a single malformed SAMPLE (a
+    version-skewed remote snapshot merged into a healthy local family —
+    a histogram sample missing ``p99``, a gauge-shaped sample under a
+    histogram family) becomes a ``# <name> sample omitted: ...`` comment
+    while the family's other samples — the learner's own local series
+    included — still render.  The rest of the scrape is unaffected."""
+    lines: List[str] = []
+    for name, entry in snapshot.items():
+        # Comments interpolate cname, never the raw (possibly
+        # remote-supplied) name: a newline inside a name must not be able
+        # to tear the exposition or forge series lines.
+        cname = _one_line(str(name))
+        try:
+            if not _NAME_RE.match(str(name)):
+                raise ValueError(f"invalid metric name {name!r}")
+            if entry.get("error"):
+                lines.append(f"# {cname} omitted: {_one_line(entry['error'])}")
+                continue
+            body: List[str] = []
+            if entry.get("help"):
+                body.append(f"# HELP {name} {_one_line(entry['help'])}")
+            kind = entry.get("kind", "untyped")
+            ptype = "summary" if kind == "histogram" else kind
+            body.append(f"# TYPE {name} {ptype}")
+            for s in entry.get("samples", ()):
+                # Per-sample isolation, rendered all-or-nothing into a
+                # scratch list so a mid-sample failure (p50 rendered, p99
+                # missing) cannot leave a partial sample in the scrape.
+                sample: List[str] = []
+                try:
+                    if s.get("error"):
+                        # merge_remote's sentinel for a remote instrument
+                        # that failed at snapshot time: an attributed,
+                        # VISIBLE omission (the labels say who).
+                        raise ValueError(
+                            f"{_label_str(dict(s.get('labels') or {}))} "
+                            f"{_one_line(s['error'])}"
+                        )
+                    labels = s.get("labels", {})
+                    base = _label_str(labels)
+                    if kind == "histogram":
+                        for q, field in (("0.5", "p50"), ("0.99", "p99")):
+                            sample.append(
+                                f"{name}{_label_str({**labels, 'quantile': q})} "
+                                f"{_fmt(s[field])}"
+                            )
+                        sample.append(f"{name}_count{base} {_fmt(s['count'])}")
+                        sample.append(f"{name}_sum{base} {_fmt(s['total'])}")
+                    else:
+                        sample.append(f"{name}{base} {_fmt(s['value'])}")
+                except Exception as e:  # noqa: BLE001 - scrape isolation
+                    sample = [
+                        f"# {cname} sample omitted: "
+                        f"{type(e).__name__}: {_one_line(e)}"
+                    ]
+                body.extend(sample)
+            lines.extend(body)
+        except Exception as e:  # noqa: BLE001 - scrape isolation
+            lines.append(
+                f"# {cname} omitted: {type(e).__name__}: {_one_line(e)}"
+            )
+    return "\n".join(lines) + "\n"
+
+
+def _one_line(v) -> str:
+    return " ".join(str(v).split())
+
+
+def _label_str(labels: Dict[str, str]) -> str:
+    """Exposition label block.  Values get the exposition-format escapes
+    (backslash, quote, AND newline — a remote-supplied value must not be
+    able to tear the scrape into forged lines); a label NAME that fails
+    the name regex raises, which the renderer's per-sample isolation
+    turns into a visible sample-omitted comment."""
+    if not labels:
+        return ""
+    parts = []
+    for k, v in labels.items():
+        if not _NAME_RE.match(str(k)):
+            raise ValueError(f"invalid label name {k!r}")
+        parts.append(
+            '{}="{}"'.format(
+                k,
+                str(v)
+                .replace("\\", "\\\\")
+                .replace('"', '\\"')
+                .replace("\n", "\\n"),
+            )
+        )
+    return "{" + ",".join(parts) + "}"
+
+
+def _fmt(v) -> str:
+    f = float(v)
+    if math.isnan(f):
+        return "NaN"
+    if math.isinf(f):
+        return "+Inf" if f > 0 else "-Inf"
+    return repr(f) if not f.is_integer() else str(int(f))
+
 
 _REGISTRY = Registry()
 
@@ -344,3 +486,122 @@ _REGISTRY = Registry()
 def get_registry() -> Registry:
     """THE process-wide default registry (module singleton)."""
     return _REGISTRY
+
+
+# --------------------------------------------------------------- federation
+class RemoteMirror:
+    """Other processes' registry snapshots, held for merged scrapes.
+
+    The fleet-wide scrape point: each remote process (a fleet actor or a
+    shard process pushing TELEM snapshots) contributes its
+    ``Registry.snapshot()`` plus attribution labels (``actor=<id>``,
+    ``host=<name>``); the exporter merges them with the local registry so
+    ONE ``/metrics`` page carries every process's series.
+
+    Sources are keyed (``actor:0``, ``proc:1``): a reconnecting actor
+    UPDATES its slot instead of growing a new one, so re-registration is
+    idempotent by construction.  A dead source's snapshot stays at its
+    last values — staleness is surfaced by the per-source age here and by
+    the ingest server's per-actor staleness gauges, never by the series
+    silently freezing without a marker."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        # key -> (labels, snapshot, t_mono of last update)
+        self._sources: Dict[str, Tuple[Dict[str, str], Dict, float]] = {}
+
+    def update(self, key: str, labels: Dict[str, str], snapshot: Dict) -> None:
+        if not isinstance(snapshot, dict):
+            raise TypeError(
+                f"remote snapshot must be a dict, got {type(snapshot).__name__}"
+            )
+        with self._lock:
+            self._sources[key] = (
+                {str(k): str(v) for k, v in labels.items()},
+                snapshot,
+                time.monotonic(),
+            )
+
+    def drop(self, key: str) -> None:
+        with self._lock:
+            self._sources.pop(key, None)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._sources.clear()
+
+    def sources(self) -> List[Tuple[str, Dict[str, str], Dict]]:
+        with self._lock:
+            return [
+                (k, dict(labels), snap)
+                for k, (labels, snap, _) in self._sources.items()
+            ]
+
+    def staleness_s(self, key: str) -> Optional[float]:
+        """Seconds since this source's last update (None if unknown)."""
+        with self._lock:
+            entry = self._sources.get(key)
+        return None if entry is None else time.monotonic() - entry[2]
+
+
+def merge_remote(
+    base: Dict[str, dict],
+    sources: Iterable[Tuple[str, Dict[str, str], Dict]],
+) -> Dict[str, dict]:
+    """Fold remote snapshots into a base snapshot for one merged scrape.
+
+    Remote samples get the source's attribution labels merged OVER their
+    own (the federation convention: the aggregator's external labels win a
+    collision — they say WHO reported).  Families merge by name, the base
+    entry's kind/help winning, so the rendered text keeps one TYPE line
+    per family.  Malformed remote entries are skipped per-family (the
+    renderer additionally isolates per-entry)."""
+    out = dict(base)
+    for _key, labels, snap in sources:
+        if not isinstance(snap, dict):
+            continue
+        for name, entry in snap.items():
+            if not isinstance(entry, dict):
+                continue
+            raw = entry.get("samples", ())
+            if not isinstance(raw, (list, tuple)):
+                continue
+            samples = []
+            err = entry.get("error")
+            if err:
+                # A remote instrument that failed at SNAPSHOT time (the
+                # per-instrument isolation path of Registry.snapshot):
+                # forward the error as a sentinel SAMPLE, not a
+                # family-level error — family-level would omit other
+                # sources' healthy series sharing the name — so the
+                # renderer emits an attributed "# ... sample omitted"
+                # comment instead of the series silently vanishing.
+                samples.append({"labels": dict(labels), "error": str(err)})
+            for s in raw:
+                if not isinstance(s, dict):
+                    continue
+                own = s.get("labels", {})
+                own = own if isinstance(own, dict) else {}
+                samples.append({**s, "labels": {**own, **labels}})
+            existing = out.get(name)
+            if existing is None:
+                out[name] = {
+                    "kind": entry.get("kind", "gauge"),
+                    "help": entry.get("help", ""),
+                    "samples": samples,
+                }
+            else:
+                out[name] = {
+                    **existing,
+                    "samples": list(existing.get("samples", ())) + samples,
+                }
+    return out
+
+
+_MIRROR = RemoteMirror()
+
+
+def get_remote_mirror() -> RemoteMirror:
+    """THE process-wide remote mirror (module singleton; empty until
+    something feeds it)."""
+    return _MIRROR

@@ -5,7 +5,7 @@
         [--serve-workers 1] [--max-sessions 1024] [--session-ttl 300] \\
         [--poll-every 2] [--logdir DIR] [--log-every-s 10] \\
         [--flight-path F] [--selftest N] [--compute-dtype bfloat16] \\
-        [--device cpu]
+        [--obs-port P [--obs-host H]] [--device cpu]
 
 Stands up a ``PolicyService`` (or, with ``--serve-workers N > 1``, N of
 them behind the session-affine router) over the latest checkpoint under
@@ -22,9 +22,11 @@ stdio:
 sessions) through the whole stack and prints one line: the response codes
 and the final health.  The observation shape comes from the config's env,
 so the configs whose envs are ported (Pendulum) serve; the DM-Control
-configs raise until their envs are ported.  The HTTP exporter
-(``--obs-port``) comes with the telemetry slice.  Runs on ``cuda`` unless
-``--device cpu`` is given.
+configs raise until their envs are ported.  ``--obs-port P`` serves the
+process's registry over HTTP (``/metrics``, ``/metrics.json``, ``/health``,
+``/healthz``; 0 binds an ephemeral port, printed to stderr), with the
+``/health`` engine armed for a serving process (no fleet TELEM expected).
+Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import numpy as np
 
 from r2d2dpg_torch.configs import CONFIGS, get_config
 from r2d2dpg_torch.device import device_name, resolve_device
-from r2d2dpg_torch.obs import get_flight_recorder
+from r2d2dpg_torch import obs
 from r2d2dpg_torch.serving import (
     BAD_REQUEST,
     CheckpointHotReloader,
@@ -76,6 +78,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--logdir", default=None, help="health metrics CSV dir")
     p.add_argument("--log-every-s", type=float, default=10.0,
                    help="seconds between health rows written to --logdir")
+    p.add_argument(
+        "--obs-port", type=int, default=None, metavar="PORT",
+        help="serve the telemetry registry over HTTP: /metrics (Prometheus "
+        "text, incl. the r2d2dpg_serving_* health gauges) + /metrics.json; "
+        "0 binds an ephemeral port (printed to stderr)")
+    p.add_argument(
+        "--obs-host", default="0.0.0.0",
+        help="interface the --obs-port exporter binds (127.0.0.1 = "
+        "loopback-only on shared hosts)")
     p.add_argument("--flight-path", default=None,
                    help="flight-recorder dump path (default <logdir>/flight.jsonl)")
     p.add_argument("--selftest", type=int, default=0, metavar="N",
@@ -197,8 +208,16 @@ def main(argv=None):
     args = parse_args(argv)
     if args.logdir or args.flight_path:
         # Arm the exit-time dump only when the operator named a destination.
-        get_flight_recorder().install(
+        obs.get_flight_recorder().install(
             args.flight_path or os.path.join(args.logdir, "flight.jsonl"))
+    if args.obs_port is not None:
+        exporter = obs.start_exporter(args.obs_port, host=args.obs_host)
+        # A serving process has no actor fleet: /health without the
+        # fleet-telemetry expectation, so the serve_* rules judge it alone.
+        exporter.arm_health(
+            obs.HealthEngine(obs.HealthConfig(telem_expected=False)))
+        print(f"obs: /metrics + /metrics.json + /health on port {exporter.port}",
+              file=sys.stderr, flush=True)
     service, obs_shape = build_service(args)
     print(f"backend: {device_name(resolve_device(args.device))}",
           file=sys.stderr, flush=True)

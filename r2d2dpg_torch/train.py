@@ -18,7 +18,10 @@
          [--replay-shards M [--shard-procs P] [--shard-pullers N] \
           [--shard-prefetch 1]]] \
         [--minutes M] [--watchdog 0|1] [--watchdog-grad-norm X] \
-        [--watchdog-param-norm X] [--nan-inject-phase K]
+        [--watchdog-param-norm X] [--nan-inject-phase K] [--nan-debug] \
+        [--obs-port P [--obs-host H]] [--flight-path F] \
+        [--health-wait-p99 S] [--health-stale-after S] [--quality-max-lag N] \
+        [--device-peak-flops F] [--profile-window P:N | --profile-phases N]
 
 ``--phases N`` counts TRAIN phases, as in the JAX CLI: a fresh run does
 the config's warm-up and replay-fill phases, then N train phases (one when
@@ -67,6 +70,23 @@ carries ``sample_bytes_total``, ``trained_seqs_total``, ``evictions`` and
 ``shard_restarts``.  ``--replay-shards 1 --actors 0`` runs the untouched
 phase-locked loop.
 
+Telemetry (``obs/``): ``--obs-port P`` serves the process registry over
+HTTP (``/metrics``, ``/metrics.json``, ``/health``, ``/healthz``; 0 binds an
+ephemeral port, printed on an ``obs:`` line and written to
+``<logdir>/obs_port.txt``), with the ``/health`` engine armed with the
+run's thresholds (``--health-wait-p99``, ``--health-stale-after``,
+``--quality-max-lag``) and its spawn targets; the CSV then carries the
+registry's scalars as extra columns.  ``--device-peak-flops F`` is the
+denominator of ``r2d2dpg_device_mfu`` (0 = unknown: the gauge stays 0).
+``--profile-window P:N`` captures train/drain phases P..P+N-1 of whichever
+loop runs with ``torch.profiler`` into ``<logdir>/profile_window/``
+(``--profile-phases N``: the first N train phases of the phase-locked loop
+into ``<logdir>/profile``; the two exclude each other).  The flight ring
+dumps to ``--flight-path`` (default ``<logdir>/flight.jsonl``) at exit.
+Under ``--actors`` a run with ``--logdir`` stamps ``metrics_final.prom``,
+``health_final.json`` and ``quality_final.json`` before its supervisors
+stop.  ``--nan-debug`` turns on autograd anomaly detection with NaN checks.
+
 The divergence watchdog (``--watchdog 1``, the default) checks the learner
 metrics on the log cadence of either schedule: a NaN/Inf, or a grad or
 param norm past its threshold, dumps the flight recorder into
@@ -96,6 +116,7 @@ import tempfile
 
 import torch
 
+from r2d2dpg_torch import obs
 from r2d2dpg_torch.configs import CONFIGS, ExperimentConfig, get_config
 from r2d2dpg_torch.device import device_name
 from r2d2dpg_torch.obs import (
@@ -110,6 +131,7 @@ from r2d2dpg_torch.training.pipeline import PipelineConfig, PipelineExecutor
 from r2d2dpg_torch.training.trainer import TrainerState
 from r2d2dpg_torch.utils.checkpoint import CheckpointManager, resume_state
 from r2d2dpg_torch.utils.metrics import MetricLogger
+from r2d2dpg_torch.utils.profiling import nan_debug, profile_trace
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -265,6 +287,56 @@ def parse_args(argv=None) -> argparse.Namespace:
         "NaN after the K-th train phase, so the next learner update "
         "produces non-finite outputs and the watchdog path is exercised "
         "end to end")
+    p.add_argument("--nan-debug", action="store_true",
+                   help="autograd anomaly detection with NaN checks (backward only)")
+    p.add_argument(
+        "--profile-phases", type=int, default=0,
+        help="trace this many train phases into --logdir/profile")
+    p.add_argument(
+        "--profile-window", default=None, metavar="P:N",
+        help="device-plane profiler capture (obs/device.py): run "
+        "torch.profiler for N train/drain phases starting at phase P into "
+        "<logdir>/profile_window, on WHICHEVER learner loop the run "
+        "resolves to (phase-locked, pipelined, fleet drain, sampler "
+        "pull).  profile_start/profile_stop flight events bracket the "
+        "capture, and 'obs.flight merge --trace-out' stamps it as a "
+        "labelled profile_window span in the fused Perfetto timeline.  "
+        "Mutually exclusive with --profile-phases (one profiler session "
+        "per process); requires --logdir")
+    p.add_argument(
+        "--device-peak-flops", type=float, default=0.0, metavar="FLOPS",
+        help="the accelerator's peak FLOP/s for the r2d2dpg_device_mfu "
+        "gauge (e.g. 6.7e13 for an H100 SXM at dense fp32).  0 = unknown: "
+        "the gauge stays 0 rather than inventing a denominator")
+    # Observability.
+    p.add_argument(
+        "--obs-port", type=int, default=None, metavar="PORT",
+        help="serve the telemetry registry over HTTP: /metrics (Prometheus "
+        "text) + /metrics.json (JSON snapshot); 0 binds an ephemeral port "
+        "(resolved port printed and written to <logdir>/obs_port.txt)")
+    p.add_argument(
+        "--obs-host", default="0.0.0.0",
+        help="interface the --obs-port exporter binds (127.0.0.1 = "
+        "loopback-only on shared hosts)")
+    p.add_argument(
+        "--flight-path", default=None,
+        help="flight-recorder dump path (default <logdir>/flight.jsonl, "
+        "or ./flight.jsonl without --logdir); sampled trace spans dump "
+        "to trace.json next to it")
+    p.add_argument(
+        "--health-wait-p99", type=float, default=0.5, metavar="S",
+        help="/health 'learner_starving' threshold: learner/sampler wait "
+        "p99 above this reads as the fleet failing to feed the learner")
+    p.add_argument(
+        "--health-stale-after", type=float, default=10.0, metavar="S",
+        help="/health 'telem_stale' threshold: an actor's or shard's "
+        "TELEM staleness above this reads as wedged/partitioned/dead")
+    p.add_argument(
+        "--quality-max-lag", type=float, default=100.0, metavar="N",
+        help="/health 'stale_experience' threshold: policy-lag p99 "
+        "(learner param version minus the behavior version stamped on "
+        "trained sequences, obs/quality.py) above this reads as the "
+        "learner training on stale experience")
     return p.parse_args(argv)
 
 
@@ -299,6 +371,23 @@ def _apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:
     return cfg
 
 
+def _health_config(args) -> obs.HealthConfig:
+    """The run's resolved /health thresholds and expected process counts,
+    for both the exporter's engine and the fleet teardown's
+    ``health_final.json`` (a default config expects 0 actors and 0 shard
+    processes, which disarms actors_down/shards_down)."""
+    return obs.HealthConfig(
+        learner_wait_p99_s=args.health_wait_p99,
+        telem_stale_after_s=args.health_stale_after,
+        expected_actors=args.actors or 0,
+        expected_shard_procs=args.shard_procs or 0,
+        # TELEM pushes ride --obs-fleet, which the port does not have yet:
+        # without them a growing staleness clock is configuration.
+        telem_expected=False,
+        quality_max_lag=args.quality_max_lag,
+    )
+
+
 def _fleet_only_knobs(args) -> bool:
     return (
         args.fleet_wire != "f32"
@@ -331,6 +420,10 @@ def _refuse(args) -> None:
         raise SystemExit("--fleet-heartbeat must be > 0 seconds")
     if not 0.0 <= args.trace_sample <= 1.0:
         raise SystemExit("--trace-sample must be in [0, 1]")
+    if args.pipeline and args.profile_phases:
+        raise SystemExit(
+            "--pipeline 1 does not support --profile-phases yet (the "
+            "executor owns the phase loop; docs/TOPOLOGY.md)")
     if args.actors and args.pipeline:
         raise SystemExit(
             "--actors N does not compose with --pipeline 1: both executors "
@@ -340,6 +433,11 @@ def _refuse(args) -> None:
             "--actors N does not compose with --eval-every: the fleet "
             "learner owns the phase loop; run the final-checkpoint eval "
             "instead (docs/TOPOLOGY.md)")
+    if args.actors and args.profile_phases:
+        raise SystemExit(
+            "--actors N does not compose with --profile-phases: the "
+            "profiler brackets the phase-locked loop this process never "
+            "runs under a fleet (docs/TOPOLOGY.md)")
     if args.actors and args.nan_inject_phase is not None:
         raise SystemExit(
             "--actors N does not compose with --nan-inject-phase: the "
@@ -393,7 +491,7 @@ def _abort_on_divergence(e, flight, flight_path, ckpt) -> None:
     """Watchdog trip: dump the flight ring, name the last checkpoint on
     disk, exit with code 2."""
     flight.record("abort", reason=str(e), step=e.step)
-    dumped = flight.dump(flight_path) if flight_path else None
+    dumped = flight.dump(flight_path)
     if ckpt is not None and ckpt.latest_step is not None:
         # The watchdog reads learner outputs once per log cadence, so a
         # save inside the last cadence may already carry the divergence.
@@ -659,6 +757,8 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
     except DivergenceError as e:
         _abort_on_divergence(e, flight, flight_path, ckpt)
     finally:
+        if args.logdir:
+            _stamp_final_evidence(args)
         # The supervisor first: its stopping flag makes an actor's lost
         # connection an orderly exit, not a crash to restart.
         supervisor.stop()
@@ -671,10 +771,88 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
     return state
 
 
+def _arm_telemetry(args, flight):
+    """The device plane, the profiler window, the flight dump path and the
+    exporter, as the JAX CLI arms them.  Returns ``(flight_path,
+    exporter)``; the exporter is None without ``--obs-port``."""
+    device_mon = obs.get_device_monitor().install()
+    device_mon.configure(peak_flops=args.device_peak_flops)
+    if args.profile_window is not None:
+        pw_phase, pw_steps = device_mon.arm_profile(
+            args.profile_window, os.path.join(args.logdir, "profile_window"))
+        print(f"obs: profiler capture armed for phases "
+              f"{pw_phase}..{pw_phase + pw_steps - 1} -> "
+              f"{args.logdir}/profile_window", flush=True)
+    flight_path = args.flight_path or (
+        os.path.join(args.logdir, "flight.jsonl") if args.logdir else "flight.jsonl")
+    if args.logdir or args.flight_path:
+        # The exit-time dump is armed only where the operator named a
+        # destination; the watchdog's abort dumps either way.
+        flight.install(flight_path)
+    exporter = None
+    if args.obs_port is not None:
+        registry = obs.get_registry()
+        exporter = obs.start_exporter(args.obs_port, registry, args.obs_host)
+        # Armed with this run's thresholds and spawn targets; the server is
+        # already answering, and its lazy default must not win the race.
+        exporter.arm_health(obs.HealthEngine(
+            _health_config(args), registry=registry,
+            mirror=obs.get_remote_mirror()))
+        print(f"obs: /metrics + /metrics.json + /health on port {exporter.port}",
+              flush=True)
+        if args.logdir:
+            os.makedirs(args.logdir, exist_ok=True)
+            with open(os.path.join(args.logdir, "obs_port.txt"), "w") as f:
+                f.write(f"{exporter.port}\n")
+    return flight_path, exporter
+
+
+def _stamp_final_evidence(args) -> None:
+    """The fleet run's final merged scrape, /health verdict and quality
+    plane into ``<logdir>``, written before the supervisors stop (a stopped
+    supervisor reads 0 alive).  A failure prints a note and never raises:
+    the teardown after it must run."""
+    try:
+        snap = obs.get_registry().snapshot()
+        sources = obs.get_remote_mirror().sources()
+        if sources:
+            snap = obs.merge_remote(snap, sources)
+        with open(os.path.join(args.logdir, "metrics_final.prom"), "w") as f:
+            f.write(obs.render_prometheus(snap))
+        engine = getattr(obs.current_exporter(), "health", None)
+        if engine is None:
+            # No exporter: judge with the run's config anyway (defaults
+            # would disarm actors_down/shards_down).
+            engine = obs.HealthEngine(
+                _health_config(args), registry=obs.get_registry(),
+                mirror=obs.get_remote_mirror())
+        with open(os.path.join(args.logdir, "health_final.json"), "w") as f:
+            json.dump(engine.evaluate(), f, default=str)
+        with open(os.path.join(args.logdir, "quality_final.json"), "w") as f:
+            json.dump(obs.get_quality_plane().snapshot_final(), f, default=str)
+    except Exception as e:  # noqa: BLE001 - evidence is optional, teardown is not
+        print(f"obs: final evidence stamp failed: {e!r}", flush=True)
+
+
 def main(argv=None) -> TrainerState:
     """Run the CLI; returns the final trainer state."""
     args = parse_args(argv)
     _refuse(args)
+    if args.profile_window is not None:
+        if args.profile_phases:
+            raise SystemExit(
+                "--profile-window and --profile-phases both drive the one "
+                "profiler session this process has — pick one "
+                "(--profile-window works on every learner loop and is "
+                "the superset)")
+        if not args.logdir:
+            raise SystemExit("--profile-window requires --logdir")
+        try:
+            obs.device.parse_profile_window(args.profile_window)
+        except ValueError as e:
+            raise SystemExit(f"--profile-window: {e}")
+    if args.nan_debug:
+        nan_debug(True)
     if args.actors and args.replay_shards > args.actors:
         print(f"replay-shards: WARNING — {args.replay_shards} shards but only "
               f"{args.actors} actors: {args.replay_shards - args.actors} shards "
@@ -736,13 +914,12 @@ def main(argv=None) -> TrainerState:
             cfg.env_factory(trainer.device), trainer.agent.actor, args.eval_envs
         )
         eval_draws = Draws(cfg.trainer.seed + 1, trainer.device)
-    logger = None
     flight = get_flight_recorder()
-    flight_path = None
+    flight_path, exporter = _arm_telemetry(args, flight)
+    logger = None
     if args.logdir:
-        logger = MetricLogger(args.logdir)
-        flight_path = os.path.join(args.logdir, "flight.jsonl")
-        flight.install(flight_path)
+        logger = MetricLogger(
+            args.logdir, registry=obs.get_registry() if exporter is not None else None)
     watchdog = None
     if args.watchdog:
         watchdog = DivergenceWatchdog(WatchdogConfig(
@@ -770,8 +947,29 @@ def main(argv=None) -> TrainerState:
             if logger is not None:
                 logger.close()
 
+    # --profile-phases: a trace of the first N train phases of this run.
+    profiler = {"cm": None, "until": None}
+
+    def start_profile() -> None:
+        if args.profile_phases and args.logdir and profiler["until"] is None:
+            profiler["until"] = max(start, fill) + args.profile_phases
+            profiler["cm"] = profile_trace(os.path.join(args.logdir, "profile"))
+            profiler["cm"].__enter__()
+
+    def stop_profile() -> None:
+        if profiler["cm"] is not None:
+            cm, profiler["cm"] = profiler["cm"], None
+            cm.__exit__(None, None, None)
+
+    if start >= fill:
+        start_profile()
+
     def on_phase(state: TrainerState, scalars):
         phase = state.phase_idx
+        if phase == fill and start < fill:
+            start_profile()  # the next phase is the first train phase
+        if profiler["until"] is not None and phase >= profiler["until"]:
+            stop_profile()
         if scalars is not None:
             watch = dict(scalars)
             if logger is not None:
@@ -809,6 +1007,7 @@ def main(argv=None) -> TrainerState:
     except DivergenceError as e:
         _abort_on_divergence(e, flight, flight_path, ckpt)
     finally:
+        stop_profile()
         if logger is not None:
             logger.close()
     return state

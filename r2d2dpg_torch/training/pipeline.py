@@ -86,6 +86,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from r2d2dpg_torch.obs import flight_event, get_device_monitor, get_registry
+from r2d2dpg_torch.obs.device import count_flops
 from r2d2dpg_torch.obs import trace as obs_trace
 from r2d2dpg_torch.replay.arena import StagedSequences, staged_nbytes
 from r2d2dpg_torch.training.assembler import emit
@@ -604,7 +605,14 @@ class PipelineExecutor:
                     t_dequeue = time.time()
                     mon.on_phase(drained + 1)
                     with annotate("pipeline/learn"), mon.program("pipeline_drain"):
-                        ls, metrics = drain_staged(t, ls, staged, prefetch=cfg.prefetch)
+                        if drained == 0:
+                            # The MFU numerator: the first drain runs under
+                            # the FLOP counter (results unchanged).
+                            (ls, metrics), flops = count_flops(
+                                drain_staged, t, ls, staged, prefetch=cfg.prefetch)
+                            mon.set_learn_cost(flops)
+                        else:
+                            ls, metrics = drain_staged(t, ls, staged, prefetch=cfg.prefetch)
                     mon.note_learn()
                     if learner_hook is not None:
                         ls = dataclasses.replace(

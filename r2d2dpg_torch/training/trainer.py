@@ -37,6 +37,7 @@ import torch
 from r2d2dpg_torch.agents.ddpg import R2D2DPG, TrainState
 from r2d2dpg_torch.envs.core import Environment
 from r2d2dpg_torch.obs import get_device_monitor, get_registry
+from r2d2dpg_torch.obs.device import count_flops
 from r2d2dpg_torch.obs.quality import get_quality_plane
 from r2d2dpg_torch.ops import (
     anneal_beta,
@@ -462,9 +463,11 @@ class Trainer:
         )
         return state, metrics
 
-    def _obs_publish(self, metrics: Dict[str, float]) -> None:
+    def _obs_publish(self, metrics: Dict[str, float], device: bool = True) -> None:
         """Fold one log cadence's host-side scalars onto the registry (the
-        phase-locked and pipelined log paths share it)."""
+        phase-locked and pipelined log paths share it).  ``device`` also
+        publishes the device plane, whose MFU window runs from one device
+        publish to the next: a cadence publishes it once."""
         if "env_steps" in metrics:
             self._obs_env_steps.set(metrics["env_steps"])
         if "episode_return_mean" in metrics:
@@ -479,7 +482,8 @@ class Trainer:
                 is_saturation=metrics.get("quality_is_saturation"),
                 replay_age_mean=metrics.get("quality_replay_age"),
             )
-        self._device.publish()
+        if device:
+            self._device.publish()
 
     # ----------------------------------------------------------- main loop
     def run(
@@ -523,7 +527,14 @@ class Trainer:
                 else:
                     mon.on_phase(train_done + 1)
                     with annotate("trainer/train_phase"), mon.program("train_phase"):
-                        state, last_metrics = self.train_phase(state)
+                        if train_done == 0:
+                            # The MFU numerator: the first train phase runs
+                            # under the FLOP counter (results unchanged).
+                            (state, last_metrics), flops = count_flops(
+                                self.train_phase, state)
+                            mon.set_learn_cost(flops)
+                        else:
+                            state, last_metrics = self.train_phase(state)
                     mon.note_learn()
                     train_done += 1
                     if train_done == 1:
@@ -539,8 +550,10 @@ class Trainer:
                             else []
                         )
                     learn = dict(zip(names, values))
+                    # pop_episode_metrics published the device plane.
                     self._obs_publish(
-                        {"learner_steps": float(state.train.step), **learn})
+                        {"learner_steps": float(state.train.step), **learn},
+                        device=False)
                     scalars.update(learn)
                     log_fn(
                         f"phase {phase + 1}/{num_phases} "

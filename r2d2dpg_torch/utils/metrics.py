@@ -102,11 +102,16 @@ class MetricLogger:
     per-second rates.  A logdir that already holds a CSV is appended to,
     with the wall clock carried on.  Thread-safe: the serving worker logs
     while other threads own the logger.
+
+    ``registry`` (an ``obs.Registry``), when given, folds the registry's
+    flat ``scalars()`` into every row as extra columns; an explicit scalar
+    wins a name collision, so the logged curves are unchanged.
     """
 
-    def __init__(self, logdir: str):
+    def __init__(self, logdir: str, *, registry=None):
         self.logdir = logdir
         self.t0 = time.monotonic()
+        self._registry = registry
         self._lock = threading.RLock()
         self._csv_path = os.path.join(logdir, "metrics.csv")
         self._csv_file = None
@@ -161,6 +166,9 @@ class MetricLogger:
         elapsed = time.monotonic() - self.t0
         row = {"step": step, "wall_seconds": round(elapsed, 3)}
         row.update({k: float(v) for k, v in scalars.items()})
+        if self._registry is not None:
+            for k, v in self._registry.scalars().items():
+                row.setdefault(k, v)
         with self._lock:
             if self._csv_writer is None or any(k not in self._csv_fields for k in row):
                 self._reopen_csv(row)

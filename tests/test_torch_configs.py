@@ -122,3 +122,205 @@ def test_lr_scale_batch_equals_jax(name, flags, capsys):
     assert port.agent.critic_lr == ref.agent.critic_lr * scale
     _fields_equal(port.trainer, ref.trainer)
     assert "lr-scale-batch: linear rule" in capsys.readouterr().out
+
+
+# ------------------------------------------------------------------ telemetry
+TELEMETRY_FLAGS = [
+    (),
+    ("--obs-port", "0", "--obs-host", "127.0.0.1", "--flight-path", "f.jsonl"),
+    ("--health-wait-p99", "7.5", "--health-stale-after", "11", "--quality-max-lag", "3"),
+    ("--device-peak-flops", "6.7e13", "--profile-window", "4:3"),
+    ("--profile-phases", "2", "--nan-debug"),
+    ("--actors", "3", "--replay-shards", "2", "--shard-procs", "2",
+     "--health-wait-p99", "2"),
+]
+TELEMETRY_DESTS = ("obs_port", "obs_host", "flight_path", "health_wait_p99",
+                   "health_stale_after", "quality_max_lag", "device_peak_flops",
+                   "profile_window", "profile_phases", "nan_debug")
+
+
+@pytest.mark.parametrize("flags", TELEMETRY_FLAGS, ids=lambda f: "_".join(f) or "defaults")
+def test_telemetry_flags_and_health_config_equal_jax(flags):
+    """The telemetry flags parse to JAX's values (defaults included), and
+    ``_health_config`` builds JAX's ``HealthConfig`` from them."""
+    from r2d2dpg_tpu.train import _health_config as j_health_config
+    from r2d2dpg_torch.train import _health_config
+
+    argv = ["--config", "pendulum_tiny", *flags]
+    port, ref = parse_args(argv), j_parse_args(argv)
+    for dest in TELEMETRY_DESTS:
+        assert getattr(port, dest) == getattr(ref, dest), dest
+    assert dataclasses.asdict(_health_config(port)) == dataclasses.asdict(
+        j_health_config(ref))
+
+
+def _jax_refusal(argv):
+    from r2d2dpg_tpu import train as jtrain
+
+    with pytest.raises(SystemExit) as e:
+        jtrain.run(jtrain.parse_args(argv))
+    return str(e.value)
+
+
+def _port_refusal(argv):
+    from r2d2dpg_torch.train import main
+
+    with pytest.raises(SystemExit) as e:
+        main([*argv, "--device", "cpu"])
+    return str(e.value)
+
+
+TELEMETRY_REFUSALS = {
+    "window_without_logdir": (("--profile-window", "1:1"), "requires --logdir", True),
+    # JAX's text says "the one jax profiler session"; the port's profiler
+    # is torch's, and its text says "the one profiler session".
+    "window_and_phases": (("--profile-window", "1:1", "--profile-phases", "2",
+                           "--logdir", "/tmp/never_used_refused"), "pick one", False),
+    "window_grammar": (("--profile-window", "nope", "--logdir",
+                        "/tmp/never_used_refused"), "--profile-window: ", True),
+    "actors_x_profile_phases": (("--actors", "2", "--profile-phases", "2"),
+                                "does not compose", True),
+    # JAX refuses --resume/--eval-every with --pipeline too; the port's
+    # pipeline runs them, so its message names --profile-phases alone.
+    "pipeline_x_profile_phases": (("--pipeline", "1", "--profile-phases", "2"),
+                                  "does not support", False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TELEMETRY_REFUSALS))
+def test_telemetry_refusals_equal_jax(name):
+    flags, match, same_text = TELEMETRY_REFUSALS[name]
+    argv = ["--config", "pendulum_tiny", *flags]
+    want, got = _jax_refusal(argv), _port_refusal(argv)
+    assert match in want and match in got, (want, got)
+    if same_text:
+        assert got == want
+
+
+def test_nan_debug_switches_anomaly_mode():
+    from r2d2dpg_torch.utils.profiling import nan_debug
+
+    try:
+        nan_debug(True)
+        assert torch.is_anomaly_enabled() and torch.is_anomaly_check_nan_enabled()
+    finally:
+        nan_debug(False)
+    assert not torch.is_anomaly_enabled()
+
+
+def test_train_cli_obs_port_writes_port_file_and_registry_columns(tmp_path):
+    """``python -m r2d2dpg_torch train ... --obs-port 0 --logdir D``: the
+    package's dispatch runs the train CLI, which prints the ``obs:`` line,
+    writes ``D/obs_port.txt`` and folds the registry into the CSV."""
+    import csv
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    d = tmp_path / "run"
+    res = subprocess.run(
+        [sys.executable, "-m", "r2d2dpg_torch", "train", "--config", "pendulum_tiny",
+         "--phases", "3", "--device", "cpu", "--obs-port", "0", "--obs-host",
+         "127.0.0.1", "--logdir", str(d), "--log-every", "1"],
+        cwd=repo, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    port = int((d / "obs_port.txt").read_text())
+    assert f"obs: /metrics + /metrics.json + /health on port {port}" in res.stdout
+    with open(d / "metrics.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    assert float(rows[-1]["r2d2dpg_trainer_learner_steps"]) == 3.0
+    assert float(rows[-1]["r2d2dpg_device_learn_flops_total"]) > 0
+    assert "r2d2dpg_health_status" in rows[-1]  # the armed engine's gauges
+
+
+def test_train_cli_profile_phases_writes_a_trace(tmp_path):
+    from r2d2dpg_torch.train import main
+
+    main(["--config", "pendulum_tiny", "--phases", "3", "--device", "cpu",
+          "--profile-phases", "2", "--logdir", str(tmp_path), "--log-every", "0"])
+    (trace,) = (tmp_path / "profile").iterdir()
+    assert trace.name.endswith(".pt.trace.json")
+    names = {e.get("name") for e in __import__("json").loads(trace.read_text())[
+        "traceEvents"]}
+    assert "trainer/train_phase" in names
+
+
+@pytest.mark.fleet
+def test_train_cli_actors_stamps_final_evidence(tmp_path):
+    """``train --actors 2 --phases 3 --logdir D`` writes the final scrape,
+    the final /health verdict and the quality plane before the supervisor
+    stops: all actors alive, the verdict free of actors_down."""
+    import json
+
+    from r2d2dpg_torch.train import main
+
+    main(["--config", "pendulum_tiny", "--actors", "2", "--phases", "3",
+          "--device", "cpu", "--logdir", str(tmp_path), "--log-every", "1"])
+    prom = (tmp_path / "metrics_final.prom").read_text()
+    assert "r2d2dpg_fleet_actors_alive 2" in prom.splitlines()
+    assert "r2d2dpg_fleet_actors_expected 2" in prom.splitlines()
+    health = json.loads((tmp_path / "health_final.json").read_text())
+    assert "actors_down" not in {f["rule"] for f in health["findings"]}
+    quality = json.loads((tmp_path / "quality_final.json").read_text())
+    assert isinstance(quality, dict) and quality
+
+
+@pytest.mark.fleet
+def test_shard_procs_run_dir_fuses_trace_shard_spans(tmp_path, capsys):
+    """A ``--shard-procs 1`` run directory holds the shard process's raw
+    ``trace_shard0.jsonl``; ``obs.flight merge --trace-out`` fuses its hops
+    with the learner's ``trace.json`` into one timeline."""
+    import json
+
+    from r2d2dpg_torch.obs import flight
+    from r2d2dpg_torch.train import main
+
+    main(["--config", "pendulum_tiny", "--actors", "2", "--replay-shards", "2",
+          "--shard-procs", "1", "--phases", "3", "--device", "cpu", "--logdir",
+          str(tmp_path), "--trace-sample", "1", "--log-every", "0"])
+    assert (tmp_path / "trace_shard0.jsonl").exists()
+    assert not (tmp_path / "trace_shard0.json").exists()
+    fused = tmp_path / "fused.json"
+    flight.main(["merge", str(tmp_path), "-o", str(tmp_path / "merged.jsonl"),
+                 "--trace-out", str(fused)])
+    events = json.loads(fused.read_text())["traceEvents"]
+    by_file = {}
+    for e in events:
+        by_file.setdefault(e["args"]["file"], set()).add(e["name"])
+    assert {"req_receive", "shard_draw", "batch_encode"} <= by_file["trace_shard0.jsonl"]
+    assert {"sample_req", "batch_return", "learn"} <= by_file["trace.json"]
+    assert "flight merge:" in capsys.readouterr().err
+
+
+def test_serve_selftest_with_obs_port_starts_exporter(tmp_path, capsys):
+    """``serve --selftest 8 --obs-port 0``: the process exporter comes up,
+    armed for a serving process, and answers /health and /metrics."""
+    import json
+    import urllib.request
+
+    from r2d2dpg_torch import obs
+    from r2d2dpg_torch.serve import main as serve_main
+    from r2d2dpg_torch.train import main as train_main
+
+    ck = str(tmp_path / "ck")
+    train_main(["--config", "pendulum_tiny", "--phases", "1", "--device", "cpu",
+                "--log-every", "0", "--checkpoint-dir", ck, "--checkpoint-light"])
+    obs.stop_exporter()
+    try:
+        out = serve_main(["--config", "pendulum_tiny", "--checkpoint-dir", ck,
+                          "--device", "cpu", "--selftest", "8", "--obs-port", "0",
+                          "--obs-host", "127.0.0.1"])
+        assert out["codes"] == {"ok": 8}
+        ex = obs.current_exporter()
+        assert ex is not None and ex.health.config.telem_expected is False
+        assert f"on port {ex.port}" in capsys.readouterr().err
+        base = f"http://127.0.0.1:{ex.port}"
+        body = json.loads(urllib.request.urlopen(f"{base}/health", timeout=10).read())
+        # The process registry is shared with earlier tests (a stopped
+        # fleet's gauges may degrade the verdict); the scrape carries it.
+        level = {"ok": 0, "degraded": 1, "critical": 2}[body["verdict"]]
+        text = urllib.request.urlopen(f"{base}/metrics", timeout=10).read().decode()
+        assert f"r2d2dpg_health_status {level}" in text.splitlines()
+    finally:
+        obs.stop_exporter()

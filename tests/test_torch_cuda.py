@@ -25,6 +25,9 @@ fed by a thread actor launches the scatter once per learner step.  The
 sampler: a pulled batch (read-only decoded frame leaves) reaches the card
 intact in one copy as ``[K, B]`` views, and a 2-shard sampler learner fed
 by a thread actor learns on the card and launches the scatter not once.
+Telemetry: ``flops_of`` of a pendulum_tiny learner step counts the same on
+the card as on the CPU, and a 2-phase profile window over ``Trainer.run``
+on the card holds one scatter kernel per learner step of the window.
 """
 
 import numpy as np
@@ -378,3 +381,56 @@ def test_sampler_learner_on_the_card_launches_no_scatter():
     assert PRIORITY_SCATTER.launches == before
     assert next(iter(state.train.actor_params.values())).device.type == "cuda"
     assert learner.stats()["sheds"] == 0
+
+
+def _filled_tiny(dev):
+    """A pendulum_tiny trainer on ``dev`` and its state after warm-up and
+    replay fill (seed 0)."""
+    from r2d2dpg_torch.configs import PENDULUM_TINY
+
+    trainer = PENDULUM_TINY.build(dev)
+    state = trainer.init()
+    warm, fill = trainer.window_fill_phases, trainer.replay_fill_phases
+    for phase in range(warm + fill):
+        state = trainer.collect_phase(state) if phase < warm else trainer.fill_phase(state)
+    return trainer, state
+
+
+@pytest.mark.cuda
+def test_flops_of_a_learner_step_on_the_card_equals_the_cpu():
+    """``FlopCounterMode`` counts the same products on the card as on the
+    CPU, the backward included (autograd's CUDA thread sees the mode)."""
+    from r2d2dpg_torch.obs.device import flops_of
+
+    counts = {}
+    for dev in ("cpu", _card()):
+        trainer, state = _filled_tiny(dev)
+        counts[str(dev)] = flops_of(
+            trainer._learn_step, state.train, state.arena, state.draws)
+    assert counts["cpu"] and counts["cpu"] == counts["cuda"], counts
+
+
+@pytest.mark.cuda
+def test_profile_window_on_the_card_holds_the_scatter(tmp_path):
+    """A 2-phase ``--profile-window`` over ``Trainer.run`` on the card: the
+    exported trace holds the scatter kernel once per learner step of the
+    window."""
+    import json
+    import os
+
+    from r2d2dpg_torch.obs import get_device_monitor
+
+    dev = _card()
+    trainer, state = _filled_tiny(dev)
+    logdir = tmp_path / "profile_window"
+    get_device_monitor().arm_profile("2:2", str(logdir))
+    before = PRIORITY_SCATTER.launches
+    state = trainer.run(state.phase_idx + 4, state, log_every=0)
+    torch.cuda.synchronize()
+    k = trainer.config.learner_steps
+    assert PRIORITY_SCATTER.launches - before == 4 * k
+    (name,) = os.listdir(logdir)
+    events = json.loads((logdir / name).read_text())["traceEvents"]
+    scatters = [e for e in events if e.get("cat") == "kernel"
+                and "scatter_last_wins" in e.get("name", "")]
+    assert len(scatters) == 2 * k, [e.get("name") for e in scatters]

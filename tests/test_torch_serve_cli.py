@@ -1,8 +1,9 @@
 """The port's serve CLI: flag plumbing, the JSONL stdio loop and ``--selftest``.
 
 Both loops run in process on the CPU over a light checkpoint that the
-port's train CLI wrote (``--device cpu``).  Flags the port does not carry
-yet (``--obs-port``, the exporter's) are refused as unknown.
+port's train CLI wrote (``--device cpu``).  The exporter flags
+(``--obs-port``, ``--obs-host``) parse as the JAX CLI's do; a flag the port
+does not carry is refused as unknown.
 """
 
 import io
@@ -36,9 +37,13 @@ def test_parse_args_plumbing():
     assert (args.max_queue, args.max_sessions) == (7, 3)
     assert (args.session_ttl, args.poll_every) == (9.0, 0.5)
     assert args.serve_workers == 1 and args.device == "cpu"
+    assert (args.obs_port, args.obs_host) == (None, "0.0.0.0")
+    args = parse_args(["--config", "pendulum_tiny", "--checkpoint-dir", "ck",
+                       "--obs-port", "0", "--obs-host", "127.0.0.1"])
+    assert (args.obs_port, args.obs_host) == (0, "127.0.0.1")
     with pytest.raises(SystemExit):
         parse_args(["--config", "pendulum_tiny", "--checkpoint-dir", "ck",
-                    "--obs-port", "0"])
+                    "--no-such-flag", "0"])
 
 
 def test_build_service_plain_or_router(ckpt_dir):
