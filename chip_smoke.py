@@ -93,13 +93,33 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    drain fed the same recorded batches (from the port's actor in a thread,
    on the CPU, through the f32 wire codec) on the card and on the CPU,
    params within 1e-4, and device-busy time of a drain-learn phase;
+   before that drain check, the chaos drills on the central drain
+   (``fleet_chaos``): ``--actors 3 --phases 40 --seed 3 --fleet-heartbeat
+   2.5 --chaos-spec kill_actor@p5,corrupt_frame@p8,stall_actor@p12:7s,
+   kill_ingest_conn@p18``,
+   each fault injected once (one ``chaos_inject`` line in the dumps that
+   ``python -m r2d2dpg_torch.obs.flight merge`` fuses) and followed by its
+   recovery (``actor_crash`` then ``actor_restart``; ``peer_dead`` then
+   ``actor_reconnect``; a ``FrameCRCError`` ``ingest_conn_error`` then
+   ``actor_reconnect``; ``actor_reconnect``), the learner's drill counter
+   1 for each fault it fires, no ``chaos_unfired``, env steps never down,
+   one compute process on the card, one scatter launch per learner step;
 14. in-network sampling: ``train.main --config pendulum_r2d2 --actors 3
    --replay-shards 2 --phases 60`` (the in-learner loopback shards), then
-   the same with ``--shard-procs 2 --phases 150`` (two supervised shard
-   processes on the CPU; shard process 0 killed after 20 learner steps,
-   the longer run leaving room for its restart: exactly one
+   the same with ``--shard-procs 2 --phases 150 --chaos-spec
+   kill_shard@p20`` (two supervised shard processes on the CPU; the chaos
+   engine kills the targeted one after 20 learner steps, the longer run
+   leaving room for its restart: one ``chaos_inject``, exactly one
    ``shard_dead``, one restart and one ``shard_rejoin`` under epoch 2
-   required, every pull while it is down drawn from the survivor), counts
+   required, every pull while it is down drawn from the survivor), then
+   the direct data plane under chaos (``direct_chaos``: ``--shard-procs 2
+   --shard-direct 1 --phases 60 --chaos-spec partition_data_plane@p30,
+   stall_shard@p40:2s,partition_shard@p20,stall_sampler@p30:1s,
+   kill_sampler_conn@p40``: every actor dials its shard, the learner
+   forwards 0 bytes until the partition, which falls back and re-dials
+   with the control connection whole, ``partition_shard`` reconnects
+   under the same epoch with no restart, the stalls cost no shed and no
+   reap, the dropped actor reconnects, env steps never go down), counts
    set to 0 just before and read just after each run (the scatter must
    launch 0 times: no device arena on this path), sheds and evictions 0,
    one compute process on the card and no actor or shard process holding
@@ -1793,11 +1813,136 @@ def _fleet_card_vs_cpu(torch, dev, learn_phases=5, min_replay=32):
         raise AssertionError(f"fleet drain card vs CPU: {rec}")
 
 
+# The central drain under the four actor-fleet faults.  The heartbeat
+# must outlast the longest honest silence: a handler waiting for queue room
+# through the first drain, which runs under the FLOP counter (the f32 leg's
+# drain p99, 2.56 s on the card, PERF.md); a reap takes two silent
+# deadlines, so the stall runs past twice the heartbeat.  Seed 3 gives the
+# four faults disjoint targets (kill actor 2, corrupt actor 1, stall actor
+# 0, conn-drop actor 1): a killed actor's restart re-arms its own drills.
+FLEET_CHAOS_PHASES = 40
+FLEET_CHAOS_HEARTBEAT_S = 2.5
+FLEET_CHAOS_STALL_S = 7
+FLEET_CHAOS_SEED = 3
+FLEET_CHAOS_SPEC = (f"kill_actor@p5,corrupt_frame@p8,stall_actor@p12:"
+                    f"{FLEET_CHAOS_STALL_S}s,kill_ingest_conn@p18")
+
+
+def _fleet_chaos_leg(torch, dev, label="fleet_chaos"):
+    """``train.main --actors 3 --phases 40 --fleet-heartbeat 2.5
+    --chaos-spec kill_actor@p5,corrupt_frame@p8,stall_actor@p12:6s,
+    kill_ingest_conn@p18`` at pendulum_r2d2, learner on the card: all 40
+    phases run, each fault is injected once and followed by its recovery
+    in the merged flight dumps, env steps never go down, one compute
+    process on the card, one scatter launch per learner step."""
+    import threading
+
+    from r2d2dpg_torch import kernels
+    from r2d2dpg_torch.fleet.supervisor import ActorSupervisor
+    from r2d2dpg_torch.obs import get_registry
+    from r2d2dpg_torch.train import main as train_main
+
+    tc = _config("pendulum_r2d2").trainer
+    logdir = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")
+    seen = {}
+    done = threading.Event()
+    plain_start = ActorSupervisor.start
+
+    def start(self):
+        seen["sup"] = self
+        return plain_start(self)
+
+    def watch():
+        """Reads the card's processes and the actors' device files once
+        the learner has trained."""
+        while not done.wait(0.25):
+            sup = seen.get("sup")
+            if sup is not None and "probe" not in seen and kernels.PRIORITY_SCATTER.launches:
+                seen["probe"] = {"compute_apps": _compute_apps(),
+                                 "actor_card_fds": {i: _card_fds(pid)
+                                                    for i, pid in sup.pids().items()}}
+
+    ActorSupervisor.start = start
+    watcher = threading.Thread(target=watch, name="chip-smoke-chaos-watch", daemon=True)
+    buf = io.StringIO()
+    drills0 = _drill_counts(get_registry())
+    try:
+        for k in kernels.ALL_KERNELS:
+            k.launches = 0
+        watcher.start()
+        t0, t0_wall = time.perf_counter(), time.time()
+        with contextlib.redirect_stdout(buf):
+            state = train_main([
+                "--config", "pendulum_r2d2", "--actors", str(FLEET_ACTORS),
+                "--phases", str(FLEET_CHAOS_PHASES), "--log-every", "5",
+                "--seed", str(FLEET_CHAOS_SEED),
+                "--fleet-heartbeat", str(FLEET_CHAOS_HEARTBEAT_S),
+                "--chaos-spec", FLEET_CHAOS_SPEC, "--logdir", logdir,
+            ])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
+        events = _merged_events(logdir, t0_wall)
+    finally:
+        done.set()
+        watcher.join()
+        ActorSupervisor.start = plain_start
+        shutil.rmtree(logdir, ignore_errors=True)
+    lines = buf.getvalue().splitlines()
+    stats_line = next(x for x in lines if x.startswith("fleet: ") and "wall_s" in x)
+    words = stats_line.split()[1:]
+    stats = {k: float(v) for k, v in zip(words[::2], words[1::2])}
+    expected = FLEET_CHAOS_PHASES * tc.learner_steps
+    if stats["train_phases"] != FLEET_CHAOS_PHASES or state.train.step != expected:
+        raise AssertionError(f"{label}: {stats['train_phases']} phases, step "
+                             f"{state.train.step}; expected {FLEET_CHAOS_PHASES}")
+    if launches["priority_scatter"] != expected:
+        raise AssertionError(f"{label}: scatter launches {launches}, expected {expected}")
+    chaos = _check_chaos(label, FLEET_CHAOS_SPEC, events, lines,
+                         _drill_counts(get_registry()), drills0)
+    crc = lambda e: "FrameCRCError" in str(e.get("error", ""))  # noqa: E731
+    target = {k: v["target"] for k, v in chaos.items()}
+    dropped = next(e["dropped"] for e in events if e.get("fault") == "kill_ingest_conn")
+    recovery = {
+        "kill_actor": _recovery(label, events, "kill_actor", [
+            ("actor_crash", target["kill_actor"], None),
+            ("actor_restart", target["kill_actor"], None)]),
+        "stall_actor": _recovery(label, events, "stall_actor", [
+            ("peer_dead", target["stall_actor"], None),
+            ("actor_reconnect", target["stall_actor"], None)]),
+        "corrupt_frame": _recovery(label, events, "corrupt_frame", [
+            ("ingest_conn_error", target["corrupt_frame"], crc),
+            ("actor_reconnect", target["corrupt_frame"], None)]),
+        "kill_ingest_conn": _recovery(label, events, "kill_ingest_conn", [
+            ("actor_reconnect", dropped, None)]),
+    }
+    logged = [x for x in lines if x.startswith("phase ")]
+    steps = _env_steps(logged)
+    probe = seen.get("probe")
+    rec = {"flags": FLEET_CHAOS_SPEC, "seed": FLEET_CHAOS_SEED,
+           "heartbeat_s": FLEET_CHAOS_HEARTBEAT_S, "train_phases": FLEET_CHAOS_PHASES,
+           "run_seconds": seconds, "chaos": chaos, "recovery_s": recovery,
+           "env_steps_logged": steps,
+           "drain_phases_per_s": stats.get("train_drain_phases_per_sec"),
+           "drain_learn_ms": [stats["drain_learn_p50_ms"], stats["drain_learn_p99_ms"]],
+           "sheds": stats["sheds"], "restarts": stats["actor_restarts"],
+           "probe": probe, "stats": stats, "scatter_launches": launches["priority_scatter"]}
+    print("fleet chaos stats line:", stats_line, flush=True)
+    print(json.dumps({label: rec}), flush=True)
+    if steps != sorted(steps) or not steps or steps[-1] <= 0:
+        raise AssertionError(f"{label}: env steps went down: {steps}")
+    if probe is None or len(probe["compute_apps"]) != 1 or any(
+            probe["actor_card_fds"].values()):
+        raise AssertionError(f"{label}: card processes {probe}")
+    return {label: launches["priority_scatter"]}
+
+
 def _fleet_phase(torch, dev):
     """The fleet main path: both legs, then the card-vs-CPU drain."""
     launches = _fleet_leg(torch, dev, "fleet_f32", ())
     launches.update(_fleet_leg(torch, dev, "fleet_bf16_zlib", (
         "--fleet-wire", "bf16", "--fleet-compress", "zlib", "--drain-coalesce", "2")))
+    launches.update(_fleet_chaos_leg(torch, dev))
     _fleet_card_vs_cpu(torch, dev)
     return launches
 
@@ -1808,30 +1953,43 @@ SAMPLER_TRAIN_PHASES = 60  # pull-learn phases of the loopback leg
 # (``import torch`` included) took over 20 s there, past 60 phases.
 SAMPLER_PROCS_TRAIN_PHASES = 150
 SAMPLER_SHARDS = 2
-SAMPLER_KILL_AT = 20  # learner steps before shard process 0 is killed
+SAMPLER_KILL_AT = 20  # learner steps before a shard process is killed
+SAMPLER_KILL_SPEC = f"kill_shard@p{SAMPLER_KILL_AT}"
 SAMPLER_CARD_VS_CPU_K = 4  # learner steps per pulled batch (K loop > 1)
 SAMPLER_CARD_VS_CPU_RTOL = 1e-4  # of each tensor's largest |value|
+# The direct data plane under the five sampler-path faults.  The two the
+# actors and the shard processes fire run on their own clocks (actor 2's
+# batches, shard process 1's absorbed SEQS frames; seed 0), which these
+# never-backpressured actors advance faster than the pull clock: at 30
+# batches and 40 frames both land early in training, after every data leg
+# has been dialed.
+DIRECT_CHAOS_PHASES = 60
+DIRECT_CHAOS_SPEC = ("partition_data_plane@p30,stall_shard@p40:2s,partition_shard@p20,"
+                     "stall_sampler@p30:1s,kill_sampler_conn@p40")
 
 
-def _sampler_leg(torch, dev, label, flags):
+def _sampler_leg(torch, dev, label, flags, phases=SAMPLER_TRAIN_PHASES):
     """``train.main --actors 3 --replay-shards 2`` at pendulum_r2d2, learner
-    on the card.  With ``--shard-procs`` in ``flags``, shard process 0 is
-    killed after ``SAMPLER_KILL_AT`` learner steps.  Launch counts are set
-    to 0 just before and read just after; the scatter must not launch."""
+    on the card.  With ``--chaos-spec`` in ``flags`` the run directory's
+    flight dumps are fused by the merge CLI and every fault is paired with
+    its recovery: ``kill_shard`` (the shard-procs leg) and the direct
+    data plane's five (``--shard-direct 1``).  Launch counts are set to 0
+    just before and read just after; the scatter must not launch."""
     import threading
 
     from r2d2dpg_torch import kernels
     from r2d2dpg_torch.fleet.sampler import SamplerLearner
     from r2d2dpg_torch.fleet.shard import ShardProcTier
     from r2d2dpg_torch.fleet.supervisor import ActorSupervisor
-    from r2d2dpg_torch.obs import get_flight_recorder
+    from r2d2dpg_torch.obs import get_registry
     from r2d2dpg_torch.train import main as train_main
 
-    kill = "--shard-procs" in flags
-    phases = SAMPLER_PROCS_TRAIN_PHASES if kill else SAMPLER_TRAIN_PHASES
+    spec = flags[flags.index("--chaos-spec") + 1] if "--chaos-spec" in flags else ""
+    kill = "kill_shard" in spec
+    direct = "--shard-direct" in flags
     tc = _config("pendulum_r2d2").trainer
     logdir = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")
-    seen = {"sups": [], "pulls": []}
+    seen = {"sups": [], "pulls": [], "fwd": []}
     done = threading.Event()
     plain_sup_start, plain_tier_start = ActorSupervisor.start, ShardProcTier.start
     plain_pull = SamplerLearner._pull_phase_batches
@@ -1847,52 +2005,54 @@ def _sampler_leg(torch, dev, label, flags):
     def pull(self, n, rng, tr=None):
         out = plain_pull(self, n, rng, tr)
         seen["pulls"].append((time.time(), sorted(set(out[2][0].tolist())),
-                              self.shards.shards[0].alive if self._remote else True))
+                              tuple(s.alive for s in self.shards.shards)
+                              if self._remote else ()))
         return out
 
     def children():
         return {(sup.role, i): pid for sup in seen["sups"] for i, pid in sup.pids().items()}
 
     def watch():
-        """Samples the children's CPU use; kills shard process 0 part-way
-        (reads the card's processes and the children's device files there)."""
+        """Samples the children's CPU use and the learner's forwarded
+        bytes; reads the card's processes and the children's device files
+        after ``SAMPLER_KILL_AT`` learner steps."""
         usage, probe = {}, None
         while not done.wait(0.25):
             for key, pid in children().items():
                 st = _proc_stat(pid)
                 if st is not None:
                     usage[key + (pid,)] = st
+            if "tier" in seen:
+                seen["fwd"].append((time.time(), seen["tier"].shard_set.forward_bytes_total))
             if probe is None and len(seen["pulls"]) >= SAMPLER_KILL_AT:
                 probe = {"at_learner_steps": len(seen["pulls"]),
                          "compute_apps": _compute_apps(),
                          "child_card_fds": {f"{r}{i}": _card_fds(pid)
                                             for (r, i), pid in children().items()},
                          "children": len(children())}
-                if kill:
-                    probe["t_kill"] = time.time()
-                    probe["delivered"] = seen["tier"].kill_proc(0)
         seen["usage"], seen["probe"] = usage, probe
 
     ActorSupervisor.start, ShardProcTier.start = sup_start, tier_start
     SamplerLearner._pull_phase_batches = pull
     watcher = threading.Thread(target=watch, name="chip-smoke-sampler-watch", daemon=True)
     buf = io.StringIO()
-    seq0 = max((e["seq"] for e in get_flight_recorder().events()), default=-1)
     # The killed leg serves /health, polled every 0.2 s through the kill.
     obs_flags = ("--obs-port", "0", "--obs-host", "127.0.0.1") if kill else ()
     scraper = _Scraper(logdir, ("/health",) if kill else (), 0.2)
-    final = {}
+    final, events = {}, []
+    drills0 = _drill_counts(get_registry())
     try:
         for k in kernels.ALL_KERNELS:
             k.launches = 0
         watcher.start()
         t0, cpu0 = time.perf_counter(), sum(os.times()[:2])
+        t0_wall = time.time()
         with scraper, contextlib.redirect_stdout(buf):
             state = train_main([
                 "--config", "pendulum_r2d2", "--actors", str(FLEET_ACTORS),
                 "--replay-shards", str(SAMPLER_SHARDS),
                 "--phases", str(phases),
-                "--log-every", str(max(phases // 3, 1)),
+                "--log-every", str(max(phases // 6, 1)),
                 "--logdir", logdir, *obs_flags, *flags,
             ])
         torch.cuda.synchronize()
@@ -1904,13 +2064,14 @@ def _sampler_leg(torch, dev, label, flags):
             if os.path.exists(path):
                 with open(path) as f:
                     final[name] = f.read()
+        if spec:
+            events = _merged_events(logdir, t0_wall)
     finally:
         done.set()
         watcher.join()
         ActorSupervisor.start, ShardProcTier.start = plain_sup_start, plain_tier_start
         SamplerLearner._pull_phase_batches = plain_pull
         shutil.rmtree(logdir, ignore_errors=True)
-    events = [e for e in get_flight_recorder().events() if e["seq"] > seq0]
     lines = buf.getvalue().splitlines()
     stats_line = next(x for x in lines if x.startswith("fleet: ") and "wall_s" in x)
     words = stats_line.split()[1:]
@@ -1926,15 +2087,15 @@ def _sampler_leg(torch, dev, label, flags):
     if stats["sheds"] != 0 or stats["evictions"] != 0:
         raise AssertionError(f"{label}: sheds {stats['sheds']}, evictions "
                              f"{stats['evictions']}; expected 0")
-    last = [x for x in lines if x.startswith("phase ")][-1]
+    logged = [x for x in lines if x.startswith("phase ")]
     numbers = []
-    for word in last.split()[3:]:
+    for word in logged[-1].split()[3:]:
         try:
             numbers.append(float(word.strip("()")))
         except ValueError:
             continue
     if not all(math.isfinite(x) for x in numbers):
-        raise AssertionError(f"{label}: non-finite metrics: {last}")
+        raise AssertionError(f"{label}: non-finite metrics: {logged[-1]}")
     gaps = [b[0] - a[0] for a, b in zip(pulls, pulls[1:])]
     rec = {
         "flags": list(flags), "actors": FLEET_ACTORS, "shards": SAMPLER_SHARDS,
@@ -1959,69 +2120,235 @@ def _sampler_leg(torch, dev, label, flags):
         "learner_cpu_s": learner_cpu_s, "stats": stats,
         "scatter_launches": launches["priority_scatter"],
     }
+    if spec:
+        rec["chaos"] = _check_chaos(label, spec, events, lines, _drill_counts(get_registry()),
+                                    drills0)
     if kill:
-        deaths = [e for e in events if e["kind"] == "shard_dead"]
-        rejoins = [e for e in events if e["kind"] == "shard_rejoin"]
-        restarts = [e for e in events if e["kind"] == "shard_restart"]
-        down = [p for p in pulls if not p[2]]
-        rec.update(
-            shard_deaths=[(e["shard"], e["t_wall"]) for e in deaths],
-            shard_rejoins=[(e["shard"], e["epoch"], e["previous_epoch"], e["t_wall"])
-                           for e in rejoins],
-            shard_restarts=stats["shard_restarts"],
-            pulls_while_shard0_down=len(down),
-            shards_drawn_while_down=sorted({s for p in down for s in p[1]}),
-            kill_to_rejoin_s=(rejoins[0]["t_wall"] - probe["t_kill"]
-                              if rejoins and probe else None),
-            kill_to_death_s=(deaths[0]["t_wall"] - probe["t_kill"]
-                             if deaths and probe else None),
-            kill_to_respawn_s=(restarts[0]["t_wall"] - probe["t_kill"]
-                               if restarts and probe else None),
-            phases_after_rejoin=(sum(p[0] > rejoins[0]["t_wall"] for p in pulls)
-                                 if rejoins else 0),
-        )
-        # /health between the kill and the rejoin: shards_down (1 of 2).
-        t_kill = probe["t_kill"] if probe else float("inf")
-        t_rejoin = rejoins[0]["t_wall"] if rejoins else float("inf")
-        polls = [(t, json.loads(body)) for t, _, status, _, body in scraper.samples
-                 if status == 200]
-        down = [(t, f) for t, b in polls if t_kill <= t <= t_rejoin
-                for f in b["findings"] if f["rule"] == "shards_down"]
-        health_final = (json.loads(final["health_final.json"])
-                        if "health_final.json" in final else None)
-        rec.update(
-            health_polls=len(polls),
-            health_verdicts=sorted({b["verdict"] for _, b in polls}),
-            shards_down_seen=[(round(t - t_kill, 3), f["value"], f["threshold"])
-                              for t, f in down],
-            health_final=health_final,
-            final_shard_alive=_metric(final.get("metrics_final.prom", ""),
-                                      "r2d2dpg_shard_alive"),
-        )
+        rec.update(_kill_shard_record(label, events, pulls, stats, scraper, final))
+    if direct:
+        rec.update(_direct_record(label, events, pulls, seen["fwd"], seen["tier"], logged))
     print("sampler stats line:", stats_line, flush=True)
-    print("last log line:", last, flush=True)
+    print("last log line:", logged[-1], flush=True)
     print(json.dumps({label: rec}), flush=True)
     if probe is None or len(probe["compute_apps"]) != 1 or any(
             probe["child_card_fds"].values()):
         raise AssertionError(f"{label}: card processes {probe}")
-    if kill:
-        if not probe.get("delivered"):
-            raise AssertionError(f"{label}: no shard process was killed ({probe})")
-        if ([d[0] for d in rec["shard_deaths"]] != [0] or stats["shard_restarts"] != 1
-                or [(r[0], r[1], r[2]) for r in rec["shard_rejoins"]] != [(0, 2, 1)]):
-            raise AssertionError(f"{label}: expected one shard_dead, one restart and "
-                                 f"one rejoin of shard 0 under epoch 2: {rec}")
-        if not rec["pulls_while_shard0_down"] or rec["shards_drawn_while_down"] != [1]:
-            raise AssertionError(f"{label}: quotas not drawn over the survivor: {rec}")
-        if not any(v == 1.0 and th == 2.0 for _, v, th in rec["shards_down_seen"]):
-            raise AssertionError(f"{label}: /health never read shards_down (1 of 2) "
-                                 f"between the kill and the rejoin: {rec}")
-        final_rules = {f["rule"] for f in (rec["health_final"] or {}).get("findings", ())}
-        if (rec["health_final"] is None or final_rules & {"shards_down", "actors_down"}
-                or rec["final_shard_alive"] != 2.0):
-            raise AssertionError(f"{label}: final evidence {rec['health_final']}, "
-                                 f"r2d2dpg_shard_alive {rec['final_shard_alive']}")
     return {label: launches["priority_scatter"]}
+
+
+def _merged_events(logdir, t0_wall):
+    """The run directory's flight dumps (this process's ring dumped there
+    first) fused by ``python -m r2d2dpg_torch.obs.flight merge``; the
+    events of this run only (the ring also holds earlier legs')."""
+    from r2d2dpg_torch.obs import get_flight_recorder
+
+    get_flight_recorder().dump()
+    out = os.path.join(logdir, "merged.jsonl")
+    subprocess.run([sys.executable, "-m", "r2d2dpg_torch.obs.flight", "merge", logdir,
+                    "-o", out], check=True, capture_output=True, text=True, timeout=300,
+                   cwd=os.path.dirname(os.path.abspath(__file__)))
+    with open(out) as f:
+        events = [json.loads(x) for x in f if x.strip()]
+    return [e for e in events if e.get("t_wall", 0.0) >= t0_wall]
+
+
+def _drill_counts(registry):
+    snap = registry.snapshot().get("r2d2dpg_fleet_chaos_drills_total")
+    return {} if snap is None else {s["labels"]["fault"]: s["value"]
+                                    for s in snap["samples"]}
+
+
+def _after(events, t, kind, who=None, pred=None):
+    """The first ``kind`` event at or after ``t`` (of actor or shard
+    ``who`` when given), or None."""
+    for e in events:
+        if e["kind"] != kind or e["t_wall"] < t:
+            continue
+        if who is not None and str(e.get("actor", e.get("shard"))) != str(who):
+            continue
+        if pred is None or pred(e):
+            return e
+    return None
+
+
+def _check_chaos(label, spec, events, lines, drills, drills0):
+    """Each fault of ``spec`` injected exactly once (one ``chaos_inject``
+    line), counted once by the learner's drill counter when the learner
+    fires it, and no ``chaos_unfired`` event or warning."""
+    from r2d2dpg_torch.fleet.chaos import LEARNER_FAULTS, parse_chaos_spec
+
+    out = {}
+    for f in parse_chaos_spec(spec):
+        inj = [e for e in events if e["kind"] == "chaos_inject" and e["fault"] == f.kind]
+        if len(inj) != 1:
+            raise AssertionError(f"{label}: {f.kind}: {len(inj)} chaos_inject lines, "
+                                 f"expected 1: {inj}")
+        counted = drills.get(f.kind, 0.0) - drills0.get(f.kind, 0.0)
+        if f.kind in LEARNER_FAULTS and counted != 1:
+            raise AssertionError(f"{label}: {f.kind}: drill counter moved by {counted}")
+        out[f.kind] = {"t_wall": inj[0]["t_wall"], "target": inj[0].get("actor"),
+                       "file": inj[0].get("file"), "learner_drill_count": counted}
+    unfired = [e for e in events if e["kind"] == "chaos_unfired"]
+    warned = [x for x in lines if "chaos faults never fired" in x
+              or "left no injection evidence" in x]
+    if unfired or warned:
+        raise AssertionError(f"{label}: unfired faults: {unfired} {warned}")
+    return out
+
+
+def _recovery(label, events, fault, steps):
+    """Seconds from ``fault``'s injection to each recovery event of
+    ``steps`` ((kind, who, pred) in order, each after the one before)."""
+    inj = next(e for e in events if e["kind"] == "chaos_inject" and e["fault"] == fault)
+    t, out = inj["t_wall"], {}
+    for kind, who, pred in steps:
+        hit = _after(events, t, kind, who, pred)
+        if hit is None:
+            raise AssertionError(f"{label}: {fault} at {inj['t_wall']}: no {kind} "
+                                 f"(of {who}) after it")
+        out[f"to_{kind}_s"] = hit["t_wall"] - inj["t_wall"]
+        t = hit["t_wall"]
+    return out
+
+
+def _kill_shard_record(label, events, pulls, stats, scraper, final):
+    """``kill_shard`` on the shard-procs leg: exactly one ``shard_dead``,
+    one restart and one ``shard_rejoin`` under epoch 2 of the killed
+    process's shard, every pull while it is down drawn from the survivor,
+    and /health's ``shards_down`` (1 of 2) in between."""
+    inj = next(e for e in events if e["kind"] == "chaos_inject"
+               and e["fault"] == "kill_shard")
+    victim, t_kill = int(inj["actor"]), inj["t_wall"]  # one shard a process
+    deaths = [e for e in events if e["kind"] == "shard_dead"]
+    rejoins = [e for e in events if e["kind"] == "shard_rejoin"]
+    restarts = [e for e in events if e["kind"] == "shard_restart"]
+    down = [p for p in pulls if p[2] and not p[2][victim]]
+    rec = dict(
+        killed_shard=victim, t_kill=t_kill,
+        recovery=_recovery(label, events, "kill_shard", [
+            ("shard_dead", victim, None), ("shard_crash", None, None),
+            ("shard_restart", None, None), ("shard_rejoin", victim, None)]),
+        shard_deaths=[(e["shard"], e["t_wall"]) for e in deaths],
+        shard_rejoins=[(e["shard"], e["epoch"], e["previous_epoch"], e["t_wall"])
+                       for e in rejoins],
+        shard_restarts=stats["shard_restarts"],
+        pulls_while_victim_down=len(down),
+        shards_drawn_while_down=sorted({s for p in down for s in p[1]}),
+        kill_to_rejoin_s=rejoins[0]["t_wall"] - t_kill if rejoins else None,
+        kill_to_death_s=deaths[0]["t_wall"] - t_kill if deaths else None,
+        kill_to_respawn_s=restarts[0]["t_wall"] - t_kill if restarts else None,
+        phases_after_rejoin=(sum(p[0] > rejoins[0]["t_wall"] for p in pulls)
+                             if rejoins else 0),
+    )
+    # /health between the kill and the rejoin: shards_down (1 of 2).
+    t_rejoin = rejoins[0]["t_wall"] if rejoins else float("inf")
+    polls = [(t, json.loads(body)) for t, _, status, _, body in scraper.samples
+             if status == 200]
+    seen = [(t, f) for t, b in polls if t_kill <= t <= t_rejoin
+            for f in b["findings"] if f["rule"] == "shards_down"]
+    health_final = (json.loads(final["health_final.json"])
+                    if "health_final.json" in final else None)
+    rec.update(
+        health_polls=len(polls),
+        health_verdicts=sorted({b["verdict"] for _, b in polls}),
+        shards_down_seen=[(round(t - t_kill, 3), f["value"], f["threshold"])
+                          for t, f in seen],
+        health_final=health_final,
+        final_shard_alive=_metric(final.get("metrics_final.prom", ""),
+                                  "r2d2dpg_shard_alive"),
+    )
+    survivor = 1 - victim
+    if ([d[0] for d in rec["shard_deaths"]] != [victim] or stats["shard_restarts"] != 1
+            or [(r[0], r[1], r[2]) for r in rec["shard_rejoins"]] != [(victim, 2, 1)]):
+        raise AssertionError(f"{label}: expected one shard_dead, one restart and "
+                             f"one rejoin of shard {victim} under epoch 2: {rec}")
+    if not rec["pulls_while_victim_down"] or rec["shards_drawn_while_down"] != [survivor]:
+        raise AssertionError(f"{label}: quotas not drawn over the survivor: {rec}")
+    if not any(v == 1.0 and th == 2.0 for _, v, th in rec["shards_down_seen"]):
+        raise AssertionError(f"{label}: /health never read shards_down (1 of 2) "
+                             f"between the kill and the rejoin: {rec}")
+    final_rules = {f["rule"] for f in (rec["health_final"] or {}).get("findings", ())}
+    if (rec["health_final"] is None or final_rules & {"shards_down", "actors_down"}
+            or rec["final_shard_alive"] != 2.0):
+        raise AssertionError(f"{label}: final evidence {rec['health_final']}, "
+                             f"r2d2dpg_shard_alive {rec['final_shard_alive']}")
+    return rec
+
+
+def _env_steps(logged):
+    return [float(x.split()[x.split().index("env_steps") + 1]) for x in logged]
+
+
+def _direct_record(label, events, pulls, fwd, tier, logged):
+    """The direct data plane under its faults: every actor dials its
+    shard; the learner forwards 0 bytes until the partition; the partition
+    falls back loudly and re-dials with the control connection whole;
+    ``partition_shard`` reconnects under the same epoch; the stalls cost
+    no shed and no reap; ``kill_sampler_conn``'s actor reconnects; env
+    steps never go down."""
+    dials = [e for e in events if e["kind"] == "data_plane_dialed"]
+    first_dial = {}
+    for e in dials:
+        first_dial.setdefault(int(e["actor"]), e["t_wall"])
+    part = next(e for e in events if e.get("fault") == "partition_data_plane"
+                and e["kind"] == "chaos_inject")
+    victim, t_part = int(part["actor"]), part["t_wall"]
+    up = [(t, b) for t, b in fwd if max(first_dial.values(), default=t_part) <= t < t_part]
+    fallback = _after(events, t_part, "data_plane_fallback", victim)
+    redial = fallback and _after(events, fallback["t_wall"], "data_plane_dialed", victim)
+    torn = fallback and redial and [
+        e for e in events if e["kind"] == "actor_reconnect_wait"
+        and str(e.get("actor")) == str(victim)
+        and fallback["t_wall"] <= e["t_wall"] <= redial["t_wall"]]
+    pshard = next(e for e in events if e.get("fault") == "partition_shard"
+                  and e["kind"] == "chaos_inject")
+    ps, t_ps = int(pshard["actor"]), pshard["t_wall"]
+    restarted = [e for e in events if e["kind"] in (
+        "shard_dead", "shard_rejoin", "shard_restart", "shard_crash")]
+    reaped = [e for e in events if e["kind"] in ("peer_dead", "shard_peer_dead")]
+    steps = _env_steps(logged)
+    rec = {"direct": {
+        "dialed_actors": sorted(first_dial),
+        "data_plane_dials": len(dials),
+        "forward_bytes_samples_while_up": len(up),
+        "forward_bytes_while_up": max((b for _, b in up), default=None),
+        "forward_bytes_final": fwd[-1][1] if fwd else None,
+        "partitioned_actor": victim,
+        "partition": _recovery(label, events, "partition_data_plane", [
+            ("data_plane_fallback", victim, None), ("data_plane_dialed", victim, None)]),
+        "control_torn_between_fallback_and_redial": torn,
+        "partitioned_shard": ps,
+        "pulls_from_partitioned_shard_after": sum(
+            1 for t, drawn, _ in pulls if t > t_ps and ps in drawn),
+        "shard_epochs": [s.epoch for s in tier.shard_set.shards],
+        "restart_events": restarted, "reap_events": reaped,
+        "kill_sampler_conn": _recovery(label, events, "kill_sampler_conn", [
+            ("actor_reconnect", next(
+                e["dropped"] for e in events if e.get("fault") == "kill_sampler_conn"),
+             None)]),
+        "env_steps_logged": steps,
+    }}
+    d = rec["direct"]
+    if d["dialed_actors"] != list(range(FLEET_ACTORS)):
+        raise AssertionError(f"{label}: data_plane_dialed for {d['dialed_actors']}")
+    if not up or d["forward_bytes_while_up"] != 0:
+        raise AssertionError(f"{label}: the learner forwarded bytes while every data "
+                             f"leg was up, or no sample there: {up[:5]}")
+    if not d["forward_bytes_final"]:
+        raise AssertionError(f"{label}: the partitioned batch was not forwarded")
+    if torn:
+        raise AssertionError(f"{label}: the control connection tore across the "
+                             f"fallback (accounting at risk): {torn}")
+    if restarted or d["shard_epochs"] != [1] * SAMPLER_SHARDS:
+        raise AssertionError(f"{label}: partition_shard was not survived under the "
+                             f"same epoch: {restarted} epochs {d['shard_epochs']}")
+    if not d["pulls_from_partitioned_shard_after"]:
+        raise AssertionError(f"{label}: no pull from shard {ps} after the partition")
+    if reaped:
+        raise AssertionError(f"{label}: reaps under the stalls: {reaped}")
+    if steps != sorted(steps) or not steps or steps[-1] <= 0:
+        raise AssertionError(f"{label}: env steps went down: {steps}")
+    return rec
 
 
 def _sampler_card_vs_cpu(torch, dev, n_batches=64, phases=3):
@@ -2140,10 +2467,17 @@ def _sampler_card_vs_cpu(torch, dev, n_batches=64, phases=3):
 
 def _sampler_phase(torch, dev):
     """In-network sampling: the loopback leg, the standalone-tier leg with
-    one shard process killed, then the pull-learn step card vs CPU."""
+    one shard process killed by ``kill_shard``, the direct data plane under
+    its chaos drills, then the pull-learn step card vs CPU."""
     launches = _sampler_leg(torch, dev, "sampler_loopback", ())
-    launches.update(_sampler_leg(torch, dev, "sampler_shard_procs",
-                                 ("--shard-procs", str(SAMPLER_SHARDS))))
+    launches.update(_sampler_leg(
+        torch, dev, "sampler_shard_procs",
+        ("--shard-procs", str(SAMPLER_SHARDS), "--chaos-spec", SAMPLER_KILL_SPEC),
+        SAMPLER_PROCS_TRAIN_PHASES))
+    launches.update(_sampler_leg(
+        torch, dev, "direct_chaos",
+        ("--shard-procs", str(SAMPLER_SHARDS), "--shard-direct", "1",
+         "--chaos-spec", DIRECT_CHAOS_SPEC), DIRECT_CHAOS_PHASES))
     _sampler_card_vs_cpu(torch, dev)
     return launches
 

@@ -23,11 +23,13 @@ untouched phase-locked schedule.
   batches through SAMPLE_REQ/BATCH frames and writes PRIO back.
 - ``shard``      -- the standalone shard tier (``--shard-procs N``): shard
   processes, ``RemoteShardSet`` (reroute, renormalization, epoch-fenced
-  rejoin) and ``ShardProcTier`` (``python -m r2d2dpg_torch.fleet.shard``).
+  rejoin) and ``ShardProcTier`` (``python -m r2d2dpg_torch.fleet.shard``);
+  with ``--shard-direct`` the actors dial their shard themselves.
+- ``chaos``      -- seeded fault drills at the fleet's real boundaries
+  (SIGKILL, stall, byte flip, socket close, partition), ``--chaos-spec``.
 
-Not ported yet (ROADMAP.md): the direct actor-to-shard data plane
-(``--shard-direct``), chaos drills, the autoscaler with the rest of the
-supervisor's resize API, and the fleet telemetry (TELEM) plane.
+Not ported yet (ROADMAP.md): the fleet telemetry (TELEM) plane and the
+autoscaler with the rest of the supervisor's resize API.
 """
 
 from r2d2dpg_torch.fleet.actor import (
@@ -37,6 +39,7 @@ from r2d2dpg_torch.fleet.actor import (
     build_actor_trainer,
     structural_argv,
 )
+from r2d2dpg_torch.fleet.chaos import ChaosEngine, Fault, parse_chaos_spec
 from r2d2dpg_torch.fleet.ingest import (
     FleetConfig,
     FleetLearner,
@@ -65,6 +68,8 @@ from r2d2dpg_torch.fleet.wire import WireConfig
 
 __all__ = [
     "ActorSupervisor",
+    "ChaosEngine",
+    "Fault",
     "FleetActor",
     "FleetActorTrainer",
     "FleetConfig",
@@ -83,6 +88,7 @@ __all__ = [
     "build_actor_trainer",
     "default_actor_argv",
     "load_fleet_counters",
+    "parse_chaos_spec",
     "prune_fleet_counters",
     "put_host",
     "put_staged",

@@ -27,11 +27,15 @@ passes ``--device cpu`` and hides the card from the child, so no actor
 opens a CUDA context on the learner's card.  Frames leave as numpy: one
 batched device-to-host copy per phase (``transport.to_host``).
 
-Under ``--replay-shards`` the actor is unchanged: the learner's ingest
-server routes its SEQS batches into replay shards and always acks ``OK``.
-Not ported: the direct shard data plane (``--shard-direct``), TELEM pushes
-(``--telem-every``) and chaos drills (``--chaos-spec``); the parser refuses
-those flags.
+Under ``--replay-shards`` the learner's ingest server routes the actor's
+SEQS batches into replay shards and always acks ``OK``.  With
+``--shard-direct 1`` the actor dials the shard the learner advertises on
+its acks and ships SEQS there itself; the control connection then carries
+one small K_STATS frame of accounting per phase, and any failure of the
+data leg falls back loudly to the learner-forwarded path.  ``--chaos-spec``
+arms the actor-side drills that target this actor (``fleet/chaos.py``:
+``stall_actor``, ``corrupt_frame``, ``partition_data_plane``).  Not ported:
+TELEM pushes (``--telem-every``); the parser refuses that flag.
 
 CLI (spawned by the supervisor; runnable by hand for debugging)::
 
@@ -45,6 +49,7 @@ import argparse
 import dataclasses
 import os
 import signal
+import socket
 import sys
 import threading
 import time
@@ -55,6 +60,7 @@ import torch
 
 from r2d2dpg_torch.configs import CONFIGS, ExperimentConfig, get_config
 from r2d2dpg_torch.device import resolve_device
+from r2d2dpg_torch.fleet import chaos as fleet_chaos
 from r2d2dpg_torch.fleet import wire
 from r2d2dpg_torch.fleet.transport import (
     HEADER_BYTES,
@@ -63,6 +69,7 @@ from r2d2dpg_torch.fleet.transport import (
     K_HELLO,
     K_PARAMS,
     K_SEQS,
+    K_STATS,
     MAX_FRAME_BYTES,
     READ_DEADLINE_S,
     WARMUP_DEADLINE_S,
@@ -71,6 +78,7 @@ from r2d2dpg_torch.fleet.transport import (
     connect,
     hello_auth_proof,
     pack_hello,
+    pack_obj,
     recv_frame_heartbeat,
     send_frame,
     send_frame_parts,
@@ -88,6 +96,7 @@ from r2d2dpg_torch.training.trainer import Trainer, TrainerConfig
 from r2d2dpg_torch.utils.codes import (
     EXIT_AUTH_REFUSED,
     EXIT_WIRE_REFUSED,
+    OK,
     REFUSED_AUTH,
     REFUSED_WIRE,
     SHED_INGEST,
@@ -182,6 +191,8 @@ class FleetActor:
         trace_sample: float = 0.0,
         read_deadline_s: float = READ_DEADLINE_S,
         auth_token: Optional[str] = None,
+        shard_direct: bool = False,
+        chaos_spec: Optional[str] = None,
         device=None,
     ):
         self.actor_id = actor_id
@@ -211,6 +222,7 @@ class FleetActor:
         self._param_version = 0
         self._sheds = 0
         self._phase = 0
+        self._batches = 0  # emitted (post-warm-up) batches: the chaos clock
         # Orderly drain (SIGUSR1 or request_drain): the session loop exits
         # after the current phase's ack lands, then sends BYE.
         self._drain = threading.Event()
@@ -221,6 +233,25 @@ class FleetActor:
         self._pending_stats = {
             "env_steps_delta": 0.0, "ep_return_sum": 0.0, "ep_count": 0.0,
         }
+        # Direct data plane: the leg to the advertised shard (None = ship
+        # on the control connection).  _pending_stats is cleared only on a
+        # control ack, so the accounting does not depend on the plane.
+        self.shard_direct = bool(shard_direct)
+        self._assignment: Optional[dict] = None  # last dialed advert
+        self._failed_assignment: Optional[dict] = None  # not re-dialed
+        self._data_sock = None
+        self._data_packer: Optional[wire.TreePacker] = None
+        self._data_epoch = -1  # epoch the dialed advert carried
+        # The forwarded --chaos-spec's actor-side drills that target this
+        # actor; ``seed`` is the value the learner's engine hashes too.
+        self.chaos: Optional[fleet_chaos.ActorChaos] = None
+        if chaos_spec:
+            self.chaos = fleet_chaos.ActorChaos(
+                fleet_chaos.parse_chaos_spec(chaos_spec),
+                seed=seed,
+                num_actors=num_actors,
+                actor_id=actor_id,
+            )
         self._local_priorities = (
             t.config.prioritized and t.config.initial_priority == "td"
         )
@@ -246,6 +277,23 @@ class FleetActor:
             "r2d2dpg_actor_reconnects_total",
             "successful in-process reconnects after a torn connection "
             "(fresh socket + HELLO + param snapshot, same incarnation)",
+        )
+        # The data leg's bytes land here and only here, never in the
+        # actor totals above, so control and data traffic stay separable.
+        self._obs_data_out = reg.counter(
+            "r2d2dpg_fleet_data_bytes_out_total",
+            "bytes sent on the direct actor->shard data plane",
+            labelnames=("plane",),
+        ).labels(plane="data")
+        self._obs_data_in = reg.counter(
+            "r2d2dpg_fleet_data_bytes_in_total",
+            "bytes received on the direct actor->shard data plane",
+            labelnames=("plane",),
+        ).labels(plane="data")
+        self._obs_fallback = reg.counter(
+            "r2d2dpg_actor_data_fallback_total",
+            "direct data-plane failures that fell back to the "
+            "learner-forwarded path (dial refused, torn leg, partition)",
         )
         self._session_delivered = False
 
@@ -426,34 +474,74 @@ class FleetActor:
             if reconnected:
                 flight_event("actor_reconnect", phase=self._phase)
                 self._obs_reconnects.inc()
+            # The HELLO ack may carry the shard advert: dial before the
+            # first phase so batch one already skips the forward hop.
+            self._maybe_update_assignment(hello_ack)
             while (
                 max_phases is None or self._phase < max_phases
             ) and not self._drain.is_set():
+                if self.chaos is not None:
+                    # stall_actor: stop reading and sending, so the ingest
+                    # handler's heartbeat reaps this connection.
+                    self.chaos.maybe_stall(self._batches + 1)
+                    if self.chaos.partition_data_plane(self._batches + 1):
+                        self._partition_data_plane()
                 # Trace sampling decided at collection time: rate 0 adds
                 # nothing, and the frame is byte-identical to an untraced one.
                 tr = obs_trace.maybe_start(self.trace_sample)
                 staged_host = self.host_batch()
                 if staged_host is None:
                     continue
+                self._batches += 1
                 if tr is not None:
                     tr.t_collect_end = time.time()
-                parts = packer.pack(
-                    {
-                        "phase": self._phase,
-                        "param_version": self._param_version,
-                        **self._pending_stats,
-                        "staged": staged_host,
-                    },
-                    trace=tr,
-                )
-                self._obs_bytes_out.inc(
-                    send_frame_parts(
-                        sock,
-                        K_SEQS,
-                        parts,
-                        max_frame_bytes=self.max_frame_bytes,
+                if self._data_sock is not None and self._send_direct(
+                    staged_host
+                ):
+                    # The shard owns the experience; the accounting rides
+                    # a K_STATS frame, acked like SEQS.
+                    self._obs_bytes_out.inc(
+                        send_frame(
+                            sock,
+                            K_STATS,
+                            pack_obj(  # wire-lint: control
+                                {
+                                    "phase": self._phase,
+                                    "param_version": self._param_version,
+                                    **self._pending_stats,
+                                }
+                            ),
+                            max_frame_bytes=self.max_frame_bytes,
+                        )
                     )
-                )
+                else:
+                    # The learner-forwarded path (and the fallback: a batch
+                    # whose direct push failed goes here, nothing dropped).
+                    parts = packer.pack(
+                        {
+                            "phase": self._phase,
+                            "param_version": self._param_version,
+                            **self._pending_stats,
+                            "staged": staged_host,
+                        },
+                        trace=tr,
+                    )
+                    if self.chaos is not None and (
+                        self.chaos.corrupt_next_frame(self._batches)
+                    ):
+                        # Pristine CRC over one flipped byte: the server
+                        # must reject the frame and close the connection.
+                        sent = fleet_chaos.send_corrupt_frame(
+                            sock, K_SEQS, parts
+                        )
+                    else:
+                        sent = send_frame_parts(
+                            sock,
+                            K_SEQS,
+                            parts,
+                            max_frame_bytes=self.max_frame_bytes,
+                        )
+                    self._obs_bytes_out.inc(sent)
                 ack = self._await_ack(sock)
                 # Acked (OK or shed): the server owns the accounting now.
                 for k in self._pending_stats:
@@ -465,15 +553,176 @@ class FleetActor:
                 if ack["code"] == SHED_INGEST:
                     self._sheds += 1
                     self._obs_shed.inc()
+                # Any control ack may carry a new advert (a shard that
+                # rejoined under a bumped epoch); an unchanged one on a
+                # live leg is a no-op.
+                self._maybe_update_assignment(ack)
             try:
                 send_frame(sock, K_BYE, b"")  # wire-lint: control
             except OSError:
                 pass
         finally:
+            # The data leg lives and dies with the control session: a
+            # reconnect re-dials from the fresh HELLO ack's advert.
+            self._drop_data_plane(reason=None)
             try:
                 sock.close()
             except OSError:
                 pass
+
+    # ------------------------------------------------- direct data plane
+    def _maybe_update_assignment(self, ack: Any) -> None:
+        """Track the learner's shard advert and (re)dial when it changes.
+
+        Adverts ride control acks, so this runs at most once a phase.  An
+        advert equal to the last FAILED one is skipped (no hammering a
+        refusing shard); a rejoined shard is re-advertised under a bumped
+        epoch, which unsticks it."""
+        if not self.shard_direct or not isinstance(ack, dict):
+            return
+        advert = ack.get("shard_assignment")
+        if not isinstance(advert, dict) or advert == self._failed_assignment:
+            return
+        if (
+            self._data_sock is not None
+            and self._assignment is not None
+            and advert.get("address") == self._assignment.get("address")
+            and int(advert.get("epoch", -1)) == self._data_epoch
+        ):
+            return  # same shard incarnation, leg already live
+        self._dial_data_plane(advert)
+
+    def _dial_data_plane(self, advert: dict) -> bool:
+        """Connect to the advertised shard, send a ``plane="data"`` HELLO
+        (the control HELLO's token) and wait for its OK.  A refusal or a
+        dead address is loud but not fatal: the forwarded path goes on."""
+        address = str(advert.get("address") or "")
+        if not address:
+            return False
+        self._drop_data_plane(reason=None)  # replace any previous leg
+        sock = None
+        try:
+            sock = connect(address, read_deadline_s=self.read_deadline_s)
+            hello = {
+                "actor_id": self.actor_id,
+                "plane": "data",
+                **wire.negotiation_fields(self.wire_config),
+            }
+            if self.auth_token is not None:
+                hello["auth"] = hello_auth_proof(self.auth_token)
+            self._obs_data_out.inc(
+                send_frame(
+                    sock,
+                    K_HELLO,
+                    pack_hello(hello),
+                    max_frame_bytes=self.max_frame_bytes,
+                )
+            )
+            hello_ack = self._await_data_ack(sock)
+            if hello_ack.get("code") != OK:
+                raise FrameError(
+                    f"shard refused data-plane HELLO: "
+                    f"code={hello_ack.get('code')} "
+                    f"reason={hello_ack.get('reason')}"
+                )
+        except (FrameError, OSError) as e:
+            if sock is not None:
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+            self._failed_assignment = dict(advert)
+            self._obs_fallback.inc()
+            flight_event(
+                "data_plane_dial_failed",
+                phase=self._phase,
+                shard=advert.get("shard"),
+                address=address,
+                error=f"{type(e).__name__}: {e}",
+            )
+            return False
+        self._data_sock = sock
+        # Fresh packer per leg: its first SEQS frame re-inlines the schema.
+        self._data_packer = wire.TreePacker(
+            self.wire_config, max_frame_bytes=self.max_frame_bytes
+        )
+        self._data_epoch = int(advert.get("epoch", -1))
+        self._assignment = dict(advert)
+        self._failed_assignment = None
+        flight_event(
+            "data_plane_dialed",
+            phase=self._phase,
+            shard=advert.get("shard"),
+            address=address,
+            epoch=self._data_epoch,
+        )
+        return True
+
+    def _send_direct(self, staged: StagedSequences) -> bool:
+        """Ship one batch straight to the shard; True once its ack lands.
+        Any failure tears the leg down loudly and returns False, and the
+        caller sends the SAME batch on the control connection."""
+        try:
+            parts = self._data_packer.pack({"staged": staged})
+            self._obs_data_out.inc(
+                send_frame_parts(
+                    self._data_sock,
+                    K_SEQS,
+                    parts,
+                    max_frame_bytes=self.max_frame_bytes,
+                )
+            )
+            ack = self._await_data_ack(self._data_sock)
+            if ack.get("code") != OK:
+                raise FrameError(
+                    f"shard data-plane ack code {ack.get('code')}"
+                )
+            return True
+        except (FrameError, OSError) as e:
+            self._drop_data_plane(reason=f"{type(e).__name__}: {e}")
+            return False
+
+    def _await_data_ack(self, sock) -> Any:
+        """Read to the shard's next ACK on the data leg."""
+        while True:
+            kind, payload = recv_frame_heartbeat(
+                sock,
+                max_frame_bytes=self.max_frame_bytes,
+                bytes_in=self._obs_data_in.inc,
+                bytes_out=self._obs_data_out.inc,
+            )
+            self._obs_data_in.inc(HEADER_BYTES + len(payload))
+            if kind == K_ACK:
+                return unpack_obj(payload)  # wire-lint: control
+            raise FrameError(f"unexpected data-plane frame kind {kind}")
+
+    def _drop_data_plane(self, reason: Optional[str]) -> None:
+        """Tear the data leg down.  A reason means a failure (the
+        ``data_plane_fallback`` event and the fallback counter); None is
+        lifecycle (session end, a re-dial replacing the leg)."""
+        sock, self._data_sock = self._data_sock, None
+        self._data_packer = None
+        self._assignment = None
+        self._data_epoch = -1
+        if sock is not None:
+            try:
+                sock.close()
+            except OSError:
+                pass
+        if reason is not None:
+            self._obs_fallback.inc()
+            flight_event("data_plane_fallback", phase=self._phase, error=reason)
+
+    def _partition_data_plane(self) -> None:
+        """``partition_data_plane``: shut the leg down both ways but keep
+        the reference, so the next direct send fails mid-send as under a
+        real partition, not at dial time."""
+        if self._data_sock is None:
+            return
+        try:
+            self._data_sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
 
     def _await_ack(self, sock) -> Any:
         """Read to the next ACK, applying any PARAMS pushed ahead of it
@@ -574,6 +823,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="shared HELLO-authentication secret; defaults to "
                    "$R2D2DPG_FLEET_TOKEN (the spawner passes the secret "
                    "via the environment so it never shows in ps)")
+    p.add_argument("--shard-direct", type=int, default=0, choices=[0, 1],
+                   help="1: dial the learner-advertised replay shard and "
+                   "ship SEQS to it directly (the control connection "
+                   "carries params and accounting only); falls back "
+                   "loudly to the learner-forwarded path on any data-leg "
+                   "failure")
+    p.add_argument("--chaos-spec", default=None,
+                   help="seeded chaos schedule (fleet/chaos.py grammar); "
+                   "this actor fires the actor-side faults that target "
+                   "its id (the learner's engine fires the rest)")
     return p.parse_args(argv)
 
 
@@ -631,19 +890,25 @@ def main(argv=None) -> None:
     auth_token = args.fleet_token
     if auth_token is None:
         auth_token = os.environ.get("R2D2DPG_FLEET_TOKEN") or None
-    actor = FleetActor(
-        exp,
-        actor_id=args.actor_id,
-        num_actors=args.num_actors,
-        address=args.connect,
-        seed=args.seed,
-        wire_config=wire_config,
-        max_frame_bytes=args.max_frame_bytes,
-        trace_sample=args.trace_sample,
-        read_deadline_s=args.read_deadline,
-        auth_token=auth_token,
-        device=args.device,
-    )
+    try:
+        actor = FleetActor(
+            exp,
+            actor_id=args.actor_id,
+            num_actors=args.num_actors,
+            address=args.connect,
+            seed=args.seed,
+            wire_config=wire_config,
+            max_frame_bytes=args.max_frame_bytes,
+            trace_sample=args.trace_sample,
+            read_deadline_s=args.read_deadline,
+            auth_token=auth_token,
+            shard_direct=bool(args.shard_direct),
+            chaos_spec=args.chaos_spec,
+            device=args.device,
+        )
+    except ValueError as e:
+        # A malformed --chaos-spec: refused at startup, not crash-looped.
+        raise SystemExit(f"fleet actor {args.actor_id}: {e}")
     # SIGUSR1 asks for an orderly drain: finish the phase, BYE, exit 0.
     signal.signal(signal.SIGUSR1, lambda *_: actor.request_drain())
     flight_event("actor_start", phase=0, address=args.connect)

@@ -49,11 +49,15 @@ What the card needs (handler threads make no CUDA call at all):
   agent module (``functional_call`` swaps a module's parameters for the
   length of a call); only the learner's thread runs the nets.
 
-Not ported: the direct data plane's shard assignment adverts and K_STATS
-frames, the remote registry mirror and TELEM folding, the per-width MFU
-accounting, and the JAX learner's background compile of the coalesce
-widths (eager torch has no compile to hide: the pull limit is
-``drain_coalesce`` from the first drain).
+Direct data plane (``--shard-direct``): given ``shard_assignment_fn``,
+every ack carries the actor's shard advert ``{shard, address, epoch}``;
+the actor then ships SEQS to its shard and sends only a K_STATS frame of
+accounting here, banked through ``shards.bank_stats`` and acked like SEQS.
+
+Not ported: folding the actors' TELEM pushes into the registry mirror
+(``--obs-fleet``).  Unlike the JAX learner, nothing compiles the coalesce
+widths in the background (eager torch has no compile to hide: the pull
+limit is ``drain_coalesce`` from the first drain).
 """
 
 from __future__ import annotations
@@ -79,10 +83,12 @@ from r2d2dpg_torch.fleet.transport import (
     K_HELLO,
     K_PARAMS,
     K_SEQS,
+    K_STATS,
     FrameError,
     PeerDeadError,
     pack_obj,
     recv_frame,
+    unpack_obj,
     recv_frame_heartbeat,
     flatten_tree,
     send_frame,
@@ -141,6 +147,10 @@ class FleetConfig:
     # phase of batch prefetch on the standalone tier (0 = off).
     shard_pullers: int = 0
     shard_prefetch: int = 0
+    # Split planes: actors dial their shard directly for SEQS and keep this
+    # connection for HELLO, params and accounting.  Needs the standalone
+    # shard tier; any data-leg failure falls back loudly to forwarding.
+    shard_direct: bool = False
 
 
 class IngestServer:
@@ -158,12 +168,16 @@ class IngestServer:
         auth_token: Optional[str] = None,
         shards=None,
         expected_actors: Optional[int] = None,
+        shard_assignment_fn: Optional[Callable[[str], Any]] = None,
     ):
         self.queue = staging_queue
         # The sampler path: ``route(actor)`` and ``add(shard_id, msg)``
         # (``ShardSet`` or ``RemoteShardSet``) take every SEQS batch in
         # place of the staging queue.
         self.shards = shards
+        # The direct data plane: ``actor -> {"shard", "address", "epoch"}``
+        # or None (keep forwarding through this server).
+        self.shard_assignment_fn = shard_assignment_fn
         self._request_address = address
         self.shed_after_s = shed_after_s
         self.startup_shed_grace_s = startup_shed_grace_s
@@ -465,6 +479,41 @@ class IngestServer:
             return version
         return sent_version
 
+    def _assignment(self, actor: str, wait_s: float = 0.0):
+        """The actor's shard advert, or None.  An assignment function that
+        raises never costs the control connection.  ``wait_s`` bounds the
+        HELLO-time poll for the tier's address file, so the first staged
+        batch already rides the data plane; steady acks pass 0."""
+        if self.shard_assignment_fn is None:
+            return None
+        deadline = time.monotonic() + wait_s
+        while True:
+            try:
+                assignment = self.shard_assignment_fn(actor)
+            except Exception as e:  # noqa: BLE001 - advisory, never fatal
+                flight_event(
+                    "assignment_error",
+                    actor=actor,
+                    error=f"{type(e).__name__}: {e}",
+                )
+                return None
+            if assignment is not None or time.monotonic() >= deadline:
+                return assignment
+            if self._stop.is_set():
+                return None
+            time.sleep(0.1)
+
+    def _send_ack(self, conn, bytes_out, actor: str, ack: dict,
+                  wait_s: float = 0.0) -> None:
+        """One ACK on the control connection, with the shard advert when
+        there is one."""
+        assignment = self._assignment(actor, wait_s)
+        if assignment is not None:
+            ack["shard_assignment"] = assignment
+        bytes_out.inc(
+            send_frame(conn, K_ACK, pack_obj(ack))  # wire-lint: control
+        )
+
     def _put_or_shed(self, msg) -> bool:
         """Bounded-wait enqueue: True = queued, False = shed.
 
@@ -552,14 +601,11 @@ class IngestServer:
                 )
                 return
             sent_version = self._push_params_if_stale(conn, 0, bytes_out)
-            bytes_out.inc(
-                send_frame(
-                    conn,
-                    K_ACK,
-                    pack_obj(  # wire-lint: control
-                        {"code": OK, "param_version": sent_version}
-                    ),
-                )
+            # A fresh tier publishes its address file a beat after the
+            # first HELLOs: wait for it, so no warm-up batch is forwarded.
+            self._send_ack(
+                conn, bytes_out, actor,
+                {"code": OK, "param_version": sent_version}, wait_s=10.0,
             )
             streaming = False  # the first SEQS tightens the read deadline
             while not self._stop.is_set():
@@ -572,6 +618,28 @@ class IngestServer:
                 bytes_in.inc(HEADER_BYTES + len(payload))
                 if kind == K_BYE:
                     return
+                if kind == K_STATS:
+                    # The batch went straight to the actor's shard; this
+                    # frame carries only the accounting deltas, banked
+                    # into the sums the forwarded ``add`` banks.
+                    if not streaming:
+                        conn.settimeout(self.read_deadline_s)
+                        streaming = True
+                    stats_msg = unpack_obj(payload)  # wire-lint: control
+                    if self.shards is not None:
+                        self.shards.bank_stats(stats_msg)
+                    self._obs_staleness.labels(actor=actor).set(
+                        self._param_version
+                        - int(stats_msg.get("param_version", 0))
+                    )
+                    sent_version = self._push_params_if_stale(
+                        conn, sent_version, bytes_out
+                    )
+                    self._send_ack(
+                        conn, bytes_out, actor,
+                        {"code": OK, "param_version": sent_version},
+                    )
+                    continue
                 if kind != K_SEQS:
                     raise FrameError(f"expected SEQS/BYE, got kind {kind}")
                 if not streaming:
@@ -644,14 +712,9 @@ class IngestServer:
                 sent_version = self._push_params_if_stale(
                     conn, sent_version, bytes_out
                 )
-                bytes_out.inc(
-                    send_frame(
-                        conn,
-                        K_ACK,
-                        pack_obj(  # wire-lint: control
-                            {"code": code, "param_version": sent_version}
-                        ),
-                    )
+                self._send_ack(
+                    conn, bytes_out, actor,
+                    {"code": code, "param_version": sent_version},
                 )
         except PeerDeadError as e:
             if not self._stop.is_set():
@@ -907,6 +970,7 @@ class FleetLearner:
         checkpoint_every: int = 0,
         resume_from: Optional[Dict[str, float]] = None,
         health_fn: Optional[Callable[[], None]] = None,
+        phase_fn: Optional[Callable[[int], None]] = None,
     ) -> TrainerState:
         """Absorb staged batches until ``min_replay`` sequences are
         resident, then run ``num_train_phases`` drain-learn phases (one
@@ -920,7 +984,9 @@ class FleetLearner:
         ``num_train_phases`` stays the TOTAL across incarnations.
         ``health_fn()`` runs whenever the queue wait times out and may
         raise to abort the run (the train CLI checks that the supervisor
-        has not given actors up)."""
+        has not given actors up).  ``phase_fn(drained)`` runs after each
+        drain-learn phase with the 1-based count (the chaos engine fires
+        its learner-side faults there)."""
         if self.server.address is None:
             raise RuntimeError("call start() before run()")
         t = self.trainer
@@ -1091,6 +1157,8 @@ class FleetLearner:
                     # Startup is over: handlers shed on the real bound now.
                     self.server.mark_steady()
                     mon.mark_steady()
+                if phase_fn is not None:
+                    phase_fn(drained)
                 if (
                     ckpt is not None
                     and checkpoint_every > 0

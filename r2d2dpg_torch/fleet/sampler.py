@@ -315,6 +315,9 @@ class SamplerLearner:
         # The ingest server routes SEQS straight into the shards; the
         # staging queue exists only structurally (nothing enqueues).
         self.queue: "queue.Queue" = queue.Queue(maxsize=config.queue_depth)
+        # The direct data plane needs dialable shards: in-learner shards
+        # have no address, so their actors keep forwarding.
+        self._direct = bool(config.shard_direct) and self._remote
         self.server = IngestServer(
             self.queue,
             address=config.address,
@@ -324,6 +327,8 @@ class SamplerLearner:
             auth_token=config.auth_token,
             shards=self.shards,
             expected_actors=config.num_actors,
+            shard_assignment_fn=(
+                self.shards.assignment_for if self._direct else None),
         )
         # Loopback codecs, one packer/unpacker pair per direction (the
         # sampler loop is their only caller).
@@ -721,6 +726,7 @@ class SamplerLearner:
         checkpoint_every: int = 0,
         resume_from: Optional[Dict[str, float]] = None,
         health_fn: Optional[Callable[[], None]] = None,
+        phase_fn: Optional[Callable[[int], None]] = None,
         trace_sample: float = 0.0,
     ) -> TrainerState:
         """Wait for ``min_replay`` resident sequences across the shards,
@@ -729,7 +735,8 @@ class SamplerLearner:
         resume and counter contract is ``FleetLearner.run``'s; the shards
         are never checkpointed (a resumed learner refills them from live
         actors).  ``health_fn()`` runs while the absorb waits and may
-        raise to abort the run."""
+        raise to abort the run; ``phase_fn(drained)`` runs after each
+        pull-learn phase with the 1-based count (the chaos engine)."""
         if self.server.address is None:
             raise RuntimeError("call start() before run()")
         t = self.trainer
@@ -782,9 +789,15 @@ class SamplerLearner:
             last_growth = time.monotonic()
             last_occ = -1
             t_wait = time.monotonic()
+            last_poke = 0.0
             while self.shards.occupancy_total() < cfg.min_replay:
                 if deadline is not None and time.monotonic() >= deadline:
                     break
+                if self._direct and time.monotonic() - last_poke >= 0.25:
+                    # No SEQS crosses the learner on the direct plane: poke
+                    # the adverts, or the occupancy view stays at zero.
+                    self.shards.refresh_adverts()
+                    last_poke = time.monotonic()
                 if health_fn is not None:
                     health_fn()
                 occ = self.shards.occupancy_total()
@@ -874,6 +887,8 @@ class SamplerLearner:
                     train_t0 = time.monotonic()
                     self.server.mark_steady()
                     mon.mark_steady()
+                if phase_fn is not None:
+                    phase_fn(drained)
                 if ckpt is not None and checkpoint_every > 0 and drained % checkpoint_every == 0:
                     self._save_checkpoint(
                         ckpt, drained, state, cstate,

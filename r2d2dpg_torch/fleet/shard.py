@@ -35,10 +35,19 @@ process runs numpy only: it is spawned with no card visible
 (``CUDA_VISIBLE_DEVICES=""``), it makes no CUDA call, and it imports the
 port only for the wire codec and the shard ring.
 
-Not ported yet (ROADMAP.md): the chaos gate (``stall_shard``), TELEM
-registry pushes (``--telem-every``) and the direct actor-to-shard data
-plane (``--shard-direct``, zero-quota advert pokes, data-plane byte
-counters); the parser refuses those flags.
+Direct data plane (``train --shard-direct 1``): an actor dials its shard
+itself with a ``plane="data"`` HELLO and ships SEQS on that connection;
+its bytes count only in ``r2d2dpg_fleet_data_bytes_{in,out}_total``.
+With no SEQS crossing the learner, the sampler refreshes its view of
+each shard with zero-quota SAMPLE_REQ pokes (``refresh_adverts``), which
+draw nothing.
+
+Chaos: ``--chaos-spec`` arms ``stall_shard`` (``fleet/chaos.py``
+``ShardChaos``) on the SEQS frames this process absorbs; every reply
+but the HELLO ack waits out the stall.
+
+Not ported yet (ROADMAP.md): TELEM registry pushes (``--telem-every``);
+the parser refuses that flag.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from r2d2dpg_torch.fleet import chaos as fleet_chaos
 from r2d2dpg_torch.fleet import transport, wire
 from r2d2dpg_torch.fleet.supervisor import ActorSupervisor, SupervisorConfig
 from r2d2dpg_torch.fleet.transport import (
@@ -120,6 +130,10 @@ class ShardServer:
                                               sum p^a, epoch}
                                        (or ACK {.., empty} on an empty ring)
         PRIO {slots/gens/p, epoch} ->  ACK {code, applied, stale, epoch}
+
+    A ``SAMPLE_REQ`` of quota 0 is an advert poke: answered with an
+    ``ACK {.., poke}``, no draw, the draw stream untouched.  Every reply
+    after the HELLO ack passes the ``stall_shard`` gate (``chaos``).
     """
 
     def __init__(
@@ -133,9 +147,11 @@ class ShardServer:
         max_frame_bytes: int = MAX_FRAME_BYTES,
         read_deadline_s: float = READ_DEADLINE_S,
         auth_token: Optional[str] = None,
+        chaos: Optional[fleet_chaos.ShardChaos] = None,
     ):
         self.shard = shard
         self.epoch = int(epoch)
+        self.chaos = chaos
         self._request_address = address
         self.wire_config = (wire_config or wire.WireConfig()).validate()
         self.max_frame_bytes = max_frame_bytes
@@ -167,6 +183,18 @@ class ShardServer:
             "deadline (the peer answered neither frames nor the PING)",
             labelnames=("shard",),
         ).labels(shard=sid)
+        # Bytes of connections whose HELLO said plane="data" (actors
+        # shipping SEQS here directly), and only those.
+        self._obs_data_in = reg.counter(
+            "r2d2dpg_fleet_data_bytes_in_total",
+            "bytes received on direct data-plane connections",
+            labelnames=("plane",),
+        )
+        self._obs_data_out = reg.counter(
+            "r2d2dpg_fleet_data_bytes_out_total",
+            "bytes sent on direct data-plane connections",
+            labelnames=("plane",),
+        )
         psum, occ, evict = shard_instruments()
         psum.labels(shard=sid).set_fn(shard.priority_sum)
         occ.labels(shard=sid).set_fn(shard.occupancy)
@@ -249,6 +277,10 @@ class ShardServer:
             self._handlers.append(t)
             t.start()
 
+    def _gate(self) -> None:
+        if self.chaos is not None:
+            self.chaos.gate()
+
     def _advert(self, code: str = OK) -> Dict[str, Any]:
         """The state advertisement riding every control ack: the quota
         weight (``scaled_sum``), the raw priority sum, occupancy and the
@@ -284,30 +316,52 @@ class ShardServer:
                     send_frame(conn, K_ACK, pack_obj(  # wire-lint: control
                         {"code": REFUSED_AUTH, "epoch": self.epoch}))
                     return
+            # An actor's direct leg says plane="data" at HELLO: its bytes
+            # land only in the data-plane counters.
+            count_in = count_out = lambda n: None  # noqa: E731
+            data_plane = str(hello.get("plane", "")) == "data"
+            if data_plane:
+                count_in = self._obs_data_in.labels(plane="data").inc
+                count_out = self._obs_data_out.labels(plane="data").inc
+                count_in(HEADER_BYTES + len(payload))
             mismatch = wire.check_negotiation(hello, self.wire_config)
             if mismatch is not None:
                 flight_event("shard_wire_refused", peer=peer, reason=mismatch)
                 send_frame(conn, K_ACK, pack_obj(  # wire-lint: control
                     {"code": REFUSED_WIRE, "epoch": self.epoch, "reason": mismatch}))
                 return
-            send_frame(conn, K_ACK, pack_obj(self._advert()))  # wire-lint: control
+            count_out(send_frame(
+                conn, K_ACK, pack_obj(self._advert())))  # wire-lint: control
             while not self._stop.is_set():
                 kind, payload = recv_frame_heartbeat(
-                    conn, max_frame_bytes=self.max_frame_bytes)
+                    conn, max_frame_bytes=self.max_frame_bytes,
+                    bytes_in=count_in, bytes_out=count_out)
+                count_in(HEADER_BYTES + len(payload))
                 if kind == K_BYE:
                     return
                 if kind == K_SEQS:
                     msg = unpacker.unpack(payload)
                     staged: StagedSequences = msg["staged"]
-                    # The learner stamped ``actor`` from its own
-                    # HELLO-authenticated ingest connection.
-                    fwd = msg.get("actor")
-                    code = (None if fwd is None or int(fwd) == PROVENANCE_ABSENT
-                            else int(fwd))
+                    if data_plane:
+                        # The identity this connection's HELLO bound; the
+                        # frame body's claim is ignored.
+                        code = actor_code(peer)
+                    else:
+                        # The learner stamped ``actor`` from its own
+                        # HELLO-authenticated ingest connection.
+                        fwd = msg.get("actor")
+                        code = (None if fwd is None
+                                or int(fwd) == PROVENANCE_ABSENT else int(fwd))
                     self.shard.add(staged.seq, staged.priorities,
                                    behavior=staged.behavior_version,
                                    collect=staged.collect_id, actor=code)
-                    send_frame(conn, K_ACK, pack_obj(self._advert()))  # wire-lint: control
+                    if self.chaos is not None:
+                        # Armed before the gate: the arming frame's own
+                        # ack is already stalled.
+                        self.chaos.on_seqs_frame()
+                    self._gate()
+                    count_out(send_frame(
+                        conn, K_ACK, pack_obj(self._advert())))  # wire-lint: control
                 elif kind == K_SAMPLE_REQ:
                     req = wire.unpack_sample_req(unpacker.unpack(payload))
                     # A sampled REQ's sidecar carries the trace id; its
@@ -320,16 +374,25 @@ class ShardServer:
                         raise FrameError(
                             f"SAMPLE_REQ for shard {req['shard']} on shard "
                             f"{self.shard.shard_id}'s socket")
+                    if int(req["quota"]) <= 0:
+                        # An advert poke (the direct data plane's absorb
+                        # gate): no draw, no rng touch.
+                        self._gate()
+                        send_frame(conn, K_ACK, pack_obj(  # wire-lint: control
+                            {**self._advert(), "poke": True}))
+                        continue
                     try:
                         s = self.shard.sample(req["quota"], self._rng)
                     except ValueError:
                         # An empty ring (a stale quota weight met a restarted
                         # shard): an empty-marked advert, never a torn
                         # connection that would read as a dead process.
+                        self._gate()
                         send_frame(conn, K_ACK, pack_obj(  # wire-lint: control
                             {**self._advert(), "empty": True}))
                         continue
                     t_draw_end = time.time()
+                    self._gate()
                     send_frame_parts(
                         conn, K_BATCH,
                         wire.pack_shard_batch(
@@ -352,6 +415,8 @@ class ShardServer:
                     )
                     if tr is not None:
                         # After the send: a torn exchange leaves no chain.
+                        # batch_encode spans the stall gate: a wedged shard
+                        # is a fat batch_encode on the timeline.
                         t_sent = time.time()
                         attrs = {"shard": self.shard.shard_id, "epoch": self.epoch}
                         obs_trace.record_hop("req_receive", t_req_encoded, t_recv,
@@ -380,6 +445,7 @@ class ShardServer:
                     else:
                         applied = self.shard.update_priorities(
                             upd["slots"], upd["gens"], upd["priorities"])
+                    self._gate()
                     send_frame(conn, K_ACK, pack_obj(  # wire-lint: control
                         {"code": OK, "applied": int(applied), "stale": bool(stale),
                          "epoch": self.epoch}))
@@ -619,6 +685,31 @@ class RemoteShard:
 
         return self._exchange("sample", do)
 
+    def refresh_advert(self) -> Dict[str, Any]:
+        """Sampler leg: one zero-quota SAMPLE_REQ for the advert on its
+        ack.  Under the direct data plane no SEQS ack crosses the learner,
+        so the absorb gate polls the shard's occupancy with this (the
+        shard draws nothing)."""
+
+        def do(sock, packer, unpacker):
+            n = send_frame_parts(
+                sock, K_SAMPLE_REQ,
+                wire.pack_sample_req(packer, req_id=0, shard=self.shard_id,
+                                     quota=0, trace=None),
+                max_frame_bytes=self.max_frame_bytes)
+            self._on_bytes("sample", n)
+            kind, payload = self._recv(sock)
+            self._on_bytes("sample", HEADER_BYTES + len(payload))
+            if kind != K_ACK:
+                raise FrameError(
+                    f"expected ACK to zero-quota SAMPLE_REQ, got kind {kind}")
+            ack = unpack_obj(payload)  # wire-lint: control
+            self._apply_advert(ack)
+            self.epoch = int(ack.get("epoch", self.epoch))
+            return ack
+
+        return self._exchange("sample", do)
+
     def write_back(self, slots: np.ndarray, gens: np.ndarray,
                    priorities: np.ndarray, *, epoch: int) -> Dict[str, Any]:
         """Sampler leg: one PRIO/ACK exchange (the shard applies only
@@ -663,6 +754,7 @@ class RemoteShardSet:
     ):
         if num_shards < 1:
             raise ValueError("num_shards must be >= 1")
+        self._address_fn = address_fn
         self._stop = threading.Event()
         self.rejoin_interval_s = rejoin_interval_s
         self._rejoin_last: Dict[int, float] = {}
@@ -822,7 +914,27 @@ class RemoteShardSet:
                 return sid
         return home
 
+    def assignment_for(self, actor_id: Any) -> Optional[Dict[str, Any]]:
+        """The direct data plane's advert for one actor: its routed shard,
+        that shard's published address and the epoch the learner last
+        saw; None while the shard is dead or has no address (the actor
+        keeps forwarding).  The actor's own data HELLO is the real fence."""
+        sid = self.route(actor_id)
+        s = self.shards[sid]
+        if not s.alive:
+            return None
+        try:
+            addr = self._address_fn(sid)
+        except Exception:  # noqa: BLE001 - advisory path, never fatal
+            return None
+        if addr is None:
+            return None
+        return {"shard": sid, "address": addr, "epoch": s.epoch}
+
     def bank_stats(self, msg: Dict[str, Any]) -> None:
+        """Bank one message's accounting deltas learner-side: ``add``
+        banks the forwarded path's, the ingest server's K_STATS branch the
+        direct path's."""
         with self._stats_lock:
             for k in self._stats:
                 self._stats[k] += float(msg.get(k, 0.0))
@@ -864,6 +976,24 @@ class RemoteShardSet:
                 self._stats[k] = 0.0
         return out
 
+    def refresh_adverts(self) -> int:
+        """Zero-quota advert pokes across the live shards (the direct data
+        plane's absorb gate: no forward ack refreshes the learner's view).
+        A shard not up yet is waited out as ``add`` does; an unreachable
+        shard that was up is marked dead here.  Returns how many adverts
+        were refreshed."""
+        refreshed = 0
+        for s in self.shards:
+            if not s.alive:
+                continue
+            try:
+                s.refresh_advert()
+                refreshed += 1
+            except ShardUnavailableError as e:
+                if not e.not_up:
+                    self._mark_dead(s.shard_id, str(e))
+        return refreshed
+
     def occupancy_total(self) -> int:
         return sum(s.occupancy for s in self.shards if s.alive)
 
@@ -899,6 +1029,7 @@ class ShardProcTier:
         auth_token: Optional[str] = None,
         max_frame_bytes: int = MAX_FRAME_BYTES,
         heartbeat_s: float = READ_DEADLINE_S,
+        chaos_spec: Optional[str] = None,
         flight_dir: Optional[str] = None,
         supervisor_config: Optional[SupervisorConfig] = None,
     ):
@@ -919,6 +1050,7 @@ class ShardProcTier:
         self.auth_token = auth_token
         self.max_frame_bytes = max_frame_bytes
         self.heartbeat_s = heartbeat_s
+        self.chaos_spec = chaos_spec  # forwarded verbatim (stall_shard)
         self.flight_dir = flight_dir
         self._epochs: Dict[int, int] = {}
         self._sup_config = supervisor_config
@@ -967,8 +1099,11 @@ class ShardProcTier:
             "--compress", self.wire_config.compress,
             "--max-frame-bytes", str(self.max_frame_bytes),
             "--read-deadline", str(self.heartbeat_s),
+            "--num-shard-procs", str(self.num_procs),
             "--proc-index", str(proc_index),
         ]
+        if self.chaos_spec:
+            argv += ["--chaos-spec", self.chaos_spec]
         if self.flight_dir:
             argv += ["--flight-path",
                      os.path.join(self.flight_dir, f"flight_shard{proc_index}.jsonl")]
@@ -1043,6 +1178,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--fleet-token", default=None,
                    help="shared HELLO secret; defaults to $R2D2DPG_FLEET_TOKEN "
                    "(the spawner passes it via the environment, never argv)")
+    p.add_argument("--chaos-spec", default=None,
+                   help="seeded chaos schedule; this process fires the "
+                   "stall_shard faults that target its --proc-index")
+    p.add_argument("--num-shard-procs", type=int, default=1)
     p.add_argument("--proc-index", type=int, default=0)
     p.add_argument("--flight-path", default=None,
                    help="dump this process's flight ring here on exit (its trace "
@@ -1081,6 +1220,17 @@ def main(argv=None) -> None:
     auth_token = args.fleet_token
     if auth_token is None:
         auth_token = os.environ.get("R2D2DPG_FLEET_TOKEN") or None
+    chaos = None
+    if args.chaos_spec:
+        try:
+            chaos = fleet_chaos.ShardChaos(
+                fleet_chaos.parse_chaos_spec(args.chaos_spec),
+                seed=args.seed,
+                num_shard_procs=args.num_shard_procs,
+                proc_index=args.proc_index,
+            )
+        except ValueError as e:
+            raise SystemExit(f"shard proc {args.proc_index}: {e}")
     servers = [
         ShardServer(
             ReplayShard(args.capacity, alpha=args.alpha,
@@ -1088,6 +1238,7 @@ def main(argv=None) -> None:
             address=args.bind, epoch=args.epoch, seed=args.seed,
             wire_config=wire_config, max_frame_bytes=args.max_frame_bytes,
             read_deadline_s=args.read_deadline, auth_token=auth_token,
+            chaos=chaos,
         ).start()
         for sid in shard_ids
     ]

@@ -64,15 +64,15 @@ K_BYE = 5  # either side: orderly goodbye
 K_TELEM = 6  # actor -> ingest: registry-scalar snapshot (~1 Hz, no ack)
 K_PING = 7  # either side: liveness probe after a silent read deadline
 K_PONG = 8  # either side: liveness answer (any frame also proves liveness)
-# In-network experience sampling (the JAX package's fleet/sampler.py; not
-# ported yet): the learner PULLS training batches from replay shards
+# In-network experience sampling (fleet/sampler.py, ``--replay-shards``):
+# the learner PULLS training batches from replay shards
 # instead of draining every collected sequence.  Payloads ride the
 # fleet/wire.py zero-copy codec (pack_sample_req / pack_shard_batch /
 # pack_prio_update; golden byte-layout tests in tests/test_wire.py).
 K_SAMPLE_REQ = 9  # learner -> shard: {"req_id", "shard", "quota"}
 K_BATCH = 10  # shard -> learner: sampled sequences + slots/gens/probs + sums
 K_PRIO = 11  # learner -> shard: TD priority write-back keyed slot/generation
-# Split-plane wire (the direct shard data plane; not ported yet): when the
+# Split-plane wire (the direct shard data plane, ``--shard-direct``): when the
 # actor ships SEQS directly to its shard, the accounting deltas still ride
 # the learner control connection as a tiny pickled frame, banked
 # learner-side and cleared only on ack.

@@ -16,7 +16,7 @@
          [--fleet-compress none|zlib|zstd] [--drain-coalesce K] \
          [--fleet-heartbeat S] [--fleet-token T] [--trace-sample R] \
          [--replay-shards M [--shard-procs P] [--shard-pullers N] \
-          [--shard-prefetch 1]]] \
+          [--shard-prefetch 1] [--shard-direct 1]] [--chaos-spec SPEC]] \
         [--minutes M] [--watchdog 0|1] [--watchdog-grad-norm X] \
         [--watchdog-param-norm X] [--nan-inject-phase K] [--nan-debug] \
         [--obs-port P [--obs-host H]] [--flight-path F] \
@@ -68,7 +68,19 @@ the survivors and it rejoins under a bumped epoch.  ``--shard-pullers N``
 (the standalone tier only) shape the pull.  The ``fleet:`` line then also
 carries ``sample_bytes_total``, ``trained_seqs_total``, ``evictions`` and
 ``shard_restarts``.  ``--replay-shards 1 --actors 0`` runs the untouched
-phase-locked loop.
+phase-locked loop.  ``--shard-direct 1`` splits the planes: each ingest
+ack advertises the actor's shard and address, the actor ships SEQS to its
+shard itself and sends only a K_STATS frame of accounting to the learner
+(without ``--shard-procs`` there is no dialable shard and the actors keep
+forwarding).
+
+``--chaos-spec SPEC`` (``fleet/chaos.py``, e.g.
+``kill_actor@p5,stall_actor@p12:2s``) runs seeded fault drills at the
+fleet's real boundaries: the learner fires its faults on the drain or
+pull clock, the actors and shard processes (the spec is forwarded) fire
+theirs.  Each injection is a ``chaos_inject`` flight event and a
+``r2d2dpg_fleet_chaos_drills_total{fault}`` count; a fault that never
+fired is a ``chaos_unfired`` event and a warning at the end.
 
 Telemetry (``obs/``): ``--obs-port P`` serves the process registry over
 HTTP (``/metrics``, ``/metrics.json``, ``/health``, ``/healthz``; 0 binds an
@@ -119,6 +131,12 @@ import torch
 from r2d2dpg_torch import obs
 from r2d2dpg_torch.configs import CONFIGS, ExperimentConfig, get_config
 from r2d2dpg_torch.device import device_name
+from r2d2dpg_torch.fleet.chaos import (
+    DIRECT_FAULTS,
+    SAMPLER_FAULTS,
+    SHARD_FAULTS,
+    parse_chaos_spec,
+)
 from r2d2dpg_torch.obs import (
     DivergenceError,
     DivergenceWatchdog,
@@ -255,6 +273,18 @@ def parse_args(argv=None) -> argparse.Namespace:
         help="1: pull the next phase's batch while the current one trains "
         "(its priorities are one phase stale); standalone tier only.  0 = off")
     p.add_argument(
+        "--shard-direct", type=int, default=0, choices=[0, 1],
+        help="1: the ingest ack advertises each actor's shard assignment "
+        "(consistent-hash shard + its dialable address + epoch) and the "
+        "actor ships SEQS straight to the shard — the learner wire "
+        "carries only params/telem/accounting (a tiny K_STATS frame per "
+        "phase), shedding the ingest forward hop from the experience "
+        "path.  Requires --actors N --replay-shards M; with "
+        "--shard-procs 0 there is no dialable tier, so actors stay on "
+        "the learner-forwarded path (the documented fallback, also "
+        "taken loudly on any data-leg failure).  0 = learner-forwarded "
+        "(pinned bit-identical)")
+    p.add_argument(
         "--fleet-heartbeat", type=float, default=None, metavar="S",
         help="liveness read deadline on both fleet wire ends (default "
         "300): a peer silent past it is PINGed once and reaped on a "
@@ -265,6 +295,15 @@ def parse_args(argv=None) -> argparse.Namespace:
         "$R2D2DPG_FLEET_TOKEN (prefer the variable: an argv secret is "
         "readable in ps) and reaches spawned actors through their "
         "environment, never their command line")
+    p.add_argument(
+        "--chaos-spec", default=None, metavar="SPEC",
+        help="seeded fault-injection schedule (fleet/chaos.py), e.g. "
+        "'kill_actor@p3,stall_actor@p5:4s,corrupt_frame@p7,"
+        "kill_ingest_conn@p9' — each fault fires once at its drain/actor "
+        "phase, at a real boundary (SIGKILL, sleep, byte flip, socket "
+        "close), and must recover through the documented path; every "
+        "injection lands in flight.jsonl + "
+        "r2d2dpg_fleet_chaos_drills_total")
     p.add_argument(
         "--trace-sample", type=float, default=0.0, metavar="RATE",
         help="experience-path tracing: sample this fraction of staged "
@@ -393,6 +432,7 @@ def _fleet_only_knobs(args) -> bool:
         args.fleet_wire != "f32"
         or args.fleet_compress != "none"
         or args.drain_coalesce != 1
+        or args.chaos_spec is not None
         or args.fleet_token is not None
         or args.fleet_heartbeat is not None
         or args.fleet_shed_after is not None
@@ -420,6 +460,14 @@ def _refuse(args) -> None:
         raise SystemExit("--fleet-heartbeat must be > 0 seconds")
     if not 0.0 <= args.trace_sample <= 1.0:
         raise SystemExit("--trace-sample must be in [0, 1]")
+    faults = ()
+    if args.chaos_spec:
+        # A malformed schedule is refused before anything is spawned.
+        try:
+            faults = parse_chaos_spec(args.chaos_spec)
+        except ValueError as e:
+            raise SystemExit(f"--chaos-spec: {e}")
+    kinds = {f.kind for f in faults}
     if args.pipeline and args.profile_phases:
         raise SystemExit(
             "--pipeline 1 does not support --profile-phases yet (the "
@@ -446,9 +494,9 @@ def _refuse(args) -> None:
     if not args.actors and _fleet_only_knobs(args):
         raise SystemExit(
             "--fleet-wire/--fleet-compress/--drain-coalesce/"
-            "--fleet-heartbeat/--fleet-token/--fleet-shed-after "
-            "require --actors N (the in-process schedules have no fleet "
-            "wire; docs/TOPOLOGY.md)")
+            "--fleet-heartbeat/--fleet-token/--fleet-shed-after/"
+            "--chaos-spec require --actors N (the in-process schedules "
+            "have no fleet wire; docs/TOPOLOGY.md)")
     if not args.actors and args.replay_shards and args.replay_shards > 1:
         raise SystemExit(
             "--replay-shards N >= 2 requires --actors N (replay shards "
@@ -467,12 +515,41 @@ def _refuse(args) -> None:
             "shards, which are fed by actor SEQS traffic "
             "(--shard-procs 0 is the in-learner loopback — the pinned "
             "off-setting; docs/TOPOLOGY.md)")
+    if kinds & SHARD_FAULTS and not args.shard_procs:
+        raise SystemExit(
+            "--chaos-spec shard-tier faults (kill_shard/stall_shard/"
+            "partition_shard) drill the standalone shard processes and "
+            "require --shard-procs N: the in-learner loopback shards "
+            "share the learner's failure domain, so there is no shard to "
+            "kill, stall, or partition independently (docs/TOPOLOGY.md)")
+    if args.shard_direct and not (args.actors and args.replay_shards):
+        raise SystemExit(
+            "--shard-direct 1 requires --actors N --replay-shards M: the "
+            "direct data plane routes actor SEQS traffic to the sampler "
+            "path's replay shards (--shard-direct 0 is the "
+            "learner-forwarded path — the pinned off-setting; "
+            "docs/TOPOLOGY.md)")
     if not args.replay_shards and (args.shard_pullers or args.shard_prefetch):
         raise SystemExit(
             "--shard-pullers/--shard-prefetch require --replay-shards N: "
             "the concurrent pullers and the batch prefetch belong to the "
             "sampler learner's pull loop, which the central-drain and "
             "in-process schedules do not run (docs/TOPOLOGY.md)")
+    if kinds & DIRECT_FAULTS and not args.shard_direct:
+        raise SystemExit(
+            "--chaos-spec partition_data_plane drills the direct "
+            "actor->shard data leg and requires --shard-direct 1: with "
+            "the experience riding the learner-forwarded path there is "
+            "no data plane to partition, so the drill would record "
+            "evidence for a recovery path that never ran "
+            "(docs/TOPOLOGY.md)")
+    if kinds & SAMPLER_FAULTS and not args.replay_shards:
+        raise SystemExit(
+            "--chaos-spec sampler-class faults (stall_sampler/"
+            "kill_sampler_conn) drill the in-network sampler peer class "
+            "and require --replay-shards N: on the central drain they "
+            "would stall the DRAIN thread while recording evidence for an "
+            "invariant that path cannot exhibit (docs/TOPOLOGY.md)")
     if args.trace_sample and not (args.actors or args.pipeline):
         raise SystemExit(
             "--trace-sample requires --actors N or --pipeline 1 (the "
@@ -589,6 +666,7 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
     ``replay_capacity`` is the config's capacity, which the shards own."""
     from r2d2dpg_torch.fleet import (
         ActorSupervisor,
+        ChaosEngine,
         FleetConfig,
         FleetLearner,
         SamplerLearner,
@@ -633,7 +711,9 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
         auth_token=fleet_token,
         shard_pullers=args.shard_pullers,
         shard_prefetch=args.shard_prefetch,
+        shard_direct=bool(args.shard_direct),
     )
+    faults = parse_chaos_spec(args.chaos_spec) if args.chaos_spec else ()
     # The standalone tier's processes are spawned inside the try below,
     # beside the actor supervisor: an early SystemExit must not orphan them.
     shard_tier, shard_dir = None, None
@@ -653,6 +733,7 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
             wire_config=wire_config,
             auth_token=fleet_token,
             heartbeat_s=heartbeat_s,
+            chaos_spec=args.chaos_spec,
             flight_dir=args.logdir,
         )
     if args.replay_shards:
@@ -695,6 +776,12 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
         # sidecar would buy nothing there.
         extra += ["--trace-sample", str(args.trace_sample)]
     extra += ["--read-deadline", str(heartbeat_s)]
+    if args.shard_direct:
+        extra += ["--shard-direct", "1"]
+    if args.chaos_spec:
+        # The actors fire the actor-side faults that target them; the
+        # engine below fires the rest, on the same seeded schedule.
+        extra += ["--chaos-spec", args.chaos_spec]
     spawn_env = None
     if fleet_token:
         # Through the environment, NOT argv (visible in ps).
@@ -729,6 +816,12 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
     else:
         num_phases = 1
     run_kwargs = {"trace_sample": args.trace_sample} if args.replay_shards else {}
+    engine = None
+    if faults:
+        engine = ChaosEngine(
+            faults, seed=cfg.trainer.seed, num_actors=args.actors,
+            supervisor=supervisor, server=learner.server, shard_tier=shard_tier)
+        run_kwargs["phase_fn"] = engine.on_phase
     try:
         if shard_tier is not None:
             shard_tier.start()
@@ -749,6 +842,13 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
             if first is not None:
                 stats[f"actor{i}_first_seqs_s"] = first - supervisor.first_started_at(i)
         _fold_executor_stats("fleet", stats)
+        if engine is not None and engine.unfired():
+            # A drill that never got its phase must not read as one that
+            # passed.
+            names = [f"{f.kind}@p{f.phase}" for f in engine.unfired()]
+            print("fleet: WARNING — chaos faults never fired (run too "
+                  f"short?): {', '.join(names)}", flush=True)
+            flight.record("chaos_unfired", faults=names)
         if ckpt is not None and ckpt.save_every:
             step = state.phase_idx
             ckpt.save_final(step, state)
@@ -768,7 +868,31 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
         if shard_dir is not None and not args.logdir:
             shutil.rmtree(shard_dir, ignore_errors=True)
         flight.dump_trace()  # no-op unless spans were sampled and a path is armed
+    if faults and args.logdir:
+        _warn_unfired_remote(faults, args, cfg.trainer.seed, flight)
     return state
+
+
+def _warn_unfired_remote(faults, args, seed: int, flight) -> None:
+    """The actor- and shard-side drills fire in other processes: after the
+    teardown has flushed their flight dumps, a fault with no
+    ``chaos_inject`` line there never fired."""
+    from r2d2dpg_torch.fleet.chaos import (
+        actor_faults_unfired,
+        shard_faults_unfired,
+    )
+
+    missing = actor_faults_unfired(faults, args.logdir, seed=seed,
+                                   num_actors=args.actors)
+    if args.shard_procs:
+        missing += shard_faults_unfired(faults, args.logdir, seed=seed,
+                                        num_shard_procs=args.shard_procs)
+    if missing:
+        names = [f"{f.kind}@p{f.phase}" for f in missing]
+        print("fleet: WARNING — actor/shard-side chaos faults left no "
+              f"injection evidence in {args.logdir!r} (run too short? "
+              f"target kept crashing?): {', '.join(names)}", flush=True)
+        flight.record("chaos_unfired", faults=names)
 
 
 def _arm_telemetry(args, flight):

@@ -197,6 +197,33 @@ def test_telemetry_refusals_equal_jax(name):
         assert got == want
 
 
+# The rows chaos drills and the direct data plane add to the JAX CLI's
+# refusals (``r2d2dpg_tpu/topology.py``), each with JAX's text.
+CHAOS_REFUSALS = {
+    "chaos_without_actors": (("--chaos-spec", "kill_actor@p2"), "require --actors"),
+    "shard_chaos_without_shard_procs": (
+        ("--actors", "2", "--replay-shards", "2", "--chaos-spec", "kill_shard@p2"),
+        "shard-procs"),
+    "shard_direct_without_sampler_path": (("--shard-direct", "1"), "requires --actors"),
+    "data_plane_chaos_without_shard_direct": (
+        ("--actors", "2", "--replay-shards", "2", "--chaos-spec",
+         "partition_data_plane@p2"), "shard-direct"),
+    "sampler_chaos_without_shards": (
+        ("--actors", "2", "--chaos-spec", "stall_sampler@p2:1s"), "replay-shards"),
+    "malformed_spec": (("--actors", "2", "--chaos-spec", "stall_actor@p2"),
+                       "--chaos-spec: "),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CHAOS_REFUSALS))
+def test_chaos_and_shard_direct_refusals_equal_jax(name):
+    flags, match = CHAOS_REFUSALS[name]
+    argv = ["--config", "pendulum_tiny", *flags]
+    want = _jax_refusal(argv)
+    assert match in want
+    assert _port_refusal(argv) == want
+
+
 def test_nan_debug_switches_anomaly_mode():
     from r2d2dpg_torch.utils.profiling import nan_debug
 

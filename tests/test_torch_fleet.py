@@ -780,7 +780,7 @@ def test_structural_argv_equals_jax():
         assert structural_argv(CONFIGS[name]) == j_structural(J_CONFIGS[name])
 
 
-@pytest.mark.parametrize("flag", ["--shard-direct", "--telem-every", "--chaos-spec"])
+@pytest.mark.parametrize("flag", ["--telem-every"])
 def test_actor_parser_refuses_unported_flags(flag):
     from r2d2dpg_torch.fleet.actor import parse_args
 

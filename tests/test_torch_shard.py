@@ -498,7 +498,7 @@ def test_shard_parser_refuses_unported_flags(capsys):
 
     base = ["--shard-ids", "0", "--capacity", "8"]
     assert parse_args(base).epoch == 1
-    for flag in ("--chaos-spec", "--telem-every", "--shard-direct"):
+    for flag in ("--telem-every", "--shard-direct"):
         with pytest.raises(SystemExit):
             parse_args([*base, flag, "1"])
 
