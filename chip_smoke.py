@@ -96,18 +96,39 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    before that drain check, the chaos drills on the central drain
    (``fleet_chaos``): ``--actors 3 --phases 40 --seed 3 --fleet-heartbeat
    2.5 --chaos-spec kill_actor@p5,corrupt_frame@p8,stall_actor@p12:7s,
-   kill_ingest_conn@p18``,
+   kill_ingest_conn@p18 --obs-fleet 1``,
    each fault injected once (one ``chaos_inject`` line in the dumps that
    ``python -m r2d2dpg_torch.obs.flight merge`` fuses) and followed by its
    recovery (``actor_crash`` then ``actor_restart``; ``peer_dead`` then
    ``actor_reconnect``; a ``FrameCRCError`` ``ingest_conn_error`` then
    ``actor_reconnect``; ``actor_reconnect``), the learner's drill counter
    1 for each fault it fires, no ``chaos_unfired``, env steps never down,
-   one compute process on the card, one scatter launch per learner step;
+   one compute process on the card, one scatter launch per learner step,
+   and the actor-side drill counts of ``stall_actor`` and
+   ``corrupt_frame`` (1 each) read off the learner's final scrape through
+   the TELEM mirror;
+13b. the autoscaled fleet (``fleet_autoscale``): ``train.main --actors 2
+   --phases 170 --obs-fleet 1 --obs-port 0 --autoscale 1 --autoscale-every
+   0.5 --autoscale-fire 2 --autoscale-cooldown 12 --health-stale-after 6
+   --fleet-heartbeat 2.5 --chaos-spec kill_actor@p5,stall_actor@p70:20s``,
+   the supervisor in policy mode: the kill followed by ``actor_crash``, a
+   fired ``autoscale_decision`` (rule ``actors_down``), an ``actor_spawn``
+   with ``origin="autoscale"`` and an ``autoscale_action`` ``spawn_actor``;
+   the stall by a fired ``telem_stale`` decision, the spawn and an
+   ``autoscale_action`` ``replace_actor`` of the stalled actor;
+   ``r2d2dpg_autoscale_actions_total`` moved by 1 for each kind, no ladder
+   restart, 2 actors alive and a final ``/health`` naming neither
+   ``actors_down`` nor ``telem_stale``, env steps never down, no shed;
+   ``/metrics`` polled every 0.5 s holds both actors' series under
+   ``actor=``/``host=`` with TELEM staleness under 3 s outside the faults
+   (each fault's window: its injection to its successor's first SEQS)
+   from both actors' first SEQS to the last learner step;
+   one scatter launch per learner step, one compute process on the card;
+   it prints each fault's seconds to its action and to the first SEQS;
 14. in-network sampling: ``train.main --config pendulum_r2d2 --actors 3
    --replay-shards 2 --phases 60`` (the in-learner loopback shards), then
    the same with ``--shard-procs 2 --phases 150 --chaos-spec
-   kill_shard@p20`` (two supervised shard processes on the CPU; the chaos
+   kill_shard@p20 --obs-fleet 1`` (two supervised shard processes on the CPU; the chaos
    engine kills the targeted one after 20 learner steps, the longer run
    leaving room for its restart: one ``chaos_inject``, exactly one
    ``shard_dead``, one restart and one ``shard_rejoin`` under epoch 2
@@ -127,7 +148,12 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    0.2 s: ``shards_down`` at 1 of 2 between the kill and the rejoin) and
    ends with ``health_final.json`` naming neither ``shards_down`` nor
    ``actors_down`` and ``metrics_final.prom`` holding
-   ``r2d2dpg_shard_alive 2``; then pulled batches at ``--learner-steps 4``
+   ``r2d2dpg_shard_alive 2``; it also polls ``/metrics`` every 0.5 s: both
+   shard processes' series under ``shard=``/``host=``, each
+   ``r2d2dpg_shard_telem_staleness_seconds`` under 3 s while both
+   processes are up and the learner pulls, the killed one's over 3 s
+   during the outage and under 3 s again after its epoch-2 rejoin; then
+   pulled batches at ``--learner-steps 4``
    learned on the card and on the CPU from the same params, params and
    priorities within 1e-4 of each tensor's largest value, and device-busy
    time of a whole pull-learn phase;
@@ -850,6 +876,37 @@ def _metric(text, name):
         if line.startswith(name + " "):
             return float(line.split()[1])
     return None
+
+
+def _series(text, name):
+    """Every sample of ``name`` in a /metrics page, as (labels, value)."""
+    out = []
+    for line in text.splitlines():
+        head, _, value = line.rpartition(" ")
+        if head == name:
+            labels = {}
+        elif head.startswith(name + "{") and head.endswith("}"):
+            labels = dict(re.findall(r'(\w+)="([^"]*)"', head[len(name) + 1:-1]))
+        else:
+            continue
+        out.append((labels, float(value)))
+    return out
+
+
+def _fresh_telem_plane():
+    """Before a TELEM leg: no fold of an earlier leg.  The registry and the
+    remote mirror are process-wide, and every HELLO of an earlier leg armed
+    a staleness clock that keeps growing after its run (it would read as
+    ``telem_stale`` here)."""
+    from r2d2dpg_torch.obs import get_registry, get_remote_mirror
+
+    get_remote_mirror().clear()
+    for name in ("r2d2dpg_fleet_telem_staleness_seconds",
+                 "r2d2dpg_shard_telem_staleness_seconds"):
+        inst = get_registry().get(name)
+        if inst is not None:
+            with inst._lock:
+                inst._cells.clear()
 
 
 def _telemetry_phase(torch, dev):
@@ -1830,11 +1887,14 @@ FLEET_CHAOS_SPEC = (f"kill_actor@p5,corrupt_frame@p8,stall_actor@p12:"
 
 def _fleet_chaos_leg(torch, dev, label="fleet_chaos"):
     """``train.main --actors 3 --phases 40 --fleet-heartbeat 2.5
-    --chaos-spec kill_actor@p5,corrupt_frame@p8,stall_actor@p12:6s,
-    kill_ingest_conn@p18`` at pendulum_r2d2, learner on the card: all 40
-    phases run, each fault is injected once and followed by its recovery
-    in the merged flight dumps, env steps never go down, one compute
-    process on the card, one scatter launch per learner step."""
+    --chaos-spec kill_actor@p5,corrupt_frame@p8,stall_actor@p12:7s,
+    kill_ingest_conn@p18 --obs-fleet 1`` at pendulum_r2d2, learner on the
+    card: all 40 phases run, each fault is injected once and followed by
+    its recovery in the merged flight dumps, env steps never go down, one
+    compute process on the card, one scatter launch per learner step; the
+    learner's final scrape reads the actor-side drill counts
+    (``r2d2dpg_fleet_chaos_drills_total`` of ``stall_actor`` and
+    ``corrupt_frame``, 1 each) through the TELEM mirror."""
     import threading
 
     from r2d2dpg_torch import kernels
@@ -1866,6 +1926,7 @@ def _fleet_chaos_leg(torch, dev, label="fleet_chaos"):
     watcher = threading.Thread(target=watch, name="chip-smoke-chaos-watch", daemon=True)
     buf = io.StringIO()
     drills0 = _drill_counts(get_registry())
+    _fresh_telem_plane()
     try:
         for k in kernels.ALL_KERNELS:
             k.launches = 0
@@ -1877,12 +1938,14 @@ def _fleet_chaos_leg(torch, dev, label="fleet_chaos"):
                 "--phases", str(FLEET_CHAOS_PHASES), "--log-every", "5",
                 "--seed", str(FLEET_CHAOS_SEED),
                 "--fleet-heartbeat", str(FLEET_CHAOS_HEARTBEAT_S),
-                "--chaos-spec", FLEET_CHAOS_SPEC, "--logdir", logdir,
+                "--chaos-spec", FLEET_CHAOS_SPEC, "--obs-fleet", "1", "--logdir", logdir,
             ])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
         events = _merged_events(logdir, t0_wall)
+        with open(os.path.join(logdir, "metrics_final.prom")) as f:
+            final_prom = f.read()
     finally:
         done.set()
         watcher.join()
@@ -1919,7 +1982,16 @@ def _fleet_chaos_leg(torch, dev, label="fleet_chaos"):
     logged = [x for x in lines if x.startswith("phase ")]
     steps = _env_steps(logged)
     probe = seen.get("probe")
+    # The actor-side drill counters, folded into the learner's scrape under
+    # actor=/host= (the learner's own series carry no host label).
+    mirrored = {(labels.get("actor"), labels.get("fault")): v
+                for labels, v in _series(final_prom, "r2d2dpg_fleet_chaos_drills_total")
+                if "host" in labels}
+    actor_drills = {f: mirrored.get((str(chaos[f]["target"]), f))
+                    for f in ("stall_actor", "corrupt_frame")}
     rec = {"flags": FLEET_CHAOS_SPEC, "seed": FLEET_CHAOS_SEED,
+           "mirrored_actor_drills": actor_drills,
+           "mirrored_drill_series": sorted(f"{a}:{f}={v}" for (a, f), v in mirrored.items()),
            "heartbeat_s": FLEET_CHAOS_HEARTBEAT_S, "train_phases": FLEET_CHAOS_PHASES,
            "run_seconds": seconds, "chaos": chaos, "recovery_s": recovery,
            "env_steps_logged": steps,
@@ -1931,9 +2003,264 @@ def _fleet_chaos_leg(torch, dev, label="fleet_chaos"):
     print(json.dumps({label: rec}), flush=True)
     if steps != sorted(steps) or not steps or steps[-1] <= 0:
         raise AssertionError(f"{label}: env steps went down: {steps}")
+    if any(v != 1.0 for v in actor_drills.values()):
+        raise AssertionError(f"{label}: actor-side drill counts through the mirror "
+                             f"{actor_drills}, expected 1 each")
     if probe is None or len(probe["compute_apps"]) != 1 or any(
             probe["actor_card_fds"].values()):
         raise AssertionError(f"{label}: card processes {probe}")
+    return {label: launches["priority_scatter"]}
+
+
+# The autoscaled central drain: 2 actors, the supervisor in policy mode, the
+# policy loop on /health.  Seed 0 gives the two faults different actors
+# (kill actor 1 at drain phase 5, stall actor 0 at its 70th batch).  The
+# cooldown outlasts a replacement's start-up (its first SEQS about 7 s
+# after its spawn on an H100 host), so the killed actor's staleness,
+# which runs on until its successor's HELLO, never gets that successor
+# replaced as well; the stall outlasts its detection (6 s stale, 2
+# evaluations 0.5 s apart) plus that cooldown.  A replacement re-arms
+# its actor-side drills: the stalled actor's successor would stall again
+# at its own 70th batch, so the run ends by phases (each drains one
+# batch), about 50 after that successor's first SEQS whatever the host's
+# rates, before it gets there.
+FLEET_AUTOSCALE_ACTORS = 2
+FLEET_AUTOSCALE_PHASES = 170
+FLEET_AUTOSCALE_STALE_S = 6
+FLEET_AUTOSCALE_COOLDOWN_S = 12
+FLEET_AUTOSCALE_SPEC = "kill_actor@p5,stall_actor@p70:20s"
+FLEET_AUTOSCALE_FLAGS = (
+    "--obs-fleet", "1", "--obs-port", "0", "--obs-host", "127.0.0.1",
+    "--autoscale", "1", "--autoscale-every", "0.5", "--autoscale-fire", "2",
+    "--autoscale-cooldown", str(FLEET_AUTOSCALE_COOLDOWN_S),
+    "--health-stale-after", str(FLEET_AUTOSCALE_STALE_S),
+    "--fleet-heartbeat", str(FLEET_CHAOS_HEARTBEAT_S),
+    "--chaos-spec", FLEET_AUTOSCALE_SPEC,
+)
+
+
+TELEM_FRESH_S = 3.0  # a live actor's or shard's TELEM staleness on the scrape
+
+
+def _first_seqs_after(seqs, actor, t):
+    """When actor ``actor``'s sequence count first rose after time ``t``
+    (the 0.1 s samples of the learner's ``r2d2dpg_fleet_sequences_total``),
+    or None."""
+    base = None
+    for ts, counts in seqs:
+        v = counts.get(actor, 0.0)
+        if ts <= t:
+            base = v
+        elif base is None:
+            base = v
+        elif v > base:
+            return ts
+    return None
+
+
+def _fleet_autoscale_leg(torch, dev, label="fleet_autoscale"):
+    """``train.main --actors 2 --phases 170 --obs-fleet 1 --autoscale 1``
+    under ``kill_actor@p5,stall_actor@p70:20s`` at pendulum_r2d2, learner
+    on the card, actors in policy mode: the kill is replaced by an
+    ``actors_down`` decision (``spawn_actor``), the stall by a
+    ``telem_stale`` one (``replace_actor`` of the stalled actor), never by
+    the restart ladder; both actors alive at the end with a final /health
+    free of ``actors_down`` and ``telem_stale``; every live actor's series
+    on the learner's /metrics under ``actor=``/``host=`` with staleness
+    under 3 s outside the faults while the learner runs; env steps never
+    down, no shed; one
+    scatter launch per learner step; one compute process on the card."""
+    import threading
+
+    from r2d2dpg_torch import kernels
+    from r2d2dpg_torch.fleet.supervisor import ActorSupervisor
+    from r2d2dpg_torch.obs import get_registry
+    from r2d2dpg_torch.train import main as train_main
+
+    logdir = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")
+    seen = {"seqs": []}
+    done = threading.Event()
+    plain_start = ActorSupervisor.start
+    reg = get_registry()
+
+    def start(self):
+        seen["sup"] = self
+        return plain_start(self)
+
+    def counts():
+        snap = reg.snapshot().get("r2d2dpg_fleet_sequences_total", {"samples": []})
+        return {s["labels"]["actor"]: s["value"] for s in snap["samples"]}
+
+    def watch():
+        """Samples each actor's sequence count every 0.1 s; reads the card's
+        processes and the actors' device files once the learner trained."""
+        steps = 0
+        while not done.wait(0.1):
+            seen["seqs"].append((time.time(), counts()))
+            if kernels.PRIORITY_SCATTER.launches != steps:
+                steps = kernels.PRIORITY_SCATTER.launches
+                seen["t_last_step"] = time.time()
+            sup = seen.get("sup")
+            if sup is not None and "probe" not in seen and kernels.PRIORITY_SCATTER.launches:
+                seen["probe"] = {"compute_apps": _compute_apps(),
+                                 "actor_card_fds": {i: _card_fds(pid)
+                                                    for i, pid in sup.pids().items()}}
+
+    def actions():
+        snap = reg.snapshot().get("r2d2dpg_autoscale_actions_total", {"samples": []})
+        return {s["labels"]["action"]: s["value"] for s in snap["samples"]}
+
+    ActorSupervisor.start = start
+    watcher = threading.Thread(target=watch, name="chip-smoke-autoscale-watch",
+                               daemon=True)
+    buf = io.StringIO()
+    scraper = _Scraper(logdir, ("/metrics", "/health"), 0.5)
+    final = {}
+    actions0, drills0 = actions(), _drill_counts(reg)
+    _fresh_telem_plane()
+    try:
+        for k in kernels.ALL_KERNELS:
+            k.launches = 0
+        watcher.start()
+        t0, t0_wall = time.perf_counter(), time.time()
+        with scraper, contextlib.redirect_stdout(buf):
+            state = train_main([
+                "--config", "pendulum_r2d2", "--actors", str(FLEET_AUTOSCALE_ACTORS),
+                "--phases", str(FLEET_AUTOSCALE_PHASES), "--log-every", "10",
+                "--logdir", logdir, *FLEET_AUTOSCALE_FLAGS,
+            ])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
+        events = _merged_events(logdir, t0_wall)
+        for name in ("health_final.json", "metrics_final.prom"):
+            with open(os.path.join(logdir, name)) as f:
+                final[name] = f.read()
+    finally:
+        done.set()
+        watcher.join()
+        ActorSupervisor.start = plain_start
+        shutil.rmtree(logdir, ignore_errors=True)
+    moved = {k: v - actions0.get(k, 0.0) for k, v in actions().items()}
+    lines = buf.getvalue().splitlines()
+    stats_line = next(x for x in lines if x.startswith("fleet: ") and "wall_s" in x)
+    words = stats_line.split()[1:]
+    stats = {k: float(v) for k, v in zip(words[::2], words[1::2])}
+    print("fleet autoscale stats line:", stats_line, flush=True)
+    chaos = _check_chaos(label, FLEET_AUTOSCALE_SPEC, events, lines, _drill_counts(reg),
+                         drills0)
+    killed, stalled = chaos["kill_actor"]["target"], chaos["stall_actor"]["target"]
+    fired = lambda rule, slot: (lambda e: e.get("fired") and e.get("rule") == rule  # noqa: E731
+                                and e.get("slot") == slot)
+    by_policy = lambda e: e.get("origin") == "autoscale"  # noqa: E731
+    acted = lambda kind, slot: (lambda e: e.get("action") == kind  # noqa: E731
+                                and e.get("slot") == slot)
+    recovery = {
+        "kill_actor": _recovery(label, events, "kill_actor", [
+            ("actor_crash", killed, None),
+            ("autoscale_decision", None, fired("actors_down", killed)),
+            ("actor_spawn", killed, by_policy),
+            ("autoscale_action", None, acted("spawn_actor", killed))]),
+        "stall_actor": _recovery(label, events, "stall_actor", [
+            ("autoscale_decision", None, fired("telem_stale", stalled)),
+            ("actor_spawn", stalled, by_policy),
+            ("autoscale_action", None, acted("replace_actor", stalled))]),
+    }
+    # Each fault's window: its injection to its new incarnation's first
+    # SEQS (the seconds the recovery line prints).
+    windows = {}
+    for fault, who in (("kill_actor", killed), ("stall_actor", stalled)):
+        t_inj = chaos[fault]["t_wall"]
+        t_act = next(e["t_wall"] for e in events if e["kind"] == "autoscale_action"
+                     and e.get("slot") == who and e["t_wall"] >= t_inj)
+        t_seqs = _first_seqs_after(seen["seqs"], str(who), t_act)
+        windows[fault] = (t_inj, t_seqs)
+        recovery[fault].update(
+            inject_to_action_s=t_act - t_inj,
+            action_to_first_seqs_s=None if t_seqs is None else t_seqs - t_act)
+    # /metrics outside the faults, once both actors streamed and until the
+    # last learner step (then the teardown: the drain stops, the handlers
+    # hold their acks, and no actor pushes TELEM until the supervisor stops).
+    ids = [str(i) for i in range(FLEET_AUTOSCALE_ACTORS)]
+    t_first = max((_first_seqs_after(seen["seqs"], a, 0.0) or float("inf")) for a in ids)
+    t_end = seen.get("t_last_step", float("inf"))
+    polls, quiet = [], []
+    for t, path, status, _, body in scraper.samples:
+        if path != "/metrics" or status != 200:
+            continue
+        stale = {lab["actor"]: v for lab, v in
+                 _series(body, "r2d2dpg_fleet_telem_staleness_seconds")}
+        mirrored = {lab["actor"] for lab, _ in
+                    _series(body, "r2d2dpg_actor_phases_total") if "host" in lab}
+        polls.append((t, stale, mirrored))
+        if t_first <= t <= t_end and not any(a <= t <= (b or float("inf"))
+                                             for a, b in windows.values()):
+            quiet.append((t, stale, mirrored))
+    health = json.loads(final["health_final.json"])
+    final_rules = {f["rule"] for f in health.get("findings", ())}
+    logged = [x for x in lines if x.startswith("phase ")]
+    steps = _env_steps(logged)
+    probe = seen.get("probe")
+    decisions = [e for e in events if e["kind"] == "autoscale_decision"]
+    rec = {
+        "flags": [*FLEET_AUTOSCALE_FLAGS, "--phases", FLEET_AUTOSCALE_PHASES],
+        "actors": FLEET_AUTOSCALE_ACTORS, "run_seconds": seconds,
+        "train_phases": stats["train_phases"], "learner_steps": state.train.step,
+        "chaos": chaos, "recovery_s": recovery,
+        "autoscale_actions_moved": moved,
+        "autoscale_decisions": [(round(e["t_wall"] - t0_wall, 3), e.get("action"),
+                                 e.get("slot"), e.get("rule"), e.get("gated_by"))
+                                for e in decisions],
+        "restarts": stats["actor_restarts"], "sheds": stats["sheds"],
+        "final_alive": _metric(final["metrics_final.prom"], "r2d2dpg_fleet_actors_alive"),
+        "health_final": health, "env_steps_logged": steps,
+        "metrics_polls": len(polls), "quiet_polls": len(quiet),
+        "max_quiet_staleness_s": max((max(st.get(a, float("inf")) for a in ids)
+                                      for _, st, _ in quiet), default=None),
+        "quiet_polls_over_limit": [
+            (round(t - t0_wall, 3), st) for t, st, _ in quiet
+            if max(st.get(a, float("inf")) for a in ids) >= TELEM_FRESH_S][:10],
+        "first_seqs_both_s": t_first - t0_wall,
+        "last_step_s": t_end - t0_wall,
+        "fault_windows_s": {f: [round(a - t0_wall, 3), None if b is None else round(b - t0_wall, 3)]
+                            for f, (a, b) in windows.items()},
+        "drain_phases_per_s": stats.get("train_drain_phases_per_sec"),
+        "drain_learn_ms": [stats["drain_learn_p50_ms"], stats["drain_learn_p99_ms"]],
+        "probe": probe, "stats": stats, "scatter_launches": launches["priority_scatter"],
+    }
+    print(json.dumps({label: rec}), flush=True)
+    print(json.dumps({f"{label}_recovery_s": {
+        f: {"inject_to_action_s": r["inject_to_action_s"],
+            "action_to_first_seqs_s": r["action_to_first_seqs_s"]}
+        for f, r in recovery.items()}}), flush=True)
+    problems = []
+    if (launches["priority_scatter"] != state.train.step
+            or stats["train_phases"] != FLEET_AUTOSCALE_PHASES):
+        problems.append(f"scatter launches {launches}, learner steps {state.train.step}, "
+                        f"phases {stats['train_phases']}")
+    if stats["actor_restarts"] != 0:
+        problems.append(f"{stats['actor_restarts']} ladder restarts, expected 0")
+    if {k: v for k, v in moved.items() if v} != {"spawn_actor": 1.0, "replace_actor": 1.0}:
+        problems.append(f"autoscale actions {moved}, expected one spawn and one replace")
+    if rec["final_alive"] != FLEET_AUTOSCALE_ACTORS or final_rules & {"actors_down",
+                                                                     "telem_stale"}:
+        problems.append(f"final: alive {rec['final_alive']}, health {health}")
+    if steps != sorted(steps) or not steps or steps[-1] <= 0:
+        problems.append(f"env steps went down: {steps}")
+    if stats["sheds"] != 0:
+        problems.append(f"{stats['sheds']} sheds")
+    if any(w[1] is None for w in windows.values()):
+        problems.append(f"a replacement never sent SEQS: {windows}")
+    if not quiet or any(set(ids) - m for _, _, m in quiet):
+        problems.append("an actor's series missing under actor=/host= on a quiet poll")
+    if rec["max_quiet_staleness_s"] is None or (
+            rec["max_quiet_staleness_s"] >= TELEM_FRESH_S):
+        problems.append(f"TELEM staleness {rec['max_quiet_staleness_s']} s outside the faults")
+    if probe is None or len(probe["compute_apps"]) != 1 or any(
+            probe["actor_card_fds"].values()):
+        problems.append(f"card processes {probe}")
+    if problems:
+        raise AssertionError(f"{label}: {problems}")
     return {label: launches["priority_scatter"]}
 
 
@@ -1955,6 +2282,9 @@ SAMPLER_PROCS_TRAIN_PHASES = 150
 SAMPLER_SHARDS = 2
 SAMPLER_KILL_AT = 20  # learner steps before a shard process is killed
 SAMPLER_KILL_SPEC = f"kill_shard@p{SAMPLER_KILL_AT}"
+# The shard-procs leg: one process killed, the tier's TELEM on the scrape.
+SAMPLER_KILL_FLAGS = ("--shard-procs", str(SAMPLER_SHARDS), "--chaos-spec",
+                      SAMPLER_KILL_SPEC, "--obs-fleet", "1")
 SAMPLER_CARD_VS_CPU_K = 4  # learner steps per pulled batch (K loop > 1)
 SAMPLER_CARD_VS_CPU_RTOL = 1e-4  # of each tensor's largest |value|
 # The direct data plane under the five sampler-path faults.  The two the
@@ -1966,6 +2296,8 @@ SAMPLER_CARD_VS_CPU_RTOL = 1e-4  # of each tensor's largest |value|
 DIRECT_CHAOS_PHASES = 60
 DIRECT_CHAOS_SPEC = ("partition_data_plane@p30,stall_shard@p40:2s,partition_shard@p20,"
                      "stall_sampler@p30:1s,kill_sampler_conn@p40")
+DIRECT_CHAOS_FLAGS = ("--shard-procs", str(SAMPLER_SHARDS), "--shard-direct", "1",
+                      "--chaos-spec", DIRECT_CHAOS_SPEC)
 
 
 def _sampler_leg(torch, dev, label, flags, phases=SAMPLER_TRAIN_PHASES):
@@ -1987,6 +2319,7 @@ def _sampler_leg(torch, dev, label, flags, phases=SAMPLER_TRAIN_PHASES):
     spec = flags[flags.index("--chaos-spec") + 1] if "--chaos-spec" in flags else ""
     kill = "kill_shard" in spec
     direct = "--shard-direct" in flags
+    telem = "--obs-fleet" in flags
     tc = _config("pendulum_r2d2").trainer
     logdir = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")
     seen = {"sups": [], "pulls": [], "fwd": []}
@@ -2039,15 +2372,19 @@ def _sampler_leg(torch, dev, label, flags, phases=SAMPLER_TRAIN_PHASES):
     # The killed leg serves /health, polled every 0.2 s through the kill.
     obs_flags = ("--obs-port", "0", "--obs-host", "127.0.0.1") if kill else ()
     scraper = _Scraper(logdir, ("/health",) if kill else (), 0.2)
+    # Under --obs-fleet, /metrics every 0.5 s: the shard TELEM fold.
+    metrics = _Scraper(logdir, ("/metrics",) if telem else (), 0.5)
     final, events = {}, []
     drills0 = _drill_counts(get_registry())
+    if telem:
+        _fresh_telem_plane()
     try:
         for k in kernels.ALL_KERNELS:
             k.launches = 0
         watcher.start()
         t0, cpu0 = time.perf_counter(), sum(os.times()[:2])
         t0_wall = time.time()
-        with scraper, contextlib.redirect_stdout(buf):
+        with scraper, metrics, contextlib.redirect_stdout(buf):
             state = train_main([
                 "--config", "pendulum_r2d2", "--actors", str(FLEET_ACTORS),
                 "--replay-shards", str(SAMPLER_SHARDS),
@@ -2125,6 +2462,9 @@ def _sampler_leg(torch, dev, label, flags, phases=SAMPLER_TRAIN_PHASES):
                                     drills0)
     if kill:
         rec.update(_kill_shard_record(label, events, pulls, stats, scraper, final))
+        if telem:
+            rec.update(_shard_telem_record(label, metrics.samples, rec, final,
+                                           pulls[-1][0]))
     if direct:
         rec.update(_direct_record(label, events, pulls, seen["fwd"], seen["tier"], logged))
     print("sampler stats line:", stats_line, flush=True)
@@ -2272,6 +2612,63 @@ def _kill_shard_record(label, events, pulls, stats, scraper, final):
             or rec["final_shard_alive"] != 2.0):
         raise AssertionError(f"{label}: final evidence {rec['health_final']}, "
                              f"r2d2dpg_shard_alive {rec['final_shard_alive']}")
+    return rec
+
+
+def _shard_telem_record(label, samples, kill, final, t_end):
+    """The shard TELEM fold through the ``kill_shard`` drill, read off the
+    /metrics polls: both shard processes' series under ``shard=``/``host=``,
+    each ``r2d2dpg_shard_telem_staleness_seconds`` under 3 s while both
+    processes are up, the killed process's shard stale through the outage
+    and under 3 s again once it rejoined under epoch 2.  Polls after
+    ``t_end``, the last pull, are the teardown: a push folds on the
+    learner's next read of that leg, and past the last pull nothing reads
+    the legs, so every shard's clock grows until the tier stops."""
+    victim, t_kill = str(kill["killed_shard"]), kill["t_kill"]
+    t_rejoin = kill["shard_rejoins"][0][3]
+    ids = {str(i) for i in range(SAMPLER_SHARDS)}
+    polls = []
+    for t, _, status, _, body in samples:
+        if status != 200:
+            continue
+        stale = {lab["shard"]: v for lab, v in
+                 _series(body, "r2d2dpg_shard_telem_staleness_seconds")}
+        mirrored = {lab["shard"] for lab, _ in
+                    _series(body, "r2d2dpg_replay_shard_occupancy") if "host" in lab}
+        polls.append((t, stale, mirrored))
+    both = [(t, st) for t, st, m in polls if ids <= set(st) and ids <= m]
+    before = [st for t, st in both if t < t_kill]
+    after = [st for t, st in both if t_rejoin < t <= t_end]
+    outage = [st.get(victim) for t, st, _ in polls if t_kill < t < t_rejoin]
+    final_hosts = {lab["shard"] for lab, _ in _series(
+        final.get("metrics_final.prom", ""), "r2d2dpg_replay_shard_occupancy")
+        if "host" in lab}
+    rec = {"shard_telem": {
+        "polls": len(polls), "polls_both_up_before_kill": len(before),
+        "polls_both_up_after_rejoin": len(after),
+        "max_staleness_both_up_s": max((max(st.values()) for st in before + after),
+                                       default=None),
+        "victim_max_staleness_outage_s": max((v for v in outage if v is not None),
+                                             default=None),
+        "victim_staleness_after_rejoin_s": [st[victim] for st in after[:5]],
+        # The largest while both were up: (seconds from the kill, shard, s).
+        "top_staleness_both_up": sorted(
+            ((round(t - t_kill, 3), sid, v) for t, st in both
+             if t < t_kill or t_rejoin < t <= t_end for sid, v in st.items()),
+            key=lambda x: -x[2])[:5],
+        "last_pull_after_kill_s": t_end - t_kill,
+        "max_staleness_after_last_pull_s": max(
+            (max(st.values()) for t, st in both if t > t_end), default=None),
+        "final_mirrored_shards": sorted(final_hosts),
+    }}
+    r = rec["shard_telem"]
+    if not before or not after or final_hosts != ids:
+        raise AssertionError(f"{label}: the shard processes' series under shard=/host= "
+                             f"missing from the scrape: {r}")
+    if r["max_staleness_both_up_s"] >= TELEM_FRESH_S:
+        raise AssertionError(f"{label}: shard TELEM stale while both were up: {r}")
+    if (r["victim_max_staleness_outage_s"] or 0.0) <= TELEM_FRESH_S:
+        raise AssertionError(f"{label}: the killed shard never read stale: {r}")
     return rec
 
 
@@ -2470,14 +2867,10 @@ def _sampler_phase(torch, dev):
     one shard process killed by ``kill_shard``, the direct data plane under
     its chaos drills, then the pull-learn step card vs CPU."""
     launches = _sampler_leg(torch, dev, "sampler_loopback", ())
-    launches.update(_sampler_leg(
-        torch, dev, "sampler_shard_procs",
-        ("--shard-procs", str(SAMPLER_SHARDS), "--chaos-spec", SAMPLER_KILL_SPEC),
-        SAMPLER_PROCS_TRAIN_PHASES))
-    launches.update(_sampler_leg(
-        torch, dev, "direct_chaos",
-        ("--shard-procs", str(SAMPLER_SHARDS), "--shard-direct", "1",
-         "--chaos-spec", DIRECT_CHAOS_SPEC), DIRECT_CHAOS_PHASES))
+    launches.update(_sampler_leg(torch, dev, "sampler_shard_procs", SAMPLER_KILL_FLAGS,
+                                 SAMPLER_PROCS_TRAIN_PHASES))
+    launches.update(_sampler_leg(torch, dev, "direct_chaos", DIRECT_CHAOS_FLAGS,
+                                 DIRECT_CHAOS_PHASES))
     _sampler_card_vs_cpu(torch, dev)
     return launches
 
@@ -2563,6 +2956,7 @@ def main() -> int:
     timed("pipeline_off_anchor", _pipeline_off_anchor, torch, dev)
     launches.update(timed("pipelined", _pipelined_phase, torch, dev))
     launches.update(timed("fleet", _fleet_phase, torch, dev))
+    launches.update(timed("fleet_autoscale", _fleet_autoscale_leg, torch, dev))
     launches.update(timed("sampler", _sampler_phase, torch, dev))
     timed("mujoco_probe", _mujoco_probe)
     phase_seconds["total"] = time.perf_counter() - t_start

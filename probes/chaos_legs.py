@@ -4,12 +4,13 @@
     python3 probes/chaos_legs.py
 
 Run from the root of a checkout on a machine with one CUDA card (about
-five minutes on an H100 host).  Builds the port's kernels, then runs
+six minutes on an H100 host).  Builds the port's kernels, then runs
 ``fleet_chaos`` (the central drain under kill_actor, corrupt_frame,
-stall_actor and kill_ingest_conn), ``direct_chaos`` (the direct data
-plane under its five drills) and the shard-procs leg with
-``kill_shard@p20``, each exactly as ``chip_smoke.py`` runs it: any failed
-check raises.  The first line is the card's name and power limit; each
+stall_actor and kill_ingest_conn, with ``--obs-fleet 1``),
+``fleet_autoscale`` (a kill and a stall replaced by the autoscaler),
+``direct_chaos`` (the direct data plane under its five drills) and the
+shard-procs leg with ``kill_shard@p20`` and ``--obs-fleet 1``, each
+exactly as ``chip_smoke.py`` runs it: any failed check raises.  The first line is the card's name and power limit; each
 leg prints its JSON record; the last line gives each leg's scatter
 launches and seconds.  Here the fleet leg runs first in the process, so
 its first drain also pays the card's warm-up.
@@ -42,14 +43,12 @@ def main() -> int:
         k.library()
     legs = (
         ("fleet_chaos", lambda: cs._fleet_chaos_leg(torch, dev)),
+        ("fleet_autoscale", lambda: cs._fleet_autoscale_leg(torch, dev)),
         ("direct_chaos", lambda: cs._sampler_leg(
-            torch, dev, "direct_chaos",
-            ("--shard-procs", str(cs.SAMPLER_SHARDS), "--shard-direct", "1",
-             "--chaos-spec", cs.DIRECT_CHAOS_SPEC), cs.DIRECT_CHAOS_PHASES)),
+            torch, dev, "direct_chaos", cs.DIRECT_CHAOS_FLAGS, cs.DIRECT_CHAOS_PHASES)),
         ("sampler_shard_procs", lambda: cs._sampler_leg(
-            torch, dev, "sampler_shard_procs",
-            ("--shard-procs", str(cs.SAMPLER_SHARDS), "--chaos-spec",
-             cs.SAMPLER_KILL_SPEC), cs.SAMPLER_PROCS_TRAIN_PHASES)),
+            torch, dev, "sampler_shard_procs", cs.SAMPLER_KILL_FLAGS,
+            cs.SAMPLER_PROCS_TRAIN_PHASES)),
     )
     launches, seconds = {}, {}
     for label, leg in legs:

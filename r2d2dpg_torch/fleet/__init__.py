@@ -17,7 +17,8 @@ untouched phase-locked schedule.
 - ``ingest``     -- ``IngestServer`` (N connections -> staging queue) and
   ``FleetLearner`` (the queue's single consumer: drain -> add -> learn).
 - ``supervisor`` -- spawn/monitor/restart-with-backoff of the actors and
-  of the shard processes.
+  of the shard processes, and the runtime resize API (``retire_slot``,
+  ``set_target``, ``restart="policy"``).
 - ``sampler``    -- in-network experience sampling (``--replay-shards N``):
   replay shards at the ingest edge, ``SamplerLearner`` pulls ``[K, B]``
   batches through SAMPLE_REQ/BATCH frames and writes PRIO back.
@@ -27,9 +28,12 @@ untouched phase-locked schedule.
   with ``--shard-direct`` the actors dial their shard themselves.
 - ``chaos``      -- seeded fault drills at the fleet's real boundaries
   (SIGKILL, stall, byte flip, socket close, partition), ``--chaos-spec``.
+- ``autoscaler`` -- the health -> actuation loop (``--autoscale``): health
+  findings become spawn/replace/retire actions on the supervisors.
 
-Not ported yet (ROADMAP.md): the fleet telemetry (TELEM) plane and the
-autoscaler with the rest of the supervisor's resize API.
+With ``--obs-fleet`` the actors and the shard processes push their
+registry snapshots as TELEM frames, which the learner folds into its
+``/metrics`` scrape under ``actor=``/``shard=`` and ``host=`` labels.
 """
 
 from r2d2dpg_torch.fleet.actor import (
@@ -38,6 +42,11 @@ from r2d2dpg_torch.fleet.actor import (
     actor_seed,
     build_actor_trainer,
     structural_argv,
+)
+from r2d2dpg_torch.fleet.autoscaler import (
+    AutoscaleConfig,
+    Autoscaler,
+    ScaleAction,
 )
 from r2d2dpg_torch.fleet.chaos import ChaosEngine, Fault, parse_chaos_spec
 from r2d2dpg_torch.fleet.ingest import (
@@ -68,6 +77,8 @@ from r2d2dpg_torch.fleet.wire import WireConfig
 
 __all__ = [
     "ActorSupervisor",
+    "AutoscaleConfig",
+    "Autoscaler",
     "ChaosEngine",
     "Fault",
     "FleetActor",
@@ -78,6 +89,7 @@ __all__ = [
     "RemoteShard",
     "RemoteShardSet",
     "SamplerLearner",
+    "ScaleAction",
     "ShardProcTier",
     "ShardServer",
     "ShardSet",

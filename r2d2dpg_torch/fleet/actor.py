@@ -34,8 +34,11 @@ its acks and ships SEQS there itself; the control connection then carries
 one small K_STATS frame of accounting per phase, and any failure of the
 data leg falls back loudly to the learner-forwarded path.  ``--chaos-spec``
 arms the actor-side drills that target this actor (``fleet/chaos.py``:
-``stall_actor``, ``corrupt_frame``, ``partition_data_plane``).  Not ported:
-TELEM pushes (``--telem-every``); the parser refuses that flag.
+``stall_actor``, ``corrupt_frame``, ``partition_data_plane``).  With
+``--telem-every S`` (the train CLI's ``--obs-fleet`` spawns ``1.0``) the
+actor pushes its registry snapshot to the learner as a fire-and-forget
+TELEM frame every S seconds: forced right after HELLO, then on the
+warm-up and collect cadence, so a wedged actor's silence is the signal.
 
 CLI (spawned by the supervisor; runnable by hand for debugging)::
 
@@ -70,6 +73,7 @@ from r2d2dpg_torch.fleet.transport import (
     K_PARAMS,
     K_SEQS,
     K_STATS,
+    K_TELEM,
     MAX_FRAME_BYTES,
     READ_DEADLINE_S,
     WARMUP_DEADLINE_S,
@@ -188,6 +192,7 @@ class FleetActor:
         seed: Optional[int] = None,
         wire_config: Optional[wire.WireConfig] = None,
         max_frame_bytes: int = MAX_FRAME_BYTES,
+        telem_every: float = 0.0,
         trace_sample: float = 0.0,
         read_deadline_s: float = READ_DEADLINE_S,
         auth_token: Optional[str] = None,
@@ -203,7 +208,11 @@ class FleetActor:
         self.read_deadline_s = read_deadline_s
         self.warmup_deadline_s = max(WARMUP_DEADLINE_S, read_deadline_s)
         self.auth_token = auth_token
+        # TELEM cadence in seconds (0 = off) and the experience-path trace
+        # sampling rate (0 = off).
+        self.telem_every = float(telem_every)
         self.trace_sample = float(trace_sample)
+        self._telem_last = 0.0
         # Must mirror the learner's --fleet-wire/--fleet-compress and frame
         # ceiling: the ingest server refuses a mismatched HELLO.
         self.wire_config = (wire_config or wire.WireConfig()).validate()
@@ -272,6 +281,10 @@ class FleetActor:
         self._obs_bytes_in = reg.counter(
             "r2d2dpg_actor_bytes_in_total",
             "bytes this actor received off the fleet wire (acks + params)",
+        )
+        self._obs_telem = reg.counter(
+            "r2d2dpg_actor_telem_sent_total",
+            "TELEM registry snapshots pushed to the learner's ingest",
         )
         self._obs_reconnects = reg.counter(
             "r2d2dpg_actor_reconnects_total",
@@ -477,6 +490,7 @@ class FleetActor:
             # The HELLO ack may carry the shard advert: dial before the
             # first phase so batch one already skips the forward hop.
             self._maybe_update_assignment(hello_ack)
+            self._maybe_send_telem(sock, force=True)
             while (
                 max_phases is None or self._phase < max_phases
             ) and not self._drain.is_set():
@@ -491,6 +505,9 @@ class FleetActor:
                 tr = obs_trace.maybe_start(self.trace_sample)
                 staged_host = self.host_batch()
                 if staged_host is None:
+                    # Warm-up: the TELEM cadence still ticks, or the
+                    # warm-up phases would read as a wedged actor.
+                    self._maybe_send_telem(sock)
                     continue
                 self._batches += 1
                 if tr is not None:
@@ -557,6 +574,7 @@ class FleetActor:
                 # rejoined under a bumped epoch); an unchanged one on a
                 # live leg is a no-op.
                 self._maybe_update_assignment(ack)
+                self._maybe_send_telem(sock)
             try:
                 send_frame(sock, K_BYE, b"")  # wire-lint: control
             except OSError:
@@ -569,6 +587,33 @@ class FleetActor:
                 sock.close()
             except OSError:
                 pass
+
+    def _maybe_send_telem(self, sock, force: bool = False) -> None:
+        """Push this process's registry snapshot as a TELEM frame when
+        ``telem_every`` seconds have passed (or ``force``).  No ack: the
+        next SEQS ack paces the connection."""
+        if self.telem_every <= 0.0:
+            return
+        now = time.monotonic()
+        if not force and now - self._telem_last < self.telem_every:
+            return
+        self._telem_last = now
+        self._obs_telem.inc()
+        self._obs_bytes_out.inc(
+            send_frame(
+                sock,
+                K_TELEM,
+                pack_obj(  # wire-lint: control
+                    {
+                        "actor_id": self.actor_id,
+                        "host": socket.gethostname(),
+                        "t_wall": time.time(),
+                        "snapshot": get_registry().snapshot(),
+                    }
+                ),
+                max_frame_bytes=self.max_frame_bytes,
+            )
+        )
 
     # ------------------------------------------------- direct data plane
     def _maybe_update_assignment(self, ack: Any) -> None:
@@ -683,7 +728,9 @@ class FleetActor:
             return False
 
     def _await_data_ack(self, sock) -> Any:
-        """Read to the shard's next ACK on the data leg."""
+        """Read to the shard's next ACK on the data leg.  The shard rides
+        TELEM pushes on any authenticated connection; the learner is their
+        consumer, so here they are counted and dropped."""
         while True:
             kind, payload = recv_frame_heartbeat(
                 sock,
@@ -692,6 +739,8 @@ class FleetActor:
                 bytes_out=self._obs_data_out.inc,
             )
             self._obs_data_in.inc(HEADER_BYTES + len(payload))
+            if kind == K_TELEM:
+                continue
             if kind == K_ACK:
                 return unpack_obj(payload)  # wire-lint: control
             raise FrameError(f"unexpected data-plane frame kind {kind}")
@@ -812,6 +861,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="frame ceiling; must mirror the learner's")
     p.add_argument("--flight-path", default=None,
                    help="dump this actor's flight ring here on exit")
+    p.add_argument("--telem-every", type=float, default=0.0,
+                   help="seconds between TELEM registry-snapshot pushes to "
+                   "the learner's ingest (0 = off; --obs-fleet spawns 1.0)")
     p.add_argument("--trace-sample", type=float, default=0.0,
                    help="experience-path trace sampling rate in [0, 1] "
                    "(0 = off: no trace sidecar, byte-identical wire)")
@@ -899,6 +951,7 @@ def main(argv=None) -> None:
             seed=args.seed,
             wire_config=wire_config,
             max_frame_bytes=args.max_frame_bytes,
+            telem_every=args.telem_every,
             trace_sample=args.trace_sample,
             read_deadline_s=args.read_deadline,
             auth_token=auth_token,

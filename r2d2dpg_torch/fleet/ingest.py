@@ -54,8 +54,14 @@ every ack carries the actor's shard advert ``{shard, address, epoch}``;
 the actor then ships SEQS to its shard and sends only a K_STATS frame of
 accounting here, banked through ``shards.bank_stats`` and acked like SEQS.
 
-Not ported: folding the actors' TELEM pushes into the registry mirror
-(``--obs-fleet``).  Unlike the JAX learner, nothing compiles the coalesce
+Fleet telemetry (``--obs-fleet``): an actor pushes its registry snapshot
+as a fire-and-forget TELEM frame; the handler folds it into the process
+``RemoteMirror`` under ``actor=``/``host=`` labels (the actor id is the
+connection's HELLO'd one, never the payload's) and keeps a per-actor
+staleness gauge, armed at HELLO.  A malformed push costs one
+``telem_malformed`` flight event, never the connection.
+
+Unlike the JAX learner, nothing compiles the coalesce
 widths in the background (eager torch has no compile to hide: the pull
 limit is ``drain_coalesce`` from the first drain).
 """
@@ -84,6 +90,7 @@ from r2d2dpg_torch.fleet.transport import (
     K_PARAMS,
     K_SEQS,
     K_STATS,
+    K_TELEM,
     FrameError,
     PeerDeadError,
     pack_obj,
@@ -94,7 +101,12 @@ from r2d2dpg_torch.fleet.transport import (
     send_frame,
     to_host,
 )
-from r2d2dpg_torch.obs import flight_event, get_device_monitor, get_registry
+from r2d2dpg_torch.obs import (
+    flight_event,
+    get_device_monitor,
+    get_registry,
+    get_remote_mirror,
+)
 from r2d2dpg_torch.obs.device import count_flops
 from r2d2dpg_torch.obs import trace as obs_trace
 from r2d2dpg_torch.obs.quality import (
@@ -254,11 +266,15 @@ class IngestServer:
         if expected_actors:
             # The spawn target on the scrape itself: the /health
             # actors_down rule compares the supervisor's
-            # r2d2dpg_fleet_actors_alive against it.
-            reg.gauge(
+            # r2d2dpg_fleet_actors_alive against it, and an autoscale
+            # resize moves it (set_expected_actors).
+            self._obs_expected = reg.gauge(
                 "r2d2dpg_fleet_actors_expected",
                 "the fleet's actor spawn target (--actors N)",
-            ).set(float(expected_actors))
+            )
+            self._obs_expected.set(float(expected_actors))
+        else:
+            self._obs_expected = None
         self._obs_peer_dead = reg.counter(
             "r2d2dpg_fleet_peer_dead_total",
             "connections reaped after a silent heartbeat deadline (the "
@@ -279,6 +295,22 @@ class IngestServer:
             "r2d2dpg_fleet_compress_ratio",
             "declared decompressed size over received payload size of the "
             "last SEQS frame (1.0 = uncompressed wire)",
+        )
+        # The fleet telemetry plane: TELEM snapshots fold into the process
+        # RemoteMirror (the exporter merges it into one /metrics page), and
+        # each actor gets a live staleness gauge.
+        self._mirror = get_remote_mirror()
+        self._telem_last: Dict[str, float] = {}
+        self._obs_telem = reg.counter(
+            "r2d2dpg_fleet_telem_frames_total",
+            "TELEM registry snapshots received from actors",
+            labelnames=("actor",),
+        )
+        self._obs_telem_staleness = reg.gauge(
+            "r2d2dpg_fleet_telem_staleness_seconds",
+            "seconds since this actor's last TELEM snapshot (a wedged or "
+            "dead actor goes visibly stale)",
+            labelnames=("actor",),
         )
 
     # ------------------------------------------------------------- lifecycle
@@ -374,6 +406,19 @@ class IngestServer:
         waits shed after ``shed_after_s`` from here on."""
         self._steady.set()
 
+    @property
+    def is_steady(self) -> bool:
+        """Whether the warm-up grace has ended (mark_steady ran): the
+        autoscaler defers its load rules until then."""
+        return self._steady.is_set()
+
+    def set_expected_actors(self, n: int) -> None:
+        """Move ``r2d2dpg_fleet_actors_expected`` to a landed autoscale
+        target, so ``actors_down`` judges against the current population.
+        A no-op for a server built without an expected count."""
+        if self._obs_expected is not None:
+            self._obs_expected.set(float(n))
+
     # ---------------------------------------------------------------- params
     def publish_params(self, version: int, params: Any) -> None:
         """Swap in a new versioned param snapshot (numpy trees: the caller
@@ -383,6 +428,35 @@ class IngestServer:
             self._param_version = int(version)
             self._params_obj = params
             self._params_frame = None
+
+    def _fold_telem(self, actor: str, telem: Any) -> None:
+        """Fold one actor's TELEM snapshot into the remote mirror under
+        ``actor=<id>`` (+ ``host=``).  Keyed by actor id, so a reconnecting
+        actor updates its source.  Raises on a malformed payload."""
+        if not isinstance(telem, dict):
+            raise ValueError("TELEM payload is not a dict")
+        snapshot = telem.get("snapshot")
+        if not isinstance(snapshot, dict):
+            raise ValueError("TELEM snapshot is not a dict")
+        labels = {"actor": actor}
+        host = telem.get("host")
+        if host:
+            labels["host"] = str(host)
+        self._mirror.update(f"actor:{actor}", labels, snapshot)
+        with self._lock:
+            self._telem_last[actor] = time.monotonic()
+        self._arm_telem_staleness(actor)
+        self._obs_telem.labels(actor=actor).inc()
+
+    def _arm_telem_staleness(self, actor: str) -> None:
+        """Install the actor's staleness gauge (idempotent).  Armed at
+        HELLO, so an actor that never delivers a well-formed TELEM shows a
+        growing staleness instead of no series."""
+        with self._lock:
+            self._telem_last.setdefault(actor, time.monotonic())
+        self._obs_telem_staleness.labels(actor=actor).set_fn(
+            lambda a=actor: time.monotonic() - self._telem_last.get(a, 0.0)
+        )
 
     def _params_snapshot(self):
         """Lazy pack on the FIRST push (a handler thread), once per
@@ -600,6 +674,9 @@ class IngestServer:
                     )
                 )
                 return
+            # Staleness counts from this accepted HELLO, not from a first
+            # well-formed TELEM (which may never come).
+            self._arm_telem_staleness(actor)
             sent_version = self._push_params_if_stale(conn, 0, bytes_out)
             # A fresh tier publishes its address file a beat after the
             # first HELLOs: wait for it, so no warm-up batch is forwarded.
@@ -618,6 +695,17 @@ class IngestServer:
                 bytes_in.inc(HEADER_BYTES + len(payload))
                 if kind == K_BYE:
                     return
+                if kind == K_TELEM:
+                    # Fire-and-forget: fold or drop.  A malformed snapshot
+                    # costs one flight event, never the connection.
+                    try:
+                        self._fold_telem(
+                            actor, unpack_obj(payload)  # wire-lint: control
+                        )
+                    except Exception as e:  # noqa: BLE001 - quarantine
+                        flight_event("telem_malformed", actor=actor,
+                                     error=f"{type(e).__name__}: {e}")
+                    continue
                 if kind == K_STATS:
                     # The batch went straight to the actor's shard; this
                     # frame carries only the accounting deltas, banked

@@ -46,8 +46,14 @@ Chaos: ``--chaos-spec`` arms ``stall_shard`` (``fleet/chaos.py``
 ``ShardChaos``) on the SEQS frames this process absorbs; every reply
 but the HELLO ack waits out the stall.
 
-Not ported yet (ROADMAP.md): TELEM registry pushes (``--telem-every``);
-the parser refuses that flag.
+Telemetry (``--telem-every S``; the train CLI's ``--obs-fleet`` spawns the
+tier at 1.0): a shard server pushes its slice of the process registry as
+a TELEM frame right after a reply, at most every S seconds, on whichever
+authenticated connection is due.  The learner's ``RemoteShard._recv``
+folds a TELEM that arrives before the reply it waits for into the process
+``RemoteMirror`` under ``shard=``/``host=`` labels, and
+``RemoteShardSet`` keeps a per-shard staleness gauge whose clock restarts
+at an epoch-bumped rejoin's HELLO.
 """
 
 from __future__ import annotations
@@ -76,6 +82,7 @@ from r2d2dpg_torch.fleet.transport import (
     K_PRIO,
     K_SAMPLE_REQ,
     K_SEQS,
+    K_TELEM,
     MAX_FRAME_BYTES,
     READ_DEADLINE_S,
     FrameError,
@@ -93,6 +100,7 @@ from r2d2dpg_torch.obs import (
     flight_event,
     get_flight_recorder,
     get_registry,
+    get_remote_mirror,
     set_flight_identity,
 )
 from r2d2dpg_torch.obs import trace as obs_trace
@@ -111,6 +119,26 @@ class ShardUnavailableError(Exception):
     def __init__(self, msg: str, *, not_up: bool = False):
         super().__init__(msg)
         self.not_up = not_up
+
+
+# The learner-side fold's own instruments never ride a TELEM push: when
+# server and learner share a registry (in-process servers), an echoed
+# push-time copy would shadow the live series on the merged scrape.
+_TELEM_ECHO_EXCLUDE = frozenset(
+    {
+        "r2d2dpg_shard_telem_staleness_seconds",
+        "r2d2dpg_shard_telem_frames_total",
+    }
+)
+# Whole learner-owned families, excluded for the same reason (a real shard
+# process owns none of them).
+_TELEM_ECHO_EXCLUDE_PREFIXES = (
+    "r2d2dpg_fleet_",  # ingest/actor-side accounting
+    "r2d2dpg_sampler_",  # sampler-learner instruments
+    "r2d2dpg_health_",  # verdict engine
+    "r2d2dpg_dp_",  # dp-learner gauges
+    "r2d2dpg_train_",  # trainer scalars
+)
 
 
 # ---------------------------------------------------------------- server
@@ -148,6 +176,8 @@ class ShardServer:
         read_deadline_s: float = READ_DEADLINE_S,
         auth_token: Optional[str] = None,
         chaos: Optional[fleet_chaos.ShardChaos] = None,
+        telem_every: float = 0.0,
+        telem_proc_wide: bool = True,
     ):
         self.shard = shard
         self.epoch = int(epoch)
@@ -157,6 +187,14 @@ class ShardServer:
         self.max_frame_bytes = max_frame_bytes
         self.read_deadline_s = read_deadline_s
         self.auth_token = auth_token
+        # TELEM pushes every ``telem_every`` seconds (0: none).  Exactly one
+        # server per process (``telem_proc_wide``) pushes the unlabelled
+        # process-wide series, so a process hosting M shards does not push
+        # M copies of them.
+        self.telem_every = float(telem_every)
+        self.telem_proc_wide = bool(telem_proc_wide)
+        self._telem_last = 0.0
+        self._telem_lock = threading.Lock()
         # Within-shard draws come from THIS incarnation's stream, seeded by
         # (seed, shard, epoch): a restarted shard never replays its
         # predecessor's draws against a fresh ring.
@@ -296,6 +334,57 @@ class ShardServer:
             "evictions": s.evictions_total,
         }
 
+    def _telem_snapshot(self) -> Dict[str, dict]:
+        """This shard's slice of the process registry: of the samples
+        labelled ``shard=``, only this shard's (the learner's mirror puts
+        its own ``shard=`` label over them); the unlabelled process-wide
+        ones only from the ``telem_proc_wide`` server; never the fold's own
+        instruments nor a learner-owned family."""
+        sid = str(self.shard.shard_id)
+        out: Dict[str, dict] = {}
+        for name, entry in get_registry().snapshot().items():
+            if name in _TELEM_ECHO_EXCLUDE or name.startswith(
+                _TELEM_ECHO_EXCLUDE_PREFIXES
+            ):
+                continue
+            samples = []
+            for s in entry.get("samples", ()):
+                labels = s.get("labels")
+                if isinstance(labels, dict) and "shard" in labels:
+                    if labels["shard"] == sid:
+                        samples.append(s)
+                elif self.telem_proc_wide:
+                    samples.append(s)
+            if samples or entry.get("error"):
+                out[name] = {**entry, "samples": samples}
+        return out
+
+    def _maybe_send_telem(self, conn: socket.socket, force: bool = False):
+        """Push a TELEM snapshot right after a reply when one is due (or
+        ``force``).  No ack; a send failure takes the handler's torn-
+        connection path."""
+        if self.telem_every <= 0.0:
+            return
+        now = time.monotonic()
+        with self._telem_lock:
+            if not force and now - self._telem_last < self.telem_every:
+                return
+            self._telem_last = now
+        send_frame(
+            conn,
+            K_TELEM,
+            pack_obj(  # wire-lint: control
+                {
+                    "shard": self.shard.shard_id,
+                    "epoch": self.epoch,
+                    "host": socket.gethostname(),
+                    "t_wall": time.time(),
+                    "snapshot": self._telem_snapshot(),
+                }
+            ),
+            max_frame_bytes=self.max_frame_bytes,
+        )
+
     def _handle(self, ident: int, conn: socket.socket) -> None:
         peer = "?"
         unpacker = wire.TreeUnpacker(max_frame_bytes=self.max_frame_bytes)
@@ -332,6 +421,9 @@ class ShardServer:
                 return
             count_out(send_frame(
                 conn, K_ACK, pack_obj(self._advert())))  # wire-lint: control
+            # The learner arms staleness at HELLO; this forced push arms
+            # it with data.
+            self._maybe_send_telem(conn, force=True)
             while not self._stop.is_set():
                 kind, payload = recv_frame_heartbeat(
                     conn, max_frame_bytes=self.max_frame_bytes,
@@ -362,6 +454,7 @@ class ShardServer:
                     self._gate()
                     count_out(send_frame(
                         conn, K_ACK, pack_obj(self._advert())))  # wire-lint: control
+                    self._maybe_send_telem(conn)
                 elif kind == K_SAMPLE_REQ:
                     req = wire.unpack_sample_req(unpacker.unpack(payload))
                     # A sampled REQ's sidecar carries the trace id; its
@@ -380,6 +473,7 @@ class ShardServer:
                         self._gate()
                         send_frame(conn, K_ACK, pack_obj(  # wire-lint: control
                             {**self._advert(), "poke": True}))
+                        self._maybe_send_telem(conn)
                         continue
                     try:
                         s = self.shard.sample(req["quota"], self._rng)
@@ -390,6 +484,7 @@ class ShardServer:
                         self._gate()
                         send_frame(conn, K_ACK, pack_obj(  # wire-lint: control
                             {**self._advert(), "empty": True}))
+                        self._maybe_send_telem(conn)
                         continue
                     t_draw_end = time.time()
                     self._gate()
@@ -426,6 +521,7 @@ class ShardServer:
                                              **attrs)
                         obs_trace.record_hop("batch_encode", t_draw_end, t_sent,
                                              tr.trace_id, **attrs)
+                    self._maybe_send_telem(conn)
                 elif kind == K_PRIO:
                     upd = wire.unpack_prio_update(unpacker.unpack(payload))
                     if upd["shard"] != self.shard.shard_id:
@@ -449,6 +545,7 @@ class ShardServer:
                     send_frame(conn, K_ACK, pack_obj(  # wire-lint: control
                         {"code": OK, "applied": int(applied), "stale": bool(stale),
                          "epoch": self.epoch}))
+                    self._maybe_send_telem(conn)
                 else:
                     raise FrameError(f"unexpected frame kind {kind}")
         except PeerDeadError as e:
@@ -487,6 +584,9 @@ class RemoteShard:
         max_frame_bytes: int,
         read_deadline_s: float,
         on_bytes: Optional[Callable[[str, int], None]] = None,
+        on_telem: Optional[Callable[[bytes], None]] = None,
+        on_hello: Optional[Callable[[int], None]] = None,
+        on_telem_bytes: Optional[Callable[[int], None]] = None,
     ):
         self.shard_id = int(shard_id)
         self.address_fn = address_fn
@@ -495,6 +595,14 @@ class RemoteShard:
         self.max_frame_bytes = max_frame_bytes
         self.read_deadline_s = read_deadline_s
         self._on_bytes = on_bytes or (lambda leg, n: None)
+        # TELEM riders are counted apart from the sampling legs' bytes, so
+        # --obs-fleet never moves sample_bytes_total.  ``_recv`` folds a
+        # TELEM that precedes a reply through ``on_telem``; ``on_hello``
+        # gets each incarnation's epoch after a HELLO (the staleness clock
+        # restarts with the epoch).
+        self._on_telem_bytes = on_telem_bytes or (lambda n: None)
+        self._on_telem = on_telem
+        self._on_hello = on_hello or (lambda epoch: None)
         self.epoch = 0
         self.alive = True  # optimistic until a dial fails
         self.ever_connected = False
@@ -551,6 +659,7 @@ class RemoteShard:
             except OSError:
                 pass
             raise ShardUnavailableError(f"shard {self.shard_id} HELLO failed: {e}")
+        self._on_hello(self.epoch)
         self._legs[leg] = sock
         self.ever_connected = True
         # Wire state lives and dies with the socket.
@@ -600,7 +709,21 @@ class RemoteShard:
             self.evictions = ev
 
     def _recv(self, sock) -> Tuple[int, bytes]:
-        return recv_frame_heartbeat(sock, max_frame_bytes=self.max_frame_bytes)
+        """One reply read that tolerates interleaved TELEM pushes: each is
+        folded (a malformed or raising fold costs a flight event, never
+        the connection) and the read goes on to the real reply."""
+        while True:
+            kind, payload = recv_frame_heartbeat(
+                sock, max_frame_bytes=self.max_frame_bytes)
+            if kind != K_TELEM:
+                return kind, payload
+            self._on_telem_bytes(HEADER_BYTES + len(payload))
+            if self._on_telem is not None:
+                try:
+                    self._on_telem(payload)
+                except Exception as e:  # noqa: BLE001 - fold quarantine
+                    flight_event("shard_telem_malformed", shard=self.shard_id,
+                                 error=f"{type(e).__name__}: {e}")
 
     def _exchange(self, leg: str, do_exchange):
         """One send/recv exchange on a leg, re-dialing a torn connection
@@ -769,6 +892,7 @@ class RemoteShardSet:
         self._rejoin_lock = threading.Lock()
         self.sample_bytes_total = 0
         self.forward_bytes_total = 0
+        self.telem_bytes_total = 0  # TELEM riders, counted apart
         self.deaths_total = 0
         self.rejoins_total = 0
         self._on_sample_bytes: Callable[[int], None] = lambda n: None
@@ -790,13 +914,36 @@ class RemoteShardSet:
             "r2d2dpg_shard_quota_renorms_total",
             "quota renormalizations over surviving shards (one per shard death)",
         )
+        # The shard TELEM fold: pushes land in the process RemoteMirror
+        # under shard=/host=, with a per-shard staleness clock keyed
+        # (shard, epoch), armed at HELLO.
+        self._mirror = get_remote_mirror()
+        self._telem_lock = threading.Lock()
+        self._telem_last: Dict[Tuple[int, int], float] = {}
+        self._telem_epoch: Dict[int, int] = {}
+        self._obs_telem = reg.counter(
+            "r2d2dpg_shard_telem_frames_total",
+            "TELEM registry snapshots received from standalone shard "
+            "processes",
+            labelnames=("shard",),
+        )
+        self._obs_telem_staleness = reg.gauge(
+            "r2d2dpg_shard_telem_staleness_seconds",
+            "seconds since this shard's last TELEM snapshot under its "
+            "live epoch (a wedged or dead shard goes visibly stale; the "
+            "clock restarts at an epoch-bumped rejoin's HELLO)",
+            labelnames=("shard",),
+        )
         psum, occ, evict = shard_instruments()
         self.shards = [
             RemoteShard(
                 i, (lambda sid=i: address_fn(sid)),
                 wire_config=wire_config, auth_token=auth_token,
                 max_frame_bytes=max_frame_bytes, read_deadline_s=read_deadline_s,
-                on_bytes=self._count_bytes)
+                on_bytes=self._count_bytes,
+                on_telem_bytes=self._count_telem_bytes,
+                on_telem=lambda payload, sid=i: self._fold_shard_telem(sid, payload),
+                on_hello=lambda epoch, sid=i: self._arm_telem_staleness(sid, epoch))
             for i in range(num_shards)
         ]
         for i, s in enumerate(self.shards):
@@ -816,10 +963,71 @@ class RemoteShardSet:
             with self._live_lock:
                 self.forward_bytes_total += n
 
+    def _count_telem_bytes(self, n: int) -> None:
+        with self._live_lock:
+            self.telem_bytes_total += n
+
     def bind_sample_bytes(self, fn: Callable[[int], None]) -> None:
         """The sampler's byte counter rides every sampler-leg frame
         (REQ/BATCH/PRIO and their acks, headers included)."""
         self._on_sample_bytes = fn
+
+    # ------------------------------------------------------------ telemetry
+    def _arm_telem_staleness(self, shard_id: int, epoch: int) -> None:
+        """Arm one shard's staleness clock at HELLO.  A new epoch is a new
+        incarnation: its clock starts at its own HELLO, so a respawn's
+        absorb phase never reads as stale.  The same epoch (a reconnect)
+        keeps its clock, so a wedge from before the re-dial stays visible."""
+        with self._telem_lock:
+            prev = self._telem_epoch.get(shard_id)
+            if prev != epoch:
+                self._telem_last.pop((shard_id, prev), None)
+                self._telem_epoch[shard_id] = epoch
+                self._telem_last[(shard_id, epoch)] = time.monotonic()
+            else:
+                self._telem_last.setdefault((shard_id, epoch), time.monotonic())
+        self._obs_telem_staleness.labels(shard=str(shard_id)).set_fn(
+            lambda sid=shard_id: self._telem_staleness_s(sid))
+
+    def _telem_staleness_s(self, shard_id: int) -> float:
+        with self._telem_lock:
+            epoch = self._telem_epoch.get(shard_id)
+            t = self._telem_last.get((shard_id, epoch))
+        return 0.0 if t is None else time.monotonic() - t
+
+    def _fold_shard_telem(self, shard_id: int, payload: bytes) -> None:
+        """Fold one shard's TELEM push into the mirror under ``shard=``/
+        ``host=``, keyed ``shard:<id>``.  The identity is the connection's:
+        a payload that claims another shard is malformed.  Raises on a
+        malformed payload (``RemoteShard._recv`` turns that into a
+        ``shard_telem_malformed`` event)."""
+        telem = unpack_obj(payload)  # wire-lint: control
+        if not isinstance(telem, dict):
+            raise ValueError("TELEM payload is not a dict")
+        snapshot = telem.get("snapshot")
+        if not isinstance(snapshot, dict):
+            raise ValueError("TELEM snapshot is not a dict")
+        claimed = telem.get("shard")
+        if claimed is not None and int(claimed) != int(shard_id):
+            raise ValueError(
+                f"TELEM claims shard {claimed} on shard {shard_id}'s connection")
+        labels = {"shard": str(shard_id)}
+        host = telem.get("host")
+        if host:
+            labels["host"] = str(host)
+        self._mirror.update(f"shard:{shard_id}", labels, snapshot)
+        epoch = telem.get("epoch")
+        with self._telem_lock:
+            if isinstance(epoch, int):
+                if self._telem_epoch.get(shard_id) != epoch:
+                    self._telem_last.pop(
+                        (shard_id, self._telem_epoch.get(shard_id)), None)
+                self._telem_epoch[shard_id] = epoch
+            epoch = self._telem_epoch.get(shard_id)
+            self._telem_last[(shard_id, epoch)] = time.monotonic()
+        self._obs_telem_staleness.labels(shard=str(shard_id)).set_fn(
+            lambda sid=shard_id: self._telem_staleness_s(sid))
+        self._obs_telem.labels(shard=str(shard_id)).inc()
 
     def close(self) -> None:
         self._stop.set()
@@ -1032,6 +1240,7 @@ class ShardProcTier:
         chaos_spec: Optional[str] = None,
         flight_dir: Optional[str] = None,
         supervisor_config: Optional[SupervisorConfig] = None,
+        telem_every: float = 0.0,
     ):
         if num_procs < 1:
             raise ValueError("num_procs must be >= 1")
@@ -1052,6 +1261,8 @@ class ShardProcTier:
         self.heartbeat_s = heartbeat_s
         self.chaos_spec = chaos_spec  # forwarded verbatim (stall_shard)
         self.flight_dir = flight_dir
+        # The processes' TELEM cadence, forwarded on argv (0: off).
+        self.telem_every = float(telem_every)
         self._epochs: Dict[int, int] = {}
         self._sup_config = supervisor_config
         self.supervisor: Optional[ActorSupervisor] = None
@@ -1104,6 +1315,8 @@ class ShardProcTier:
         ]
         if self.chaos_spec:
             argv += ["--chaos-spec", self.chaos_spec]
+        if self.telem_every > 0.0:
+            argv += ["--telem-every", str(self.telem_every)]
         if self.flight_dir:
             argv += ["--flight-path",
                      os.path.join(self.flight_dir, f"flight_shard{proc_index}.jsonl")]
@@ -1181,6 +1394,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--chaos-spec", default=None,
                    help="seeded chaos schedule; this process fires the "
                    "stall_shard faults that target its --proc-index")
+    p.add_argument("--telem-every", type=float, default=0.0,
+                   help="seconds between TELEM registry-snapshot pushes "
+                   "to the learner over the authenticated shard legs "
+                   "(0 = off; train.py --obs-fleet spawns 1.0)")
     p.add_argument("--num-shard-procs", type=int, default=1)
     p.add_argument("--proc-index", type=int, default=0)
     p.add_argument("--flight-path", default=None,
@@ -1238,7 +1455,10 @@ def main(argv=None) -> None:
             address=args.bind, epoch=args.epoch, seed=args.seed,
             wire_config=wire_config, max_frame_bytes=args.max_frame_bytes,
             read_deadline_s=args.read_deadline, auth_token=auth_token,
-            chaos=chaos,
+            chaos=chaos, telem_every=args.telem_every,
+            # One server per process pushes the unlabelled process-wide
+            # series (its siblings share the registry).
+            telem_proc_wide=(sid == shard_ids[0]),
         ).start()
         for sid in shard_ids
     ]

@@ -1,8 +1,7 @@
 """Actor supervision: spawn, watch, restart with exponential backoff.
 
-Port of ``r2d2dpg_tpu/fleet/supervisor.py`` without the rest of its
-runtime-resize API (``retire_slot``/``set_target``, which come with the
-autoscaler).  The supervisor owns the fleet's processes: it spawns each
+Port of ``r2d2dpg_tpu/fleet/supervisor.py``.  The supervisor owns the
+fleet's processes: it spawns each
 worker as a subprocess, polls liveness on a monitor thread, and restarts
 any actor that exits while the fleet is live, after an exponential backoff
 (a crash-looping actor must not fork-bomb the host) that resets once an
@@ -18,6 +17,14 @@ with a HELLO-refusal code (``utils/codes.py``: every restart would be
 refused again); ``gave_up()`` names such slots, and the fleet learner
 treats them as an error.
 
+``restart="policy"`` hands a crashed slot's respawn to a policy engine
+(``fleet/autoscaler.py``): the crash is recorded and the slot left down
+until ``spawn_slot``.  The runtime resize API (``target``,
+``slot_states``, ``retire_slot``, ``set_target``) drains a slot out with
+SIGUSR1 (the actor finishes its phase, sends BYE and exits 0), reaps that
+exit as ``<role>_drained`` and escalates SIGTERM, then SIGKILL, when the
+drain is ignored past ``retire_grace_s``.
+
 Every child runs on the CPU: its environment hides every card
 (``CUDA_VISIBLE_DEVICES=""``), an actor's argv carries ``--device cpu``
 and a shard process makes no CUDA call, so only the learner opens a CUDA
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import signal
 import subprocess
 import sys
 import threading
@@ -45,6 +53,13 @@ class SupervisorConfig:
     healthy_after_s: float = 60.0  # uptime that resets the backoff ladder
     max_restarts: Optional[int] = None  # per actor; None = never give up
     poll_s: float = 0.2
+    # Who owns a crashed slot's respawn: "backoff" is the ladder above;
+    # "policy" records the crash and leaves the slot down for a policy
+    # engine's spawn_slot.  Terminal exits give the slot up either way.
+    restart: str = "backoff"
+    # retire_slot's drain window before SIGTERM (and, one more window
+    # later, SIGKILL).
+    retire_grace_s: float = 10.0
 
 
 @dataclasses.dataclass
@@ -56,6 +71,12 @@ class _ActorSlot:
     consecutive_crashes: int = 0
     restart_at: Optional[float] = None  # backoff deadline when dead
     gave_up: bool = False
+    # A retired slot is draining out of the fleet: its exit is never a
+    # crash to restart.  ``retire_at`` is the escalation deadline;
+    # ``term_sent`` marks SIGTERM already sent.
+    retired: bool = False
+    retire_at: Optional[float] = None
+    term_sent: bool = False
 
 
 class ActorSupervisor:
@@ -99,6 +120,10 @@ class ActorSupervisor:
         self._slots: Dict[int, _ActorSlot] = {
             i: _ActorSlot() for i in range(num_actors)
         }
+        # The runtime population target: set_target moves it.  num_actors
+        # stays the startup count (chaos hashing and the sigma ladder's
+        # width are fixed at spawn time).
+        self._target = num_actors
         self._lock = threading.Lock()
         self._stopping = threading.Event()
         self._monitor: Optional[threading.Thread] = None
@@ -192,21 +217,53 @@ class ActorSupervisor:
             return True
         return False
 
+    # ------------------------------------------------------- runtime resize
+    @property
+    def target(self) -> int:
+        """The current population target (set_target moves it)."""
+        with self._lock:
+            return self._target
+
+    def slot_states(self) -> Dict[int, str]:
+        """Each slot's state: ``live``, ``backoff`` (the ladder owns a
+        pending respawn), ``down`` (dead and nobody owns a respawn: a
+        policy-mode corpse), ``retired`` or ``gave_up``."""
+        out: Dict[int, str] = {}
+        with self._lock:
+            for i, s in self._slots.items():
+                if s.gave_up:
+                    out[i] = "gave_up"
+                elif s.retired:
+                    out[i] = "retired"
+                elif s.proc is not None and s.proc.poll() is None:
+                    out[i] = "live"
+                elif s.restart_at is not None:
+                    out[i] = "backoff"
+                else:
+                    out[i] = "down"
+        return out
+
     def spawn_slot(self, actor_id: int, *, origin: str = "resize") -> bool:
-        """Explicitly (re)spawn one slot, a given-up one included.  False
-        (the caller retries later) while the slot's process is alive, while
-        the backoff ladder owns a pending respawn, or when the spawn fails
-        (a ``<role>_spawn_failed`` event)."""
+        """Explicitly (re)spawn one slot, a given-up or a new one included.
+        False (the caller keeps it pending and retries) while the slot's
+        process is alive or draining, while the backoff ladder owns a
+        pending respawn, or when the spawn fails (a ``<role>_spawn_failed``
+        event)."""
         with self._lock:
             if self._stopping.is_set():
                 return False
-            slot = self._slots[actor_id]
+            slot = self._slots.get(actor_id)
+            if slot is None:
+                slot = self._slots[actor_id] = _ActorSlot()
             if slot.proc is not None and slot.proc.poll() is None:
                 return False
             if slot.restart_at is not None and not slot.gave_up:
                 return False
             resurrected = slot.gave_up
             slot.gave_up = False
+            slot.retired = False
+            slot.retire_at = None
+            slot.term_sent = False
             slot.consecutive_crashes = 0
             try:
                 self._spawn(actor_id)
@@ -218,6 +275,79 @@ class ActorSupervisor:
             flight_event(f"{self.role}_spawn", **{self.id_field: actor_id},
                          origin=origin, resurrected=resurrected)
             return True
+
+    def retire_slot(self, actor_id: int, *, origin: str = "resize") -> bool:
+        """Drain one slot out of the fleet (the scale-down actuator).  The
+        slot is marked retired first, so the monitor never reads its exit
+        as a crash; then the worker gets SIGUSR1.  False for a slot that is
+        absent, already retired or given up."""
+        with self._lock:
+            slot = self._slots.get(actor_id)
+            if slot is None or slot.retired or slot.gave_up:
+                return False
+            slot.retired = True
+            slot.restart_at = None
+            slot.retire_at = self._clock() + self.config.retire_grace_s
+            slot.term_sent = False
+            proc = slot.proc
+            draining = proc is not None and proc.poll() is None
+            if draining:
+                try:
+                    proc.send_signal(signal.SIGUSR1)
+                except (OSError, ValueError):
+                    draining = False
+            flight_event(f"{self.role}_retire", **{self.id_field: actor_id},
+                         origin=origin, draining=draining)
+            return True
+
+    def set_target(self, n: int, *,
+                   lane_limit: Optional[int] = None) -> Dict[str, List[int]]:
+        """Resize the live population to ``n`` slots.  Scale-down retires
+        the highest active slots (lane 0, the greediest explorer, goes
+        last); scale-up fills the lowest free lane, never a given-up slot
+        (that needs an explicit spawn_slot) nor one still draining, and no
+        lane at or past ``lane_limit``.  A spawn that cannot land stops the
+        walk.  Returns the slot ids spawned and retiring."""
+        if n < 0:
+            raise ValueError("set_target: n must be >= 0")
+        with self._lock:
+            previous, self._target = self._target, n
+        if n != previous:
+            flight_event(f"{self.role}_set_target", target=n,
+                         previous=previous)
+        spawned: List[int] = []
+        retiring: List[int] = []
+        while True:
+            with self._lock:
+                active = sorted(i for i, s in self._slots.items()
+                                if not s.retired and not s.gave_up)
+            if len(active) <= n:
+                break
+            if not self.retire_slot(active[-1], origin="resize"):
+                break
+            retiring.append(active[-1])
+        while True:
+            with self._lock:
+                active = {i for i, s in self._slots.items()
+                          if not s.retired and not s.gave_up}
+                if len(active) >= n:
+                    break
+                lane = 0
+                while True:
+                    s = self._slots.get(lane)
+                    if lane not in active and (
+                        s is None
+                        or (not s.gave_up
+                            and (s.proc is None or s.proc.poll() is not None))
+                    ):
+                        break
+                    lane += 1
+                if lane_limit is not None and lane >= lane_limit:
+                    lane = None
+            if lane is None or not self.spawn_slot(lane, origin="resize"):
+                break
+            spawned.append(lane)
+        return {"spawned": spawned, "retiring": retiring}
 
     # -------------------------------------------------------------- internal
     def _spawn(self, actor_id: int) -> None:
@@ -254,6 +384,30 @@ class ActorSupervisor:
         with self._lock:
             for actor_id, slot in self._slots.items():
                 if slot.gave_up:
+                    continue
+                if slot.retired:
+                    # Draining out: the exit was asked for.  Reap it as a
+                    # drain, never as a crash, and never arm the ladder.
+                    proc = slot.proc
+                    if proc is None:
+                        continue  # already reaped
+                    if proc.poll() is not None:
+                        flight_event(f"{self.role}_drained",
+                                     **{self.id_field: actor_id},
+                                     returncode=proc.returncode)
+                        slot.proc = None
+                        slot.retire_at = None
+                        continue
+                    if slot.retire_at is not None and now >= slot.retire_at:
+                        # The drain was ignored: SIGTERM, then SIGKILL one
+                        # more grace window later.
+                        if not slot.term_sent:
+                            proc.terminate()
+                            slot.term_sent = True
+                            slot.retire_at = now + cfg.retire_grace_s
+                        else:
+                            proc.kill()
+                            slot.retire_at = None  # the next poll reaps
                     continue
                 if slot.proc is not None and slot.proc.poll() is None:
                     # Healthy uptime resets the backoff ladder.
@@ -300,6 +454,11 @@ class ActorSupervisor:
                             **{self.id_field: actor_id},
                             restarts=slot.restarts,
                         )
+                        continue
+                    if cfg.restart == "policy":
+                        # Policy-owned recovery: leave the slot down; a
+                        # spawn_slot is the only way back.
+                        slot.proc = None
                         continue
                     slot.restart_at = now + backoff
                 if slot.restart_at is not None and now >= slot.restart_at:

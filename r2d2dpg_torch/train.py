@@ -16,7 +16,10 @@
          [--fleet-compress none|zlib|zstd] [--drain-coalesce K] \
          [--fleet-heartbeat S] [--fleet-token T] [--trace-sample R] \
          [--replay-shards M [--shard-procs P] [--shard-pullers N] \
-          [--shard-prefetch 1] [--shard-direct 1]] [--chaos-spec SPEC]] \
+          [--shard-prefetch 1] [--shard-direct 1]] [--chaos-spec SPEC] \
+         [--obs-fleet 1] [--autoscale 1 [--autoscale-dry-run 1] \
+          [--autoscale-min N] [--autoscale-max N] [--autoscale-cooldown S] \
+          [--autoscale-every S] [--autoscale-fire K]]] \
         [--minutes M] [--watchdog 0|1] [--watchdog-grad-norm X] \
         [--watchdog-param-norm X] [--nan-inject-phase K] [--nan-debug] \
         [--obs-port P [--obs-host H]] [--flight-path F] \
@@ -81,6 +84,22 @@ pull clock, the actors and shard processes (the spec is forwarded) fire
 theirs.  Each injection is a ``chaos_inject`` flight event and a
 ``r2d2dpg_fleet_chaos_drills_total{fault}`` count; a fault that never
 fired is a ``chaos_unfired`` event and a warning at the end.
+
+``--obs-fleet 1`` (with ``--actors``) spawns the actors, and the shard
+processes, with ``--telem-every 1.0``: their registry snapshots fold into
+this process's ``/metrics`` under ``actor=``/``shard=`` and ``host=``
+labels, with per-process staleness gauges, and ``/health`` arms its
+``telem_stale`` rule.  ``--autoscale 1`` (with ``--actors``) runs the
+policy loop of ``fleet/autoscaler.py`` over the in-process health engine:
+crashed actors stay down (``restart="policy"``) until the loop replaces
+them, a silent actor is replaced, and the population moves between
+``--autoscale-min`` and ``--autoscale-max`` on the load rules, gated by
+``--autoscale-fire`` consecutive evaluations every ``--autoscale-every``
+seconds and ``--autoscale-cooldown`` seconds between actions.  The actors'
+sigma ladder spans ``max(--actors, --autoscale-max)`` lanes.
+``--autoscale-dry-run 1`` decides without acting (the ladder keeps
+restarting).  The ``fleet:`` line then carries ``autoscale_actions``,
+``autoscale_decisions`` and ``autoscale_target``.
 
 Telemetry (``obs/``): ``--obs-port P`` serves the process registry over
 HTTP (``/metrics``, ``/metrics.json``, ``/health``, ``/healthz``; 0 binds an
@@ -304,6 +323,41 @@ def parse_args(argv=None) -> argparse.Namespace:
         "close), and must recover through the documented path; every "
         "injection lands in flight.jsonl + "
         "r2d2dpg_fleet_chaos_drills_total")
+    # Autoscaler: the health -> actuation policy loop over the supervisor.
+    p.add_argument(
+        "--autoscale", type=int, default=0, choices=[0, 1],
+        help="close the health→actuation loop (fleet/autoscaler.py): a "
+        "policy thread evaluates the in-process health engine and maps "
+        "findings to hysteresis-gated spawn/kill/replace actions through "
+        "the supervisor's runtime resize API; crashed actors are "
+        "replaced by POLICY (SupervisorConfig restart='policy') instead "
+        "of the reflexive backoff ladder.  0 = off (structurally inert; "
+        "default)")
+    p.add_argument(
+        "--autoscale-dry-run", type=int, default=0, choices=[0, 1],
+        help="walk the full decision path — streaks, cooldown, window "
+        "budget — logging autoscale_decision events, but never actuate "
+        "(the supervisor keeps its reflexive ladder)")
+    p.add_argument(
+        "--autoscale-min", type=int, default=1, metavar="N",
+        help="scale-down floor on the actor population (default 1)")
+    p.add_argument(
+        "--autoscale-max", type=int, default=0, metavar="N",
+        help="scale-up ceiling on the actor population; also the GLOBAL "
+        "sigma-ladder width (actors spawn with --num-actors max so every "
+        "mintable lane has its own exploration sigma).  0 = pinned to "
+        "--actors (no scale-up; default)")
+    p.add_argument(
+        "--autoscale-cooldown", type=float, default=30.0, metavar="S",
+        help="minimum seconds between landed autoscale actions (default "
+        "30)")
+    p.add_argument(
+        "--autoscale-every", type=float, default=2.0, metavar="S",
+        help="health-evaluation cadence of the policy loop (default 2)")
+    p.add_argument(
+        "--autoscale-fire", type=int, default=3, metavar="K",
+        help="consecutive evaluations a health rule must fire before it "
+        "may act (hysteresis; default 3)")
     p.add_argument(
         "--trace-sample", type=float, default=0.0, metavar="RATE",
         help="experience-path tracing: sample this fraction of staged "
@@ -363,6 +417,15 @@ def parse_args(argv=None) -> argparse.Namespace:
         "or ./flight.jsonl without --logdir); sampled trace spans dump "
         "to trace.json next to it")
     p.add_argument(
+        "--obs-fleet", type=int, default=0, choices=[0, 1],
+        help="fleet-wide metric aggregation: with --actors N, actors push "
+        "~1 Hz TELEM registry snapshots that fold into this process's "
+        "/metrics under actor=/host= labels (one scrape point per fleet, "
+        "with per-actor staleness gauges); with --shard-procs N the "
+        "standalone shard processes push the same TELEM over their "
+        "authenticated learner legs (shard=/host= labels, per-shard "
+        "staleness armed at HELLO and reset on epoch-bumped rejoin)")
+    p.add_argument(
         "--health-wait-p99", type=float, default=0.5, metavar="S",
         help="/health 'learner_starving' threshold: learner/sampler wait "
         "p99 above this reads as the fleet failing to feed the learner")
@@ -420,9 +483,9 @@ def _health_config(args) -> obs.HealthConfig:
         telem_stale_after_s=args.health_stale_after,
         expected_actors=args.actors or 0,
         expected_shard_procs=args.shard_procs or 0,
-        # TELEM pushes ride --obs-fleet, which the port does not have yet:
-        # without them a growing staleness clock is configuration.
-        telem_expected=False,
+        # Staleness clocks arm at HELLO regardless, but TELEM pushes ride
+        # --obs-fleet only: without it a growing clock is configuration.
+        telem_expected=bool(args.obs_fleet),
         quality_max_lag=args.quality_max_lag,
     )
 
@@ -436,6 +499,17 @@ def _fleet_only_knobs(args) -> bool:
         or args.fleet_token is not None
         or args.fleet_heartbeat is not None
         or args.fleet_shed_after is not None
+    )
+
+
+def _autoscale_only_knobs(args) -> bool:
+    return (
+        bool(args.autoscale_dry_run)
+        or args.autoscale_min != 1
+        or args.autoscale_max != 0
+        or args.autoscale_cooldown != 30.0
+        or args.autoscale_every != 2.0
+        or args.autoscale_fire != 3
     )
 
 
@@ -456,6 +530,29 @@ def _refuse(args) -> None:
         raise SystemExit(
             "--shard-pullers must be >= 0 (0 = one puller per shard, "
             "capped at 8)")
+    if args.autoscale:
+        if args.autoscale_cooldown <= 0:
+            raise SystemExit("--autoscale-cooldown must be > 0 seconds")
+        if args.autoscale_every <= 0:
+            raise SystemExit("--autoscale-every must be > 0 seconds")
+        if args.autoscale_fire < 1:
+            raise SystemExit("--autoscale-fire must be >= 1")
+        # Bounds are judged against --actors; without it the pairing row
+        # below is the authority.
+        if args.actors:
+            amin = args.autoscale_min
+            amax = args.autoscale_max or args.actors
+            if amin < 1:
+                raise SystemExit("--autoscale-min must be >= 1")
+            if amax < amin:
+                raise SystemExit(
+                    f"--autoscale-max ({amax}) must be >= --autoscale-min "
+                    f"({amin})")
+            if args.actors > amax:
+                raise SystemExit(
+                    f"--autoscale-max ({amax}) must be >= --actors "
+                    f"({args.actors}): the startup population must fit "
+                    f"the sigma-ladder bound the autoscaler enforces")
     if args.fleet_heartbeat is not None and args.fleet_heartbeat <= 0:
         raise SystemExit("--fleet-heartbeat must be > 0 seconds")
     if not 0.0 <= args.trace_sample <= 1.0:
@@ -497,6 +594,17 @@ def _refuse(args) -> None:
             "--fleet-heartbeat/--fleet-token/--fleet-shed-after/"
             "--chaos-spec require --actors N (the in-process schedules "
             "have no fleet wire; docs/TOPOLOGY.md)")
+    if args.autoscale and not args.actors:
+        raise SystemExit(
+            "--autoscale 1 requires --actors N: the policy loop actuates "
+            "the fleet supervisor's population, which the in-process "
+            "schedules do not spawn (docs/TOPOLOGY.md)")
+    if not args.autoscale and _autoscale_only_knobs(args):
+        raise SystemExit(
+            "--autoscale-dry-run/--autoscale-min/--autoscale-max/"
+            "--autoscale-cooldown/--autoscale-every/--autoscale-fire "
+            "require --autoscale 1 (without the policy loop they would "
+            "silently configure nothing; docs/TOPOLOGY.md)")
     if not args.actors and args.replay_shards and args.replay_shards > 1:
         raise SystemExit(
             "--replay-shards N >= 2 requires --actors N (replay shards "
@@ -554,6 +662,13 @@ def _refuse(args) -> None:
         raise SystemExit(
             "--trace-sample requires --actors N or --pipeline 1 (the "
             "phase-locked fused schedule has no staging path to trace; "
+            "docs/TOPOLOGY.md)")
+    if args.obs_fleet and not args.actors:
+        # JAX's row also admits a multi-process run, which the port does
+        # not have yet.
+        raise SystemExit(
+            "--obs-fleet requires --actors N or a multi-process run (a "
+            "single process already scrapes itself on --obs-port; "
             "docs/TOPOLOGY.md)")
 
 
@@ -666,11 +781,14 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
     ``replay_capacity`` is the config's capacity, which the shards own."""
     from r2d2dpg_torch.fleet import (
         ActorSupervisor,
+        AutoscaleConfig,
+        Autoscaler,
         ChaosEngine,
         FleetConfig,
         FleetLearner,
         SamplerLearner,
         ShardProcTier,
+        SupervisorConfig,
         WireConfig,
         default_actor_argv,
         load_fleet_counters,
@@ -735,6 +853,9 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
             heartbeat_s=heartbeat_s,
             chaos_spec=args.chaos_spec,
             flight_dir=args.logdir,
+            # The shard processes join the --obs-fleet plane at the
+            # actors' cadence.
+            telem_every=1.0 if args.obs_fleet else 0.0,
         )
     if args.replay_shards:
         try:
@@ -771,6 +892,10 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
         "--compress", args.fleet_compress,
         "--max-frame-bytes", str(fleet_transport.MAX_FRAME_BYTES),
     ]
+    if args.obs_fleet:
+        # The ~1 Hz TELEM cadence: every actor's registry lands in this
+        # process's /metrics under actor=/host= labels.
+        extra += ["--telem-every", "1.0"]
     if args.trace_sample and not args.replay_shards:
         # The sampler traces its own pull chain, so the actors' SEQS
         # sidecar would buy nothing there.
@@ -788,17 +913,27 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
         spawn_env = dict(os.environ)
         spawn_env["R2D2DPG_FLEET_TOKEN"] = fleet_token
 
+    # The global sigma-ladder width: every lane the autoscaler may mint
+    # has its own sigma, and the chaos engine and the actors hash fault
+    # targets over the same count.  Without --autoscale it is --actors.
+    ladder_n = max(args.actors, args.autoscale_max if args.autoscale else 0)
+
     def argv_fn(i: int):
         argv = default_actor_argv(
             i, config_name=args.config, address=address,
-            num_actors=args.actors, seed=cfg.trainer.seed, extra=extra)
+            num_actors=ladder_n, seed=cfg.trainer.seed, extra=extra)
         if args.logdir:
             argv += ["--flight-path",
                      os.path.join(args.logdir, f"flight_actor{i}.jsonl")]
         return argv
 
+    sup_config = SupervisorConfig()
+    if args.autoscale and not args.autoscale_dry_run:
+        # Crash recovery becomes a decision: the slot stays down for the
+        # policy loop's spawn_slot (a dry run keeps the ladder).
+        sup_config = dataclasses.replace(sup_config, restart="policy")
     supervisor = ActorSupervisor(
-        argv_fn, args.actors, env=spawn_env,
+        argv_fn, args.actors, config=sup_config, env=spawn_env,
         log_path_fn=((lambda i: os.path.join(args.logdir, f"actor{i}.log"))
                      if args.logdir else None))
 
@@ -819,13 +954,35 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
     engine = None
     if faults:
         engine = ChaosEngine(
-            faults, seed=cfg.trainer.seed, num_actors=args.actors,
+            faults, seed=cfg.trainer.seed, num_actors=ladder_n,
             supervisor=supervisor, server=learner.server, shard_tier=shard_tier)
         run_kwargs["phase_fn"] = engine.on_phase
+    autoscaler = None
+    if args.autoscale:
+        # The exporter's armed engine when --obs-port is up (the engine is
+        # re-entrant), a private one otherwise.
+        health_engine = getattr(obs.current_exporter(), "health", None)
+        if health_engine is None:
+            health_engine = obs.HealthEngine(
+                _health_config(args), registry=obs.get_registry(),
+                mirror=obs.get_remote_mirror())
+        autoscaler = Autoscaler(
+            health_engine, supervisor, shard_tier=shard_tier,
+            config=AutoscaleConfig(
+                min_actors=args.autoscale_min,
+                max_actors=args.autoscale_max or args.actors,
+                cooldown_s=args.autoscale_cooldown,
+                eval_every_s=args.autoscale_every,
+                fire_threshold=args.autoscale_fire,
+                dry_run=bool(args.autoscale_dry_run)),
+            ready_fn=lambda: learner.server.is_steady,
+            expected_fn=learner.server.set_expected_actors)
     try:
         if shard_tier is not None:
             shard_tier.start()
         supervisor.start()
+        if autoscaler is not None:
+            autoscaler.start()
         state = learner.run(
             num_phases, state=state, log_every=args.log_every,
             metrics_fn=_make_executor_metrics_fn(logger, watchdog, num_phases),
@@ -835,6 +992,12 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
         health()
         stats = dict(learner.stats())
         stats["actor_restarts"] = float(supervisor.restarts_total)
+        if autoscaler is not None:
+            a_stats = autoscaler.stats()
+            stats["autoscale_actions"] = float(
+                sum(a_stats["autoscale_actions"].values()))
+            stats["autoscale_decisions"] = float(a_stats["autoscale_decisions"])
+            stats["autoscale_target"] = float(a_stats["autoscale_target"])
         if shard_tier is not None:
             stats["shard_restarts"] = float(shard_tier.restarts_total)
         for i in range(args.actors):
@@ -859,8 +1022,12 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
     finally:
         if args.logdir:
             _stamp_final_evidence(args)
-        # The supervisor first: its stopping flag makes an actor's lost
-        # connection an orderly exit, not a crash to restart.
+        # The autoscaler first of all: a tick racing the teardown would
+        # read stopped supervisors as a fleet to repopulate.  Then the
+        # supervisor: its stopping flag makes an actor's lost connection
+        # an orderly exit, not a crash to restart.
+        if autoscaler is not None:
+            autoscaler.stop()
         supervisor.stop()
         if shard_tier is not None:
             shard_tier.stop()

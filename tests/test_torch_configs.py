@@ -224,6 +224,96 @@ def test_chaos_and_shard_direct_refusals_equal_jax(name):
     assert _port_refusal(argv) == want
 
 
+# ------------------------------------------- fleet telemetry and autoscaler
+FLEET_PLANE_FLAGS = [
+    (),
+    ("--actors", "2", "--obs-fleet", "1"),
+    ("--actors", "2", "--autoscale", "1"),
+    ("--actors", "3", "--obs-fleet", "1", "--autoscale", "1", "--autoscale-dry-run", "1",
+     "--autoscale-min", "2", "--autoscale-max", "5", "--autoscale-cooldown", "3",
+     "--autoscale-every", "0.5", "--autoscale-fire", "2", "--health-stale-after", "4"),
+]
+FLEET_PLANE_DESTS = ("obs_fleet", "autoscale", "autoscale_dry_run", "autoscale_min",
+                     "autoscale_max", "autoscale_cooldown", "autoscale_every",
+                     "autoscale_fire")
+
+
+@pytest.mark.parametrize("flags", FLEET_PLANE_FLAGS, ids=lambda f: "_".join(f) or "defaults")
+def test_fleet_plane_flags_and_health_config_equal_jax(flags):
+    """``--obs-fleet`` and the ``--autoscale*`` flags parse to JAX's values
+    (defaults included), and ``_health_config`` builds JAX's config from
+    them: ``telem_expected`` follows ``--obs-fleet``."""
+    from r2d2dpg_tpu.train import _health_config as j_health_config
+    from r2d2dpg_torch.train import _health_config
+
+    argv = ["--config", "pendulum_tiny", *flags]
+    port, ref = parse_args(argv), j_parse_args(argv)
+    for dest in FLEET_PLANE_DESTS:
+        assert getattr(port, dest) == getattr(ref, dest), dest
+    assert dataclasses.asdict(_health_config(port)) == dataclasses.asdict(
+        j_health_config(ref))
+    assert _health_config(port).telem_expected is ("--obs-fleet" in flags)
+
+
+# JAX's refusal rows and value checks for these flags
+# (``r2d2dpg_tpu/topology.py``), each with JAX's text.
+FLEET_PLANE_REFUSALS = {
+    "autoscale_without_actors": ("--autoscale", "1"),
+    "autoscale_knobs_without_autoscale": ("--actors", "2", "--autoscale-dry-run", "1"),
+    "autoscale_min_without_autoscale": ("--actors", "2", "--autoscale-min", "2"),
+    "obs_fleet_without_fleet": ("--obs-fleet", "1"),
+    "autoscale_cooldown": ("--actors", "2", "--autoscale", "1", "--autoscale-cooldown", "0"),
+    "autoscale_every": ("--actors", "2", "--autoscale", "1", "--autoscale-every", "0"),
+    "autoscale_fire": ("--actors", "2", "--autoscale", "1", "--autoscale-fire", "0"),
+    "autoscale_min": ("--actors", "2", "--autoscale", "1", "--autoscale-min", "0"),
+    "autoscale_max_below_min": ("--actors", "2", "--autoscale", "1", "--autoscale-min",
+                                "3", "--autoscale-max", "2"),
+    "autoscale_max_below_actors": ("--actors", "3", "--autoscale", "1",
+                                   "--autoscale-max", "2"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLEET_PLANE_REFUSALS))
+def test_fleet_plane_refusals_equal_jax(name):
+    argv = ["--config", "pendulum_tiny", *FLEET_PLANE_REFUSALS[name]]
+    want = _jax_refusal(argv)
+    assert want.startswith("--")
+    assert _port_refusal(argv) == want
+
+
+@pytest.mark.fleet
+def test_train_cli_obs_fleet_autoscale_folds_actor_series(tmp_path, monkeypatch, capsys):
+    """``train --actors 2 --obs-fleet 1 --autoscale 1``: the actors' TELEM
+    series are on the final scrape under ``actor=``/``host=``, the
+    autoscale instruments are registered, and the ``fleet:`` line carries
+    the autoscaler's counts (a healthy run takes no action)."""
+    import socket
+
+    from r2d2dpg_torch.obs import registry as obs_registry
+    from r2d2dpg_torch.train import main
+
+    # A fresh registry and mirror: this file's earlier fleet runs leave
+    # staleness closures of stopped servers on the process registry.
+    monkeypatch.setattr(obs_registry, "_REGISTRY", obs_registry.Registry())
+    monkeypatch.setattr(obs_registry, "_MIRROR", obs_registry.RemoteMirror())
+    main(["--config", "pendulum_tiny", "--actors", "2", "--phases", "3", "--device", "cpu",
+          "--logdir", str(tmp_path), "--log-every", "1", "--obs-fleet", "1",
+          "--autoscale", "1", "--autoscale-every", "0.5"])
+    prom = (tmp_path / "metrics_final.prom").read_text()
+    host = socket.gethostname()
+    for a in ("0", "1"):
+        assert f'r2d2dpg_actor_phases_total{{actor="{a}",host="{host}"}}' in prom, a
+        assert f'r2d2dpg_fleet_telem_staleness_seconds{{actor="{a}"}}' in prom, a
+    assert "r2d2dpg_autoscale_target_actors 2" in prom.splitlines()
+    line = next(x for x in capsys.readouterr().out.splitlines()
+                if x.startswith("fleet: ") and "wall_s" in x)
+    words = line.split()[1:]
+    stats = dict(zip(words[::2], words[1::2]))
+    assert float(stats["autoscale_target"]) == 2.0
+    assert float(stats["autoscale_actions"]) == 0.0
+    assert float(stats["actor_restarts"]) == 0.0
+
+
 def test_nan_debug_switches_anomaly_mode():
     from r2d2dpg_torch.utils.profiling import nan_debug
 

@@ -782,11 +782,20 @@ def test_structural_argv_equals_jax():
 
 @pytest.mark.parametrize("flag", ["--telem-every"])
 def test_actor_parser_refuses_unported_flags(flag):
+    """The actor parser refuses what JAX's refuses: ``--telem-every``, once
+    unported, now parses to JAX's value, and a flag neither has is refused
+    by both."""
+    from r2d2dpg_tpu.fleet.actor import parse_args as j_parse
     from r2d2dpg_torch.fleet.actor import parse_args
 
-    with pytest.raises(SystemExit):
-        parse_args(["--config", "pendulum_tiny", "--connect", "x:1", "--actor-id",
-                    "0", "--num-actors", "1", flag, "1"])
+    base = ["--config", "pendulum_tiny", "--connect", "x:1", "--actor-id", "0",
+            "--num-actors", "1"]
+    dest = flag.lstrip("-").replace("-", "_")
+    assert getattr(parse_args([*base, flag, "1"]), dest) == getattr(
+        j_parse([*base, flag, "1"]), dest) == 1.0
+    for parse in (parse_args, j_parse):
+        with pytest.raises(SystemExit):
+            parse([*base, "--no-such-flag", "1"])
 
 
 def test_actor_overrides_equal_jax():

@@ -496,9 +496,14 @@ def test_train_cli_with_shard_subprocesses(tmp_path, capsys):
 def test_shard_parser_refuses_unported_flags(capsys):
     from r2d2dpg_torch.fleet.shard import parse_args
 
+    from r2d2dpg_tpu.fleet.shard import parse_args as j_parse
+
     base = ["--shard-ids", "0", "--capacity", "8"]
     assert parse_args(base).epoch == 1
-    for flag in ("--telem-every", "--shard-direct"):
+    # --telem-every is ported: it parses to JAX's value.
+    assert parse_args([*base, "--telem-every", "1"]).telem_every == j_parse(
+        [*base, "--telem-every", "1"]).telem_every == 1.0
+    for flag in ("--shard-direct",):
         with pytest.raises(SystemExit):
             parse_args([*base, flag, "1"])
 
