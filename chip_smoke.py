@@ -157,6 +157,23 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    learned on the card and on the CPU from the same params, params and
    priorities within 1e-4 of each tensor's largest value, and device-busy
    time of a whole pull-learn phase;
+14a. the multi-device legs, after every other leg, each on a process
+   group of one over NCCL that it tears down after it: ``learner_dp1``,
+   ``DPLearnerTrainer`` at the walker shapes beside the plain ``Trainer``
+   on an identical arena with the same draws, 45 learner steps each (timed
+   in turns): params and priorities bitwise equal, one scatter launch per
+   dp step, NCCL kernels on the card's timeline, device and wall ms beside
+   the plain learner's; ``train.main --config pendulum_r2d2 --phases 10
+   --log-every 16`` with ``--spmd 1`` (``spmd1``), then with
+   ``--learner-dp 1`` (``learner_dp1_cli``): the ``topology:`` stamp
+   printed and written to ``topology.txt``, one scatter launch per learner
+   step, the params and priorities bitwise the plain run of 7's, the dp
+   gauge ``r2d2dpg_dp_shard_occupancy{shard="0"}`` equal to the arena's
+   size; the fleet into the dp learner (``fleet_dp1``): ``train.main
+   --actors 2 --learner-dp 1 --phases 20``, every staged batch through
+   ``DPLearnerTrainer._put_staged``, one scatter launch per drain-learn
+   step, the topology stamp, the dp gauges at the drain width and the
+   arena's size;
 15. whether ``mujoco`` and ``dm_control`` import (informational);
 16. each phase's seconds, one JSON line per kernel summary (launches
    summed over every path, and the scatter's mean CUPTI µs inside the
@@ -170,6 +187,7 @@ or outside a checkout of the repo, it exits nonzero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import math
@@ -210,9 +228,11 @@ def _event_ms(fns, n):
             for name, p in pairs.items()}
 
 
-def _device_profile(fn, n):
+def _device_profile(fn, n, match=None):
     """(device ms per call, top kernels, device events per call) over ``n``
-    calls, from torch.profiler.
+    calls, from torch.profiler; with ``match`` (name -> predicate on a
+    lowercased event name) a fourth item: for each, the matching events'
+    count and ms per call.
 
     Sums the durations of the device-side events (kernels, copies) CUPTI
     recorded; ``None`` when the profiler saw no device time.  Only device
@@ -230,15 +250,24 @@ def _device_profile(fn, n):
             fn()
         torch.cuda.synchronize()
     by_name, count = {}, 0
+    matched = {k: [0, 0.0] for k in (match or {})}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            us = e.time_range.elapsed_us()
+            by_name[e.name] = by_name.get(e.name, 0.0) + us
             count += 1
+            for k, pred in (match or {}).items():
+                if pred(e.name.lower()):
+                    matched[k][0] += 1
+                    matched[k][1] += us
     total_us = sum(by_name.values())
+    matched = {k: {"count_per_call": c / n, "ms_per_call": us / n / 1e3}
+               for k, (c, us) in matched.items()}
     if total_us <= 0:
-        return None, [], None
+        return (None, [], None) + ((matched,) if match else ())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return total_us / n / 1e3, [(k[:60], v / n / 1e3) for k, v in top], count / n
+    out = (total_us / n / 1e3, [(k[:60], v / n / 1e3) for k, v in top], count / n)
+    return out + ((matched,) if match else ())
 
 
 def _card_line():
@@ -584,6 +613,155 @@ def _learner_phase(torch, dev):
             for label, config, kw in legs}
 
 
+# What the collectives of a world of one leave on the card's timeline:
+# NCCL's own kernels, and the device-to-device copies NCCL makes for an
+# out-of-place collective over one rank.
+COLLECTIVE_EVENTS = {
+    "nccl_kernels": lambda name: "nccl" in name or "onerank" in name,
+    "memcpy_dtod": lambda name: name.startswith("memcpy dtod"),
+}
+
+
+@contextlib.contextmanager
+def _group_of_one():
+    """Around a mesh leg: the process group of one it brings up is torn
+    down after it, so every other leg runs in a process without one."""
+    from r2d2dpg_torch.parallel import distributed
+
+    try:
+        yield
+    finally:
+        distributed.shutdown()
+
+
+def _learner_dp1_leg(torch, dev, steps=45, warmup=5, fill=4096, chunk=2048):
+    """``DPLearnerTrainer`` at walker_r2d2's published shapes on a world of
+    one over NCCL, beside the plain ``Trainer`` on an identical arena.
+
+    Both trainers' arenas get the same synthetic sequences and priorities
+    (``fill`` resident of capacity 100k), both learners the same init and
+    the same draws (``Draws(0)``); ``steps`` learner steps each through
+    ``Trainer._learn_step`` (sample, IS weights, learner step, write-back).
+    Then the params and the priorities must be bitwise equal, and the
+    scatter's launches must equal the dp learner's steps (counted over the dp learner's own steps: after a
+    warm-up of ``warmup`` steps each, the timed steps run in blocks that
+    take turns, plain, dp, dp, plain, so both see the same host).  Two
+    more steps of each are traced for device time, NCCL kernels and
+    device-to-device copies."""
+    import types
+
+    from r2d2dpg_torch.envs.core import EnvSpec
+    from r2d2dpg_torch.kernels import PRIORITY_SCATTER
+    from r2d2dpg_torch.parallel import DPLearnerTrainer, make_mesh
+    from r2d2dpg_torch.replay import SequenceBatch
+    from r2d2dpg_torch.training.draws import Draws
+    from r2d2dpg_torch.training.trainer import Trainer
+    from r2d2dpg_torch.tree import tree_leaves
+
+    config = _config("walker_r2d2")
+    obs_shape, _, act_dim = ENV_SHAPES[config.name]
+    env = types.SimpleNamespace(spec=EnvSpec(config.name, obs_shape, act_dim))
+    t_setup = time.perf_counter()
+    mesh = make_mesh(1, dev)
+    trainers = {"plain": Trainer(env, config.build_agent(env), config.trainer, dev),
+                "dp": DPLearnerTrainer(env, config.build_agent(env), config.trainer, mesh)}
+    agent = trainers["plain"].agent
+    seq_len, batch = agent.config.seq_len, config.trainer.batch_size
+    g = torch.Generator(device=dev).manual_seed(0)
+    states = {}
+    for start in range(0, fill, chunk):
+        n = min(chunk, fill - start)
+        seqs = SequenceBatch(
+            obs=torch.randn(n, seq_len, *obs_shape, generator=g, device=dev),
+            action=torch.rand(n, seq_len, act_dim, generator=g, device=dev) * 2 - 1,
+            reward=torch.randn(n, seq_len, generator=g, device=dev),
+            discount=torch.ones(n, seq_len, device=dev),
+            reset=torch.zeros(n, seq_len, device=dev),
+            carries={"actor": agent.actor.initial_carry(n, dev),
+                     "critic": agent.critic.initial_carry(n, dev)},
+        )
+        prios = torch.rand(n, generator=g, device=dev) + 0.5
+        for name, t in trainers.items():
+            if name not in states:
+                states[name] = t.arena.init_state(seqs)
+            t.arena.add(states[name], seqs, prios)
+    runs = {name: {"train": t.agent.init(torch.Generator().manual_seed(0), dev),
+                   "arena": states[name], "draws": Draws(0, dev)}
+            for name, t in trainers.items()}
+    torch.cuda.synchronize()
+    setup_seconds = time.perf_counter() - t_setup
+
+    def stepper(name):
+        t, r = trainers[name], runs[name]
+
+        def one_step():
+            r["train"], r["arena"], r["metrics"] = t._learn_step(
+                r["train"], r["arena"], r["draws"])
+        return one_step
+
+    # Warm-up, then the timed steps in blocks taking turns (plain, dp, dp,
+    # plain, ...), so both see the same host.  The dp learner's launches
+    # are counted over its own blocks only.
+    blocks = 4  # each learner's timed steps, in (plain, dp, dp, plain) turns
+    if (steps - warmup) % blocks:
+        raise ValueError(f"learner_dp1: {steps - warmup} timed steps in {blocks} blocks")
+    per_block = (steps - warmup) // blocks
+    order = ["plain"] * warmup + ["dp"] * warmup
+    order += [name for _ in range(blocks // 2) for name in ("plain", "dp", "dp", "plain")
+              for _ in range(per_block)]
+    seconds, launches = {"plain": 0.0, "dp": 0.0}, 0
+    steppers = {name: stepper(name) for name in trainers}
+    torch.cuda.synchronize()
+    k = 0
+    while k < len(order):
+        name = order[k]
+        n = warmup if k < 2 * warmup else per_block
+        before = PRIORITY_SCATTER.launches
+        t0 = time.perf_counter()
+        for _ in range(n):
+            steppers[name]()
+        torch.cuda.synchronize()
+        if k >= 2 * warmup:
+            seconds[name] += time.perf_counter() - t0
+        if name == "dp":
+            launches += PRIORITY_SCATTER.launches - before
+        k += n
+    rec = {}
+    for name in ("plain", "dp"):
+        metrics = runs[name]["metrics"]
+        if not bool(torch.isfinite(torch.stack(list(metrics.values()))).all()):
+            raise AssertionError(f"learner_dp1: non-finite {name} metrics")
+        rec[name] = {"steps_per_s": (steps - warmup) / seconds[name],
+                     "wall_ms_per_step": seconds[name] / (steps - warmup) * 1e3}
+    pairs = list(zip(tree_leaves(runs["plain"]["train"]), tree_leaves(runs["dp"]["train"]),
+                     strict=True))
+    params_bitwise = all(torch.equal(a, b) for a, b in pairs)
+    prio_bitwise = torch.equal(runs["plain"]["arena"].priority, runs["dp"]["arena"].priority)
+    for name in ("plain", "dp"):
+        device_ms, top, events, coll = _device_profile(stepper(name), 2, COLLECTIVE_EVENTS)
+        wall = rec[name]["wall_ms_per_step"]
+        rec[name].update(
+            device_busy_ms_per_step=device_ms, device_events_per_step=events,
+            device_idle_share=None if device_ms is None else 1 - device_ms / wall,
+            collectives_per_step=coll, top_device_ms_per_step=top)
+    out = {"config": "walker_r2d2", "batch": batch, "seq_len": seq_len,
+           "hidden": config.hidden, "capacity": config.trainer.capacity,
+           "resident": fill, "world_size": mesh.size,
+           "backend": torch.distributed.get_backend(),
+           "steps": steps, "timed_steps": steps - warmup,
+           "setup_seconds": setup_seconds, "scatter_launches": launches,
+           "params_bitwise": params_bitwise, "priorities_bitwise": prio_bitwise,
+           **rec}
+    print(json.dumps({"learner_dp1": out}), flush=True)
+    if launches != steps:
+        raise AssertionError(f"learner_dp1: {launches} scatter launches for {steps} steps")
+    if not (params_bitwise and prio_bitwise):
+        raise AssertionError(f"learner_dp1: not bitwise the plain trainer: {out}")
+    if not rec["dp"]["collectives_per_step"]["nccl_kernels"]["count_per_call"]:
+        raise AssertionError("learner_dp1: no NCCL kernel on the card's timeline")
+    return {"learner_dp1": launches}
+
+
 def _card_vs_cpu(torch, dev, name, pixels=False, knobs=(), dtype="float32", steps=3):
     """One learner variant at pendulum_tiny width on the card and on the CPU."""
     import dataclasses
@@ -806,6 +984,93 @@ def _trainer_phase(torch, dev, label="pendulum_r2d2_trainer", flags=(), after_ru
         "priorities_moved": moved, "filled_slots": filled,
     }}), flush=True)
     return {label: launches["priority_scatter"], **extra}
+
+
+# The topology stamp each mesh leg must print (the JAX package's
+# ``Topology.describe()`` for the same flags; tests/test_torch_topology.py
+# holds these strings to it).
+TOPOLOGY_STAMPS = {
+    ("--spmd", "1"): (
+        "collect=local ingest=fused sample=arena learn=spmd_mesh "
+        "schedule=phase_locked actors=0 replay_shards=0 shard_procs=0 "
+        "shard_direct=0 learner_dp=0 spmd=1"),
+    ("--learner-dp", "1"): (
+        "collect=local ingest=fused sample=arena learn=dp_mesh "
+        "schedule=phase_locked actors=0 replay_shards=0 shard_procs=0 "
+        "shard_direct=0 learner_dp=1 spmd=0"),
+    ("--actors", "2", "--learner-dp", "1"): (
+        "collect=fleet ingest=central_drain sample=arena learn=dp_mesh "
+        "schedule=drain_paced actors=2 replay_shards=0 shard_procs=0 "
+        "shard_direct=0 learner_dp=1 spmd=0"),
+}
+
+
+def _stamp_checked(label, flags, lines, logdir):
+    """The run printed ``topology: <stamp>`` and wrote it to topology.txt."""
+    want = TOPOLOGY_STAMPS[tuple(flags)]
+    with open(os.path.join(logdir, "topology.txt")) as f:
+        written = f.read()
+    if f"topology: {want}" not in lines or written != want + "\n":
+        raise AssertionError(f"{label}: topology stamp {lines[:3]} / {written!r}")
+    return want
+
+
+def _mesh_cli_legs(torch, dev, plain):
+    """``train.main --config pendulum_r2d2 --phases 10 --log-every 16`` with
+    ``--spmd 1``, then ``--learner-dp 1``: a process group of one over NCCL.
+    Each prints the topology stamp and writes topology.txt, launches the
+    scatter once per learner step (counts set to 0 just before and read
+    just after), and ends bitwise on ``plain``, the plain trainer run's
+    final params and priorities at the same seed.  The dp run's
+    ``r2d2dpg_dp_shard_occupancy{shard="0"}`` reads the arena's size."""
+    from r2d2dpg_torch import kernels
+    from r2d2dpg_torch.obs import get_registry
+    from r2d2dpg_torch.train import main as train_main
+    from r2d2dpg_torch.tree import tree_leaves
+
+    config = _config("pendulum_r2d2")
+    train_phases = 10
+    out = {}
+    for label, flags in (("spmd1", ("--spmd", "1")),
+                         ("learner_dp1_cli", ("--learner-dp", "1"))):
+        logdir = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")
+        buf = io.StringIO()
+        try:
+            for k in kernels.ALL_KERNELS:
+                k.launches = 0
+            t0 = time.perf_counter()
+            with _group_of_one(), contextlib.redirect_stdout(buf):
+                state = train_main([
+                    "--config", "pendulum_r2d2", "--phases", str(train_phases),
+                    "--log-every", "16", "--logdir", logdir, *flags,
+                ])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
+            lines = buf.getvalue().splitlines()
+            stamp = _stamp_checked(label, flags, lines, logdir)
+        finally:
+            shutil.rmtree(logdir, ignore_errors=True)
+        expected = train_phases * config.trainer.learner_steps
+        pairs = list(zip(tree_leaves(plain["train"]), tree_leaves(state.train), strict=True))
+        rec = {"flags": list(flags), "train_phases": train_phases, "run_seconds": seconds,
+               "topology": stamp, "scatter_launches": launches["priority_scatter"],
+               "params_bitwise": all(torch.equal(a, b) for a, b in pairs),
+               "priorities_bitwise": torch.equal(plain["priority"], state.arena.priority),
+               "last_log_line": [x for x in lines if x.startswith("phase ")][-1]}
+        if label == "learner_dp1_cli":
+            gauge = get_registry().get("r2d2dpg_dp_shard_occupancy")
+            rec["shard_occupancy"] = gauge.labels(shard="0").value
+            rec["arena_size"] = min(state.arena.total_added, config.trainer.capacity)
+        print(json.dumps({label: rec}), flush=True)
+        if launches["priority_scatter"] != expected:
+            raise AssertionError(f"{label}: scatter launches {launches}, expected {expected}")
+        if not (rec["params_bitwise"] and rec["priorities_bitwise"]):
+            raise AssertionError(f"{label}: not bitwise the plain run: {rec}")
+        if label == "learner_dp1_cli" and rec["shard_occupancy"] != rec["arena_size"]:
+            raise AssertionError(f"{label}: shard occupancy {rec}")
+        out[label] = launches["priority_scatter"]
+    return out
 
 
 TELEMETRY_TRAIN_PHASES = 12
@@ -2264,6 +2529,79 @@ def _fleet_autoscale_leg(torch, dev, label="fleet_autoscale"):
     return {label: launches["priority_scatter"]}
 
 
+FLEET_DP1_PHASES = 20
+
+
+def _fleet_dp1_leg(torch, dev, label="fleet_dp1"):
+    """``train.main --config pendulum_r2d2 --actors 2 --learner-dp 1
+    --phases 20``: the fleet's central drain into the dp learner on a
+    world of one.  Every staged batch goes through
+    ``DPLearnerTrainer._put_staged`` (counted), the scatter launches once
+    per drain-learn step (counts set to 0 just before and read just after),
+    the run prints the topology stamp, and the dp gauges read the drain
+    width and the arena's size."""
+    from r2d2dpg_torch import kernels
+    from r2d2dpg_torch.obs import get_registry
+    from r2d2dpg_torch.parallel import DPLearnerTrainer
+    from r2d2dpg_torch.train import main as train_main
+
+    tc = _config("pendulum_r2d2").trainer
+    flags = ("--actors", "2", "--learner-dp", "1")
+    logdir = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")
+    placed = []
+    plain_put = DPLearnerTrainer._put_staged
+
+    def put(self, staged, axis=0):
+        placed.append(axis)
+        return plain_put(self, staged, axis)
+
+    DPLearnerTrainer._put_staged = put
+    buf = io.StringIO()
+    try:
+        for k in kernels.ALL_KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        with _group_of_one(), contextlib.redirect_stdout(buf):
+            state = train_main([
+                "--config", "pendulum_r2d2", "--phases", str(FLEET_DP1_PHASES),
+                "--log-every", str(FLEET_DP1_PHASES // 2), "--logdir", logdir, *flags,
+            ])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
+        lines = buf.getvalue().splitlines()
+        stamp = _stamp_checked(label, flags, lines, logdir)
+    finally:
+        DPLearnerTrainer._put_staged = plain_put
+        shutil.rmtree(logdir, ignore_errors=True)
+    expected = FLEET_DP1_PHASES * tc.learner_steps
+    reg = get_registry()
+    stats_line = next(x for x in lines if x.startswith("fleet: ") and "wall_s" in x)
+    words = stats_line.split()[1:]
+    stats = {k: float(v) for k, v in zip(words[::2], words[1::2])}
+    rec = {"flags": list(flags), "train_phases": FLEET_DP1_PHASES, "run_seconds": seconds,
+           "topology": stamp, "scatter_launches": launches["priority_scatter"],
+           "put_staged_calls": len(placed), "put_staged_axes": sorted(set(placed)),
+           "learn_width": reg.get("r2d2dpg_dp_shard_learn_width").value,
+           "shard_occupancy": reg.get("r2d2dpg_dp_shard_occupancy").labels(shard="0").value,
+           "arena_size": min(state.arena.total_added, tc.capacity),
+           "drain_phases_per_s": stats.get("train_drain_phases_per_sec"),
+           "sheds": stats.get("sheds"), "restarts": stats.get("actor_restarts"),
+           "learner_step": state.train.step}
+    print(json.dumps({label: rec}), flush=True)
+    if launches["priority_scatter"] != expected or state.train.step != expected:
+        raise AssertionError(f"{label}: scatter launches {launches}, step "
+                             f"{state.train.step}, expected {expected}")
+    # One placement per staged batch: the absorbed ones and the drained ones.
+    if rec["put_staged_axes"] != [0] or len(placed) < expected:
+        raise AssertionError(f"{label}: _put_staged calls {rec}")
+    if rec["learn_width"] != tc.num_envs or rec["shard_occupancy"] != rec["arena_size"]:
+        raise AssertionError(f"{label}: dp gauges {rec}")
+    if not bool(torch.isfinite(state.arena.priority).all()):
+        raise AssertionError(f"{label}: non-finite arena priorities")
+    return {label: launches["priority_scatter"]}
+
+
 def _fleet_phase(torch, dev):
     """The fleet main path: both legs, then the card-vs-CPU drain."""
     launches = _fleet_leg(torch, dev, "fleet_f32", ())
@@ -2934,12 +3272,19 @@ def main() -> int:
     launches = timed("learner_legs", _learner_phase, torch, dev)
     timed("cuda_vs_cpu", _cuda_vs_cpu_phase, torch, dev)
     ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    plain = {}
+
+    def after_plain_run(state):
+        # The mesh CLI legs end bitwise on this run's params and priorities.
+        plain.update(train=copy.deepcopy(state.train),
+                     priority=state.arena.priority.clone())
+        return timed("checkpoint_serve_cli_eval", _checkpoint_phase,
+                     torch, dev, ckdir, state)
+
     try:
         launches.update(timed(
             "trainer", _trainer_phase, torch, dev, "pendulum_r2d2_trainer",
-            ("--checkpoint-dir", ckdir, "--checkpoint-every", "5"),
-            lambda state: timed("checkpoint_serve_cli_eval", _checkpoint_phase,
-                                torch, dev, ckdir, state)))
+            ("--checkpoint-dir", ckdir, "--checkpoint-every", "5"), after_plain_run))
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     phase_seconds["trainer"] -= phase_seconds["checkpoint_serve_cli_eval"]
@@ -2958,6 +3303,12 @@ def main() -> int:
     launches.update(timed("fleet", _fleet_phase, torch, dev))
     launches.update(timed("fleet_autoscale", _fleet_autoscale_leg, torch, dev))
     launches.update(timed("sampler", _sampler_phase, torch, dev))
+    # The mesh legs come last, so every leg before them runs in the process
+    # as it ran before they existed.
+    with _group_of_one():
+        launches.update(timed("learner_dp1", _learner_dp1_leg, torch, dev))
+    launches.update(timed("mesh_cli", _mesh_cli_legs, torch, dev, plain))
+    launches.update(timed("fleet_dp1", _fleet_dp1_leg, torch, dev))
     timed("mujoco_probe", _mujoco_probe)
     phase_seconds["total"] = time.perf_counter() - t_start
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)

@@ -30,6 +30,12 @@ above, unchanged):
   action gets ``clip(sigma * N(0, 1), ±target_policy_clip)`` noise.  The
   standard normal ``[U + n, B, A]`` (time-major) is an argument of
   ``learner_step``, so a test can hand the port the JAX package's draw.
+
+Data parallelism: ``axis_name`` (``"dp"``) makes ``learner_step`` average
+the critic and actor gradients over the agent's ``mesh``
+(``parallel/mesh.py``) before the clip and Adam, where the JAX step calls
+``lax.pmean``.  Each net's gradients travel as one flattened buffer, so a
+step costs two collectives.
 """
 
 from __future__ import annotations
@@ -96,6 +102,7 @@ class AgentConfig:
     critic_lr: float = 1e-3
     use_huber: bool = True
     grad_clip: Optional[float] = 40.0
+    axis_name: Optional[str] = None  # mesh axis for gradient sync (data parallel)
     # Burn online+target nets together on a stacked [2] ensemble axis.
     fused_burnin: bool = True
     twin_critic: bool = False
@@ -191,6 +198,39 @@ class R2D2DPG:
         self.actor = actor
         self.critic = critic
         self.config = config
+        # The group ``config.axis_name`` averages gradients over; a
+        # data-parallel trainer binds it (``bind_mesh``).
+        self.mesh = None
+
+    def bind_mesh(self, mesh, axis_name: Optional[str] = None) -> "R2D2DPG":
+        """A copy of this agent (same modules) that averages its gradients
+        over ``mesh``; ``axis_name`` replaces the config's when given."""
+        cfg = self.config
+        if axis_name is not None and axis_name != cfg.axis_name:
+            cfg = dataclasses.replace(cfg, axis_name=axis_name)
+        if cfg.axis_name is None:
+            raise ValueError("bind_mesh: the agent has no axis_name to sync over")
+        agent = R2D2DPG(self.actor, self.critic, cfg)
+        agent.mesh = mesh
+        return agent
+
+    def _pmean_grads(self, grads: Params) -> Params:
+        """``lax.pmean`` of one net's gradients: one flattened buffer, one
+        collective, split back into the leaves."""
+        if self.mesh is None:
+            raise ValueError(
+                f"AgentConfig.axis_name={self.config.axis_name!r} needs a mesh "
+                "(R2D2DPG.bind_mesh) to sync gradients over"
+            )
+        keys = list(grads)
+        flat = torch.cat([grads[k].reshape(-1) for k in keys])
+        self.mesh.pmean_(flat)
+        out, off = {}, 0
+        for k in keys:
+            n = grads[k].numel()
+            out[k] = flat[off:off + n].view_as(grads[k])
+            off += n
+        return out
 
     # ------------------------------------------------------------------ init
     def init(
@@ -426,6 +466,10 @@ class R2D2DPG:
             )
 
         with torch.no_grad():
+            if cfg.axis_name is not None:
+                # Gradient sync over the mesh, before the clip and Adam.
+                critic_grads = self._pmean_grads(critic_grads)
+                actor_grads = self._pmean_grads(actor_grads)
             critic_params, critic_opt_state = self._optimize(
                 state.critic_params, critic_grads, state.critic_opt_state, cfg.critic_lr
             )

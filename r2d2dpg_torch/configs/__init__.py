@@ -42,9 +42,10 @@ class ExperimentConfig:
         env = self.env_factory(device)
         return Trainer(env, self.build_agent(env), self.trainer, device)
 
-    def build_agent(self, env: Environment) -> R2D2DPG:
+    def build_agent(self, env: Environment, axis_name=None) -> R2D2DPG:
         """Actor and critic for ``env.spec`` (flat obs, or ``(H, W, C)``
-        frames when ``pixels``) in ``compute_dtype``, and the learner."""
+        frames when ``pixels``) in ``compute_dtype``, and the learner;
+        ``axis_name`` overrides the agent config's."""
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
         nets = dict(
@@ -55,7 +56,44 @@ class ExperimentConfig:
             pixels=self.pixels,
             dtype=getattr(torch, self.compute_dtype),
         )
-        return R2D2DPG(ActorNet(**nets), CriticNet(**nets), self.agent)
+        agent_cfg = (
+            dataclasses.replace(self.agent, axis_name=axis_name)
+            if axis_name != self.agent.axis_name
+            else self.agent
+        )
+        return R2D2DPG(ActorNet(**nets), CriticNet(**nets), agent_cfg)
+
+    def build_dp_learner(self, mesh, collect_local: bool,
+                         device: DeviceLike = None) -> Trainer:
+        """Data-parallel learner on ``mesh`` (``--learner-dp D``): replay
+        split into capacity blocks, the learner batch split over the ranks
+        (``parallel/dp_learner.py``).  ``collect_local`` says this process
+        also collects (``--actors 0``): that in-process path needs a
+        pure-torch env; under ``--actors N`` the actors collect."""
+        from r2d2dpg_torch.parallel import DPLearnerTrainer
+
+        device = resolve_device(mesh.device if device is None else device)
+        env = self.env_factory(device)
+        if collect_local and getattr(env, "batched", False):
+            raise ValueError(
+                "--learner-dp with --actors 0 requires a pure-JAX env "
+                "config (host-pool envs scale with --spmd / "
+                "HostSPMDTrainer); with --actors N the fleet collects and "
+                "any config works"
+            )
+        agent = self.build_agent(env, axis_name=None)
+        return DPLearnerTrainer(env, agent, self.trainer, mesh)
+
+    def build_spmd(self, mesh, device: DeviceLike = None) -> Trainer:
+        """Every rank of ``mesh`` runs the whole loop on its share of the
+        envs and the arena (``--spmd D``, ``parallel/spmd.py``).  The
+        host-pool trainer for batched envs waits for the DM-Control envs."""
+        from r2d2dpg_torch.parallel import DP_AXIS, SPMDTrainer
+
+        device = resolve_device(mesh.device if device is None else device)
+        env = self.env_factory(device)
+        agent = self.build_agent(env, axis_name=DP_AXIS)
+        return SPMDTrainer(env, agent, self.trainer, mesh)
 
 
 def _pendulum(device) -> Environment:

@@ -1174,7 +1174,10 @@ class FleetLearner:
                 traces = [m["trace"] for m in msgs if m.get("trace")]
                 t_drain = time.monotonic()
                 with annotate("fleet/drain"):
-                    staged = put_staged(host_staged, t.device)
+                    # One host-to-device copy, then the trainer's placement
+                    # hook (the dp learner checks the width against its
+                    # mesh; identity for one device).
+                    staged = t._put_staged(put_staged(host_staged, t.device))
                 t_stack_end = time.time()
                 n_seqs = int(staged.seq.reward.shape[0])
                 absorbed += n_seqs
@@ -1192,6 +1195,11 @@ class FleetLearner:
                         m_q["actor_id"],
                         int(np.shape(m_q["staged"].seq.reward)[0]),
                     )
+                note_width = getattr(t, "dp_note_learn_width", None)
+                if note_width is not None:
+                    # The dp learner's per-rank width gauge, set at the
+                    # real drain site (host-known B, no fetch).
+                    note_width(n_seqs)
                 mon.on_phase(drained + 1)
                 with t.arena.staged_writer(), annotate("fleet/drain"), \
                         mon.program("fleet_drain"):
@@ -1275,10 +1283,21 @@ class FleetLearner:
                     # arena's priority sum.
                     with mon.expected("log_fetch"):
                         names = list(last_metrics)
-                        fetched = torch.stack(
-                            [lstate.arena.priority.sum()]
-                            + [last_metrics[k].float() for k in names]
+                        # The dp learner's per-shard gauges ride this
+                        # fetch (Trainer._log_extra_refs).
+                        extra = t._log_extra_refs(lstate.arena)
+                        fetched = torch.cat(
+                            [torch.stack(
+                                [t.arena.priority_sum(lstate.arena)]
+                                + [last_metrics[k].float() for k in names])]
+                            + [x.reshape(-1).to(torch.float32) for x in extra]
                         ).tolist()
+                    if extra:
+                        tail, off = [], 1 + len(names)
+                        for x in extra:
+                            tail.append(fetched[off:off + x.numel()])
+                            off += x.numel()
+                        t._log_extra_publish(tail)
                     t.arena.observe_state_scalars(
                         float(t.arena.size(lstate.arena)), fetched[0],
                         float(lstate.arena.total_added),

@@ -417,11 +417,14 @@ class SamplerLearner:
             if acfg.target_policy_sigma > 0:
                 normal = draws.normal(
                     (acfg.unroll + acfg.n_step, cfg.batch_size, batch.action.shape[-1]))
+            # The rows arrive as this rank's share (_put_staged(axis=1));
+            # the weights and the normal are the whole batch's.
+            batch, w, normal = t._reshard_batch(batch, w, normal)
             train, p, m = t.agent.learner_step(train, batch, w, normal)
             prios.append(p)
             steps.append(m)
         metrics = {k: torch.stack([m[k] for m in steps]).mean() for k in steps[0]}
-        return train, torch.stack(prios), metrics
+        return train, torch.stack(prios), t._pmean(metrics)
 
     def _place(self, seq_np: SequenceBatch, probs_np: np.ndarray):
         """The pulled batch and its combined probabilities on the learner's
@@ -430,8 +433,11 @@ class SamplerLearner:
         kb = (cfg.learner_steps, cfg.batch_size)
         dev = put_host({"seq": seq_np, "probs": probs_np.astype(np.float32)},
                        self.trainer.device)
-        return (tree_map(lambda x: x.view(kb + tuple(x.shape[1:])), dev["seq"]),
-                dev["probs"].view(kb))
+        # The trainer's placement hook on the batch axis: the dp learner
+        # keeps this rank's B/D rows (identity for one device).  The
+        # probabilities stay whole: the IS weights normalize over the batch.
+        seqs = tree_map(lambda x: x.view(kb + tuple(x.shape[1:])), dev["seq"])
+        return self.trainer._put_staged(seqs, axis=1), dev["probs"].view(kb)
 
     # ------------------------------------------------------- sample assembly
     def _roundtrip(self, unpacker, parts) -> Any:

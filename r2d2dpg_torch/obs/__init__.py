@@ -51,6 +51,7 @@ from r2d2dpg_torch.obs.registry import (
     Histogram,
     Registry,
     RemoteMirror,
+    allgather_into_mirror,
     get_registry,
     get_remote_mirror,
     merge_remote,
@@ -78,6 +79,7 @@ __all__ = [
     "Registry",
     "RemoteMirror",
     "WatchdogConfig",
+    "allgather_into_mirror",
     "chrome_trace",
     "current_exporter",
     "device",

@@ -19,8 +19,9 @@ newline in a remote-supplied string cannot forge a line).
 
 Federation: ``RemoteMirror`` holds other processes' snapshots under
 attribution labels (``actor=``, ``shard=``), and ``merge_remote`` folds
-them into one scrape, the attribution labels winning a collision.  The
-multi-process allgather that feeds it comes with the multi-device slice.
+them into one scrape, the attribution labels winning a collision.
+``allgather_into_mirror`` feeds it on a multi-process run: every rank's
+snapshot reaches rank 0 under ``host=proc<i>``.
 """
 
 from __future__ import annotations
@@ -605,3 +606,60 @@ def get_remote_mirror() -> RemoteMirror:
     """THE process-wide remote mirror (module singleton; empty until
     something feeds it)."""
     return _MIRROR
+
+
+def allgather_into_mirror(
+    registry: Optional[Registry] = None,
+    mirror: Optional[RemoteMirror] = None,
+) -> int:
+    """Every rank's registry snapshot into rank 0's mirror.
+
+    COLLECTIVE: every process of the ``torch.distributed`` group calls it
+    at the same point (``train.py``: the log cadence under ``--obs-fleet``).
+    Fixed-shape collectives: an ``all_gather`` of the payload lengths, then
+    one of the JSON payloads padded to the widest, as uint8.  Rank 0 folds
+    each other rank under ``host=proc<i>`` (a torn payload is skipped).
+    Returns the number of snapshots folded: 0 on a world of one (or with
+    no group) and on every rank but 0."""
+    import json
+
+    import torch
+    import torch.distributed as dist
+
+    registry = registry if registry is not None else get_registry()
+    mirror = mirror if mirror is not None else get_remote_mirror()
+    if not (dist.is_available() and dist.is_initialized()):
+        return 0
+    n = dist.get_world_size()
+    if n == 1:
+        return 0
+    # NCCL moves card tensors only; gloo host tensors.
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    payload = torch.frombuffer(
+        bytearray(json.dumps(registry.snapshot()).encode()), dtype=torch.uint8
+    ).to(device)
+    lens = torch.empty(n, dtype=torch.int64, device=device)
+    dist.all_gather_into_tensor(
+        lens, torch.tensor([payload.numel()], dtype=torch.int64, device=device))
+    lens = lens.tolist()
+    width = max(lens)
+    padded = torch.zeros(width, dtype=torch.uint8, device=device)
+    padded[: payload.numel()] = payload
+    gathered = torch.empty(n * width, dtype=torch.uint8, device=device)
+    dist.all_gather_into_tensor(gathered, padded)
+    me = dist.get_rank()
+    if me != 0:
+        return 0
+    rows = gathered.view(n, width).cpu().numpy()
+    folded = 0
+    for i in range(n):
+        if i == me:
+            continue  # rank 0's own registry is already exported
+        try:
+            snap = json.loads(bytes(rows[i, : lens[i]]).decode())
+        except ValueError:
+            continue  # a torn rank must not kill the aggregate scrape
+        mirror.update(f"proc:{i}", {"host": f"proc{i}"}, snap)
+        folded += 1
+    return folded

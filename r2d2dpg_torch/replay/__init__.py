@@ -3,6 +3,7 @@
 from r2d2dpg_torch.replay.arena import (
     PROVENANCE_ABSENT,
     ArenaState,
+    CapacityBlockArena,
     ReplayArena,
     SampleResult,
     SequenceBatch,
@@ -14,6 +15,7 @@ from r2d2dpg_torch.replay.arena import (
 __all__ = [
     "PROVENANCE_ABSENT",
     "ArenaState",
+    "CapacityBlockArena",
     "ReplayArena",
     "SampleResult",
     "SequenceBatch",

@@ -23,7 +23,21 @@ for symmetry with the JAX call sites.
 The arena publishes four registry gauges (``r2d2dpg_replay_capacity``,
 ``_occupancy``, ``_priority_sum``, ``_sequences_added``); the loops feed
 them from their log fetch through ``observe_state_scalars``.
-``per_shard_occupancy`` waits for the multi-device slice.
+
+``CapacityBlockArena`` is the data-parallel learner's arena
+(``parallel/dp_learner.py``): the capacity splits into one contiguous
+block per rank, as JAX's ``P("dp")`` lays the arena's axis 0 over the
+mesh.  The ring cursor is replicated; each rank writes the fresh slots
+that fall in its block.  Sampling is the global prioritized draw: every
+rank all-gathers the block priorities and makes the same draw from the
+same uniforms, gathers the rows of its own block (zeros elsewhere), and a
+reduce-scatter hands each rank its ``B/D`` rows.  The write-back
+all-gathers the ``B`` new priorities in global batch order and launches
+the scatter kernel on the rank's block, with the other blocks' indices
+moved past the block's end (the kernel writes nothing there), so the last
+write wins in global batch order, as ``.at[idx].set`` does.  JAX turns
+the Pallas kernel off on this path (it needs single-device refs); a rank
+of the port owns one device, so the kernel runs.
 """
 
 from __future__ import annotations
@@ -32,6 +46,7 @@ import dataclasses
 import threading
 from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from r2d2dpg_torch.obs.registry import get_registry
@@ -79,6 +94,9 @@ class SampleResult:
     batch: SequenceBatch
     indices: torch.Tensor  # [B] int64 slot indices, for priority write-back
     probs: torch.Tensor  # [B] sampling probabilities (1/N for uniform)
+    # The batch rows' arena entry stamps (meta column 1), where the arena
+    # gathered them with the rows; None: read ``meta[indices, 1]``.
+    entry: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -299,6 +317,25 @@ class ReplayArena:
     def size(self, state: ArenaState) -> int:
         return min(state.total_added, self.capacity)
 
+    def per_shard_occupancy(
+        self, state: ArenaState, num_shards: int
+    ) -> torch.Tensor:
+        """``[num_shards]`` filled-slot counts by contiguous capacity block
+        (block ``i`` is dp shard ``i``'s slots)."""
+        if self.capacity % num_shards:
+            raise ValueError(
+                f"capacity {self.capacity} not divisible by {num_shards} shards"
+            )
+        return (state.priority.reshape(num_shards, -1) > 0.0).sum(dim=1)
+
+    def priority_sum(self, state: ArenaState) -> torch.Tensor:
+        """Sum of the raw slot priorities (0-dim, on the device)."""
+        return state.priority.sum()
+
+    def priority_max(self, state: ArenaState) -> torch.Tensor:
+        """Largest raw slot priority (0-dim, on the device)."""
+        return state.priority.max()
+
     # ---------------------------------------------------------------- sample
     def sample(
         self,
@@ -343,4 +380,154 @@ class ReplayArena:
         """Learner write-back of fresh sequence priorities, in place (the kernel)."""
         values = priorities.clamp_min(PRIORITY_EPS).contiguous()
         priority_scatter(state.priority, indices.contiguous(), values)
+        return state
+
+
+class CapacityBlockArena(ReplayArena):
+    """The data-parallel learner's arena: rank ``r`` of ``mesh`` holds slots
+    ``[r * C/D, (r + 1) * C/D)`` of the global capacity ``C``.
+
+    ``ArenaState.cursor`` and ``total_added`` are global (every rank sees
+    every add); the buffers hold the rank's block only.  ``sample`` and
+    ``update_priorities`` are collective: every rank calls them together,
+    with the same uniforms and the same indices."""
+
+    def __init__(
+        self, capacity: int, mesh, *, prioritized: bool = True, alpha: float = 0.6
+    ):
+        if capacity % mesh.size:
+            raise ValueError(
+                f"capacity {capacity} not divisible by {mesh.size} shards"
+            )
+        super().__init__(capacity, prioritized=prioritized, alpha=alpha)
+        self.mesh = mesh
+        self.block = capacity // mesh.size
+        self.lo = mesh.rank * self.block
+
+    def init_state(self, example: SequenceBatch) -> ArenaState:
+        device = example.obs.device
+        data = tree_map(
+            lambda x: torch.zeros(
+                (self.block,) + tuple(x.shape[1:]), dtype=x.dtype, device=device
+            ),
+            example,
+        )
+        return ArenaState(
+            data=data,
+            priority=torch.zeros(self.block, device=device),
+            cursor=0,
+            total_added=0,
+            meta=torch.full(
+                (self.block, 2), PROVENANCE_ABSENT, dtype=torch.int32, device=device
+            ),
+        )
+
+    def add(self, state, batch, priorities, meta=None) -> ArenaState:
+        """Write the fresh rows whose global slots fall in this rank's block.
+
+        Every rank holds all ``B`` rows; the slots come from the host-side
+        cursor, so the selection costs no device sync."""
+        b = priorities.shape[0]
+        device = state.priority.device
+        slots = (state.cursor + np.arange(b)) % self.capacity
+        mine = np.nonzero((slots >= self.lo) & (slots < self.lo + self.block))[0]
+        if mine.size:
+            rows = torch.as_tensor(mine, device=device)
+            idx = torch.as_tensor(slots[mine] - self.lo, device=device)
+
+            def put(buf, new):
+                buf.index_copy_(0, idx, new.to(device)[rows].to(buf.dtype))
+                return buf
+
+            tree_map(put, state.data, batch)
+            put(state.priority, priorities.clamp_min(PRIORITY_EPS))
+            if meta is None:
+                meta = torch.full((b, 2), PROVENANCE_ABSENT, dtype=torch.int32)
+            put(state.meta, meta)
+        state.cursor = (state.cursor + b) % self.capacity
+        state.total_added += b
+        return state
+
+    def per_shard_occupancy(self, state, num_shards: int) -> torch.Tensor:
+        """``[D]`` filled-slot counts, one per rank's block (all-gathered)."""
+        if num_shards != self.mesh.size:
+            raise ValueError(
+                f"per_shard_occupancy: {num_shards} shards on a "
+                f"{self.mesh.size}-rank arena"
+            )
+        return self.mesh.all_gather((state.priority > 0.0).sum().reshape(1))
+
+    def priority_sum(self, state) -> torch.Tensor:
+        return self.mesh.psum_(state.priority.sum())
+
+    def priority_max(self, state) -> torch.Tensor:
+        return self.mesh.pmax_(state.priority.max())
+
+    def sample(self, state, batch_size, *, generator=None, uniforms=None):
+        """The global draw; this rank's ``B/D`` rows of the batch.
+
+        ``indices`` and ``probs`` are the whole batch's ``[B]`` (the same on
+        every rank); ``batch`` and ``entry`` hold rows ``r*B/D .. (r+1)*B/D``
+        of it."""
+        device = state.priority.device
+        if uniforms is None:
+            uniforms = torch.rand(batch_size, generator=generator, device=device)
+        if self.prioritized:
+            full = self.mesh.all_gather(state.priority)
+            scaled = torch.where(full > 0.0, full**self.alpha, 0.0)
+            total = scaled.sum()
+            cdf = torch.cumsum(scaled, dim=0)
+            indices = torch.searchsorted(cdf, uniforms * total, right=True).clamp(
+                0, self.capacity - 1
+            )
+            probs = scaled[indices] / total.clamp_min(1e-12)
+        else:
+            n = max(self.size(state), 1)
+            indices = (uniforms * n).long().clamp(0, n - 1)
+            probs = torch.full((batch_size,), 1.0 / n, device=device)
+        own = (indices >= self.lo) & (indices < self.lo + self.block)
+        local = (indices - self.lo).clamp(0, self.block - 1)
+        rows = {
+            "data": tree_map(lambda buf: buf[local], state.data),
+            "entry": state.meta[local, 1],
+        }
+        rows = self._scatter_rows(rows, own)
+        return SampleResult(
+            batch=rows["data"], indices=indices, probs=probs, entry=rows["entry"]
+        )
+
+    def _scatter_rows(self, rows, own):
+        """Zero the rows of other blocks, then one reduce-scatter per dtype:
+        each rank gets the sum over ranks (its rows' only nonzero term) of
+        its ``B/D`` rows."""
+        leaves = tree_leaves(rows)
+        b = own.shape[0]
+        groups: Dict[torch.dtype, list] = {}
+        for i, x in enumerate(leaves):
+            groups.setdefault(x.dtype, []).append(i)
+        out = [None] * len(leaves)
+        for dtype, ids in groups.items():
+            flat = torch.cat([
+                torch.where(own.view((b,) + (1,) * (leaves[i].dim() - 1)),
+                            leaves[i], 0).reshape(b, -1)
+                for i in ids
+            ], dim=1)
+            mine = self.mesh.reduce_scatter(flat)
+            off = 0
+            for i in ids:
+                width = leaves[i][0].numel()
+                out[i] = mine[:, off:off + width].reshape(
+                    (mine.shape[0],) + tuple(leaves[i].shape[1:]))
+                off += width
+        it = iter(out)
+        return tree_map(lambda _: next(it), rows)
+
+    def update_priorities(self, state, indices, priorities) -> ArenaState:
+        """All-gather the ``B`` new priorities in global batch order, then
+        the scatter kernel on this rank's block (no host sync)."""
+        values = self.mesh.all_gather(priorities.clamp_min(PRIORITY_EPS))
+        own = (indices >= self.lo) & (indices < self.lo + self.block)
+        # Past the block's end: the kernel writes nothing for such an index.
+        local = torch.where(own, indices - self.lo, self.block)
+        priority_scatter(state.priority, local.contiguous(), values.contiguous())
         return state

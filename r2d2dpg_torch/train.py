@@ -20,11 +20,24 @@
          [--obs-fleet 1] [--autoscale 1 [--autoscale-dry-run 1] \
           [--autoscale-min N] [--autoscale-max N] [--autoscale-cooldown S] \
           [--autoscale-every S] [--autoscale-fire K]]] \
+        [--spmd D | --learner-dp D] \
         [--minutes M] [--watchdog 0|1] [--watchdog-grad-norm X] \
         [--watchdog-param-norm X] [--nan-inject-phase K] [--nan-debug] \
         [--obs-port P [--obs-host H]] [--flight-path F] \
         [--health-wait-p99 S] [--health-stale-after S] [--quality-max-lag N] \
         [--device-peak-flops F] [--profile-window P:N | --profile-phases N]
+
+Every run resolves through ``topology.py``: ``validate`` refuses the
+pairings the port does not run (one table, JAX's messages), the run prints
+``topology: <describe()>`` and writes it to ``<logdir>/topology.txt``.
+``--spmd D`` (``parallel/spmd.py``) and ``--learner-dp D``
+(``parallel/dp_learner.py``) run over a D-process ``torch.distributed``
+group, one device each: ``--spmd 1`` / ``--learner-dp 1`` bring up a group
+of one in this process; D > 1 runs under ``torchrun --nproc-per-node D -m
+r2d2dpg_torch.train ...`` (a D that differs from ``WORLD_SIZE`` refuses).
+Logs, the CSV, the exporter and flight dumps are rank 0's.  With
+``--obs-fleet 1`` on a multi-process run every rank's registry folds into
+rank 0's scrape under ``host=proc<i>``.
 
 ``--phases N`` counts TRAIN phases, as in the JAX CLI: a fresh run does
 the config's warm-up and replay-fill phases, then N train phases (one when
@@ -147,15 +160,11 @@ import tempfile
 
 import torch
 
-from r2d2dpg_torch import obs
+from r2d2dpg_torch import obs, topology
 from r2d2dpg_torch.configs import CONFIGS, ExperimentConfig, get_config
 from r2d2dpg_torch.device import device_name
-from r2d2dpg_torch.fleet.chaos import (
-    DIRECT_FAULTS,
-    SAMPLER_FAULTS,
-    SHARD_FAULTS,
-    parse_chaos_spec,
-)
+from r2d2dpg_torch.fleet.chaos import parse_chaos_spec
+from r2d2dpg_torch.parallel import distributed
 from r2d2dpg_torch.obs import (
     DivergenceError,
     DivergenceWatchdog,
@@ -220,6 +229,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument(
         "--param-sync-every", type=int, default=None,
         help="refresh behavior params every K phases (0 = always fresh)")
+    # Multi-device learner paths (parallel/): one process per device.
+    p.add_argument(
+        "--spmd", type=int, default=0, metavar="D",
+        help="run every rank's whole loop on its 1/D of the envs and the "
+        "replay arena over a D-process dp mesh (parallel/spmd.py; "
+        "gradients averaged over torch.distributed).  --spmd 1 runs in "
+        "this process; D > 1 under torchrun --nproc-per-node D.  0 = "
+        "single device")
+    p.add_argument(
+        "--learner-dp", type=int, default=0, metavar="D",
+        help="data-parallel LEARNER over a D-process dp mesh "
+        "(parallel/dp_learner.py): replay arena split into capacity "
+        "blocks, learner batch split per rank, params replicated, the "
+        "priority scatter on every rank's block.  Composes with --actors N "
+        "at --learner-dp 1 and with --actors 0; --learner-dp 1 is pinned "
+        "bit-identical to the plain schedule.  D > 1 under torchrun "
+        "--nproc-per-node D (gloo with --device cpu).  0 = off")
     p.add_argument(
         "--pipeline", type=int, default=0, choices=[0, 1],
         help="run train phases through the pipelined collect/learn "
@@ -490,188 +516,6 @@ def _health_config(args) -> obs.HealthConfig:
     )
 
 
-def _fleet_only_knobs(args) -> bool:
-    return (
-        args.fleet_wire != "f32"
-        or args.fleet_compress != "none"
-        or args.drain_coalesce != 1
-        or args.chaos_spec is not None
-        or args.fleet_token is not None
-        or args.fleet_heartbeat is not None
-        or args.fleet_shed_after is not None
-    )
-
-
-def _autoscale_only_knobs(args) -> bool:
-    return (
-        bool(args.autoscale_dry_run)
-        or args.autoscale_min != 1
-        or args.autoscale_max != 0
-        or args.autoscale_cooldown != 30.0
-        or args.autoscale_every != 2.0
-        or args.autoscale_fire != 3
-    )
-
-
-def _refuse(args) -> None:
-    """The JAX CLI's refusals (``r2d2dpg_tpu/topology.py``: ``validate``
-    and its ``REFUSALS`` rows) for the flags the port has, with the same
-    messages."""
-    if args.replay_shards and args.replay_shards < 1:
-        raise SystemExit("--replay-shards must be >= 1 (0 = off)")
-    if args.shard_procs < 0:
-        raise SystemExit("--shard-procs must be >= 0 (0 = in-learner loopback)")
-    if args.shard_procs and args.replay_shards and args.replay_shards % args.shard_procs:
-        raise SystemExit(
-            f"--shard-procs: {args.replay_shards} replay shards not "
-            f"divisible by {args.shard_procs} shard processes (contiguous "
-            f"equal slices per process)")
-    if args.shard_pullers < 0:
-        raise SystemExit(
-            "--shard-pullers must be >= 0 (0 = one puller per shard, "
-            "capped at 8)")
-    if args.autoscale:
-        if args.autoscale_cooldown <= 0:
-            raise SystemExit("--autoscale-cooldown must be > 0 seconds")
-        if args.autoscale_every <= 0:
-            raise SystemExit("--autoscale-every must be > 0 seconds")
-        if args.autoscale_fire < 1:
-            raise SystemExit("--autoscale-fire must be >= 1")
-        # Bounds are judged against --actors; without it the pairing row
-        # below is the authority.
-        if args.actors:
-            amin = args.autoscale_min
-            amax = args.autoscale_max or args.actors
-            if amin < 1:
-                raise SystemExit("--autoscale-min must be >= 1")
-            if amax < amin:
-                raise SystemExit(
-                    f"--autoscale-max ({amax}) must be >= --autoscale-min "
-                    f"({amin})")
-            if args.actors > amax:
-                raise SystemExit(
-                    f"--autoscale-max ({amax}) must be >= --actors "
-                    f"({args.actors}): the startup population must fit "
-                    f"the sigma-ladder bound the autoscaler enforces")
-    if args.fleet_heartbeat is not None and args.fleet_heartbeat <= 0:
-        raise SystemExit("--fleet-heartbeat must be > 0 seconds")
-    if not 0.0 <= args.trace_sample <= 1.0:
-        raise SystemExit("--trace-sample must be in [0, 1]")
-    faults = ()
-    if args.chaos_spec:
-        # A malformed schedule is refused before anything is spawned.
-        try:
-            faults = parse_chaos_spec(args.chaos_spec)
-        except ValueError as e:
-            raise SystemExit(f"--chaos-spec: {e}")
-    kinds = {f.kind for f in faults}
-    if args.pipeline and args.profile_phases:
-        raise SystemExit(
-            "--pipeline 1 does not support --profile-phases yet (the "
-            "executor owns the phase loop; docs/TOPOLOGY.md)")
-    if args.actors and args.pipeline:
-        raise SystemExit(
-            "--actors N does not compose with --pipeline 1: both executors "
-            "own the phase loop (docs/TOPOLOGY.md)")
-    if args.actors and args.eval_every:
-        raise SystemExit(
-            "--actors N does not compose with --eval-every: the fleet "
-            "learner owns the phase loop; run the final-checkpoint eval "
-            "instead (docs/TOPOLOGY.md)")
-    if args.actors and args.profile_phases:
-        raise SystemExit(
-            "--actors N does not compose with --profile-phases: the "
-            "profiler brackets the phase-locked loop this process never "
-            "runs under a fleet (docs/TOPOLOGY.md)")
-    if args.actors and args.nan_inject_phase is not None:
-        raise SystemExit(
-            "--actors N does not compose with --nan-inject-phase: the "
-            "poison targets the in-process collect loop actors own "
-            "(docs/TOPOLOGY.md)")
-    if not args.actors and _fleet_only_knobs(args):
-        raise SystemExit(
-            "--fleet-wire/--fleet-compress/--drain-coalesce/"
-            "--fleet-heartbeat/--fleet-token/--fleet-shed-after/"
-            "--chaos-spec require --actors N (the in-process schedules "
-            "have no fleet wire; docs/TOPOLOGY.md)")
-    if args.autoscale and not args.actors:
-        raise SystemExit(
-            "--autoscale 1 requires --actors N: the policy loop actuates "
-            "the fleet supervisor's population, which the in-process "
-            "schedules do not spawn (docs/TOPOLOGY.md)")
-    if not args.autoscale and _autoscale_only_knobs(args):
-        raise SystemExit(
-            "--autoscale-dry-run/--autoscale-min/--autoscale-max/"
-            "--autoscale-cooldown/--autoscale-every/--autoscale-fire "
-            "require --autoscale 1 (without the policy loop they would "
-            "silently configure nothing; docs/TOPOLOGY.md)")
-    if not args.actors and args.replay_shards and args.replay_shards > 1:
-        raise SystemExit(
-            "--replay-shards N >= 2 requires --actors N (replay shards "
-            "are fed by actor SEQS traffic; --replay-shards 1 --actors 0 "
-            "routes the untouched phase-locked loop — the determinism "
-            "anchor; docs/TOPOLOGY.md)")
-    if args.replay_shards and args.drain_coalesce != 1:
-        raise SystemExit(
-            "--replay-shards does not compose with --drain-coalesce: "
-            "there is no central drain to coalesce on the sampler path "
-            "(docs/TOPOLOGY.md)")
-    if args.shard_procs and not (args.actors and args.replay_shards):
-        raise SystemExit(
-            "--shard-procs N requires --actors N --replay-shards M: the "
-            "standalone shard tier hosts the sampler path's replay "
-            "shards, which are fed by actor SEQS traffic "
-            "(--shard-procs 0 is the in-learner loopback — the pinned "
-            "off-setting; docs/TOPOLOGY.md)")
-    if kinds & SHARD_FAULTS and not args.shard_procs:
-        raise SystemExit(
-            "--chaos-spec shard-tier faults (kill_shard/stall_shard/"
-            "partition_shard) drill the standalone shard processes and "
-            "require --shard-procs N: the in-learner loopback shards "
-            "share the learner's failure domain, so there is no shard to "
-            "kill, stall, or partition independently (docs/TOPOLOGY.md)")
-    if args.shard_direct and not (args.actors and args.replay_shards):
-        raise SystemExit(
-            "--shard-direct 1 requires --actors N --replay-shards M: the "
-            "direct data plane routes actor SEQS traffic to the sampler "
-            "path's replay shards (--shard-direct 0 is the "
-            "learner-forwarded path — the pinned off-setting; "
-            "docs/TOPOLOGY.md)")
-    if not args.replay_shards and (args.shard_pullers or args.shard_prefetch):
-        raise SystemExit(
-            "--shard-pullers/--shard-prefetch require --replay-shards N: "
-            "the concurrent pullers and the batch prefetch belong to the "
-            "sampler learner's pull loop, which the central-drain and "
-            "in-process schedules do not run (docs/TOPOLOGY.md)")
-    if kinds & DIRECT_FAULTS and not args.shard_direct:
-        raise SystemExit(
-            "--chaos-spec partition_data_plane drills the direct "
-            "actor->shard data leg and requires --shard-direct 1: with "
-            "the experience riding the learner-forwarded path there is "
-            "no data plane to partition, so the drill would record "
-            "evidence for a recovery path that never ran "
-            "(docs/TOPOLOGY.md)")
-    if kinds & SAMPLER_FAULTS and not args.replay_shards:
-        raise SystemExit(
-            "--chaos-spec sampler-class faults (stall_sampler/"
-            "kill_sampler_conn) drill the in-network sampler peer class "
-            "and require --replay-shards N: on the central drain they "
-            "would stall the DRAIN thread while recording evidence for an "
-            "invariant that path cannot exhibit (docs/TOPOLOGY.md)")
-    if args.trace_sample and not (args.actors or args.pipeline):
-        raise SystemExit(
-            "--trace-sample requires --actors N or --pipeline 1 (the "
-            "phase-locked fused schedule has no staging path to trace; "
-            "docs/TOPOLOGY.md)")
-    if args.obs_fleet and not args.actors:
-        # JAX's row also admits a multi-process run, which the port does
-        # not have yet.
-        raise SystemExit(
-            "--obs-fleet requires --actors N or a multi-process run (a "
-            "single process already scrapes itself on --obs-port; "
-            "docs/TOPOLOGY.md)")
-
-
 def _poison_actor_params(train):
     """--nan-inject-phase: NaN in every actor param, so the next learner
     update's outputs go non-finite through the real propagation path."""
@@ -771,7 +615,7 @@ def _run_pipelined(trainer, state, stop_at, logger, ckpt, args, watchdog,
     return state
 
 
-def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
+def _run_fleet(cfg, topo, trainer, state, logger, ckpt, args, watchdog, flight,
                flight_path, replay_capacity) -> TrainerState:
     """Drive the run through the actor fleet (``--actors N``): this process
     is the learner; an ingest server feeds the staging queue (or, under
@@ -785,8 +629,6 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
         Autoscaler,
         ChaosEngine,
         FleetConfig,
-        FleetLearner,
-        SamplerLearner,
         ShardProcTier,
         SupervisorConfig,
         WireConfig,
@@ -857,18 +699,14 @@ def _run_fleet(cfg, trainer, state, logger, ckpt, args, watchdog, flight,
             # actors' cadence.
             telem_every=1.0 if args.obs_fleet else 0.0,
         )
-    if args.replay_shards:
-        try:
-            learner = SamplerLearner(
-                trainer, fleet_config, num_shards=args.replay_shards,
-                total_capacity=replay_capacity,
-                shard_set=shard_tier.shard_set if shard_tier is not None else None)
-        except ValueError as e:
-            if shard_dir is not None and not args.logdir:
-                shutil.rmtree(shard_dir, ignore_errors=True)
-            raise SystemExit(f"--replay-shards: {e}")
-    else:
-        learner = FleetLearner(trainer, fleet_config)
+    try:
+        learner = topology.build_fleet_learner(
+            topo, trainer, fleet_config, replay_capacity=replay_capacity,
+            shard_set=shard_tier.shard_set if shard_tier is not None else None)
+    except SystemExit:
+        if shard_dir is not None and not args.logdir:
+            shutil.rmtree(shard_dir, ignore_errors=True)
+        raise
     address = learner.start()
     print(f"fleet: ingest on {address}; spawning {args.actors} actors"
           + (f"; {args.replay_shards} replay shards (learner-pulled sampling"
@@ -1062,10 +900,11 @@ def _warn_unfired_remote(faults, args, seed: int, flight) -> None:
         flight.record("chaos_unfired", faults=names)
 
 
-def _arm_telemetry(args, flight):
+def _arm_telemetry(args, flight, primary=True):
     """The device plane, the profiler window, the flight dump path and the
     exporter, as the JAX CLI arms them.  Returns ``(flight_path,
-    exporter)``; the exporter is None without ``--obs-port``."""
+    exporter)``; the exporter is None without ``--obs-port`` and on every
+    rank but 0, which also arm no flight dump."""
     device_mon = obs.get_device_monitor().install()
     device_mon.configure(peak_flops=args.device_peak_flops)
     if args.profile_window is not None:
@@ -1076,12 +915,12 @@ def _arm_telemetry(args, flight):
               f"{args.logdir}/profile_window", flush=True)
     flight_path = args.flight_path or (
         os.path.join(args.logdir, "flight.jsonl") if args.logdir else "flight.jsonl")
-    if args.logdir or args.flight_path:
+    if (args.logdir or args.flight_path) and primary:
         # The exit-time dump is armed only where the operator named a
         # destination; the watchdog's abort dumps either way.
         flight.install(flight_path)
     exporter = None
-    if args.obs_port is not None:
+    if args.obs_port is not None and primary:
         registry = obs.get_registry()
         exporter = obs.start_exporter(args.obs_port, registry, args.obs_host)
         # Armed with this run's thresholds and spawn targets; the server is
@@ -1128,7 +967,11 @@ def _stamp_final_evidence(args) -> None:
 def main(argv=None) -> TrainerState:
     """Run the CLI; returns the final trainer state."""
     args = parse_args(argv)
-    _refuse(args)
+    # ONE validation authority: every refused pairing lives in
+    # topology.REFUSALS with its reason.  The world size is torchrun's
+    # (1 without it); the group itself comes up with the mesh below.
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    topo = topology.validate(args, process_count=world)
     if args.profile_window is not None:
         if args.profile_phases:
             raise SystemExit(
@@ -1176,8 +1019,17 @@ def main(argv=None) -> TrainerState:
         cfg = dataclasses.replace(cfg, trainer=dataclasses.replace(
             cfg.trainer,
             capacity=max(cfg.trainer.num_envs, cfg.trainer.batch_size)))
-    trainer = cfg.build(args.device)
-    print(f"backend: {device_name(trainer.device)}", flush=True)
+    trainer = topology.build_trainer(topo, cfg, args.device)
+    primary = distributed.is_primary()
+    # Side effects (log lines, CSV, exporter, flight dumps, topology.txt)
+    # belong to rank 0; every rank runs the same collectives.
+    say = print if primary else (lambda *a, **k: None)
+    say(f"backend: {device_name(trainer.device)}", flush=True)
+    say(f"topology: {topo.describe()}", flush=True)
+    if args.logdir and primary:
+        os.makedirs(args.logdir, exist_ok=True)
+        with open(os.path.join(args.logdir, "topology.txt"), "w") as f:
+            f.write(topo.describe() + "\n")
     ckpt = None
     if args.checkpoint_dir:
         light = args.checkpoint_light
@@ -1206,9 +1058,9 @@ def main(argv=None) -> TrainerState:
         )
         eval_draws = Draws(cfg.trainer.seed + 1, trainer.device)
     flight = get_flight_recorder()
-    flight_path, exporter = _arm_telemetry(args, flight)
+    flight_path, exporter = _arm_telemetry(args, flight, primary)
     logger = None
-    if args.logdir:
+    if args.logdir and primary:
         logger = MetricLogger(
             args.logdir, registry=obs.get_registry() if exporter is not None else None)
     watchdog = None
@@ -1230,7 +1082,7 @@ def main(argv=None) -> TrainerState:
     if args.pipeline or args.actors:
         try:
             if args.actors:
-                return _run_fleet(cfg, trainer, state, logger, ckpt, args,
+                return _run_fleet(cfg, topo, trainer, state, logger, ckpt, args,
                                   watchdog, flight, flight_path, replay_capacity)
             return _run_pipelined(trainer, state, stop_at, logger, ckpt, args,
                                   watchdog, flight, flight_path)
@@ -1262,6 +1114,10 @@ def main(argv=None) -> TrainerState:
         if profiler["until"] is not None and phase >= profiler["until"]:
             stop_profile()
         if scalars is not None:
+            if args.obs_fleet and world > 1:
+                # Collective (every rank logs on the same cadence): rank 0
+                # folds the other ranks' registries into its mirror.
+                obs.allgather_into_mirror()
             watch = dict(scalars)
             if logger is not None:
                 scalars.update(logger.rates(
@@ -1289,7 +1145,7 @@ def main(argv=None) -> TrainerState:
             stop_at,
             state,
             log_every=args.log_every,
-            log_fn=lambda line: print(line, flush=True),
+            log_fn=lambda line: say(line, flush=True),
             on_phase=on_phase,
             minutes=args.minutes,
         )

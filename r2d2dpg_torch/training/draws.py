@@ -24,6 +24,16 @@ last update has no counterpart here.
 In the pipelined executor the collector keeps the state's draws and the
 learner gets a second ``Draws`` (``training/pipeline.py``, ``split_state``
 states the rule), so two threads never draw from one generator.
+
+The per-rank rule of the data-parallel trainers (``parallel/``): a rank
+that must draw its own numbers (``SPMDTrainer``: its env lanes' noise and
+resets, its local batch) continues on ``draws.fold(rank)`` after the
+replicated init draws.  Rank 0 keeps the stream itself, so a world of one
+draws exactly what the plain trainer draws; rank ``r > 0`` gets a fresh
+generator seeded ``fold_seed(seed, r)``.  JAX folds the rank into every
+phase's key (``fold_in(key, axis_index)``, which changes rank 0's draws
+too); a stream is folded once.  ``ReplayDraws.fold`` is the identity: a
+test's recorded numbers are already the rank's.
 """
 
 from __future__ import annotations
@@ -34,10 +44,16 @@ from typing import Iterable, Sequence
 import torch
 
 
+def fold_seed(seed: int, rank: int) -> int:
+    """Rank ``rank``'s seed derived from ``seed`` (``seed`` itself at rank 0)."""
+    return (seed + rank * 0x9E3779B97F4A7C15) % 2**63
+
+
 class Draws:
     """Draws from a seeded ``torch.Generator`` on ``device``."""
 
     def __init__(self, seed: int, device: torch.device):
+        self.seed = seed
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -54,6 +70,11 @@ class Draws:
         """Uniform float32 in ``[low, high)``."""
         u = torch.rand(tuple(shape), generator=self.generator, device=self.device)
         return u * (high - low) + low
+
+    def fold(self, rank: int) -> "Draws":
+        """Rank ``rank``'s own stream: this one at rank 0, else a fresh
+        generator seeded ``fold_seed(seed, rank)``."""
+        return self if rank == 0 else Draws(fold_seed(self.seed, rank), self.device)
 
 
 class ReplayDraws:
@@ -88,3 +109,7 @@ class ReplayDraws:
 
     def remaining(self) -> int:
         return len(self._queue)
+
+    def fold(self, rank: int) -> "ReplayDraws":
+        del rank
+        return self

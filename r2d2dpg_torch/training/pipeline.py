@@ -159,16 +159,19 @@ def drain_staged(
     (double-buffered sampling when ``prefetch``).
 
     ``staged.priorities`` may be resolved by the producer or ``None``
-    (ranked here with the learner's current nets).  The entry stamp is the
-    learner's step.  ``learn=False`` absorbs without updating."""
+    (ranked here with the learner's current nets), then relaid by the
+    trainer's ``_reshard_add`` hook.  The entry stamp is the learner's step.
+    ``learn=False`` absorbs without updating.  The learner draws from
+    ``lstate.draws``, the stream the trainer's ``_fold_axis`` gave it."""
     t = trainer
     with scope("pipeline_add"):
         prios = staged.priorities
         if prios is None:
             prios = t._initial_priorities(lstate.train, lstate.arena, staged.seq)
+        seq, prios = t._reshard_add(staged.seq, prios)
         arena = t.arena.add_staged(
             lstate.arena,
-            dataclasses.replace(staged, priorities=prios),
+            dataclasses.replace(staged, seq=seq, priorities=prios),
             stamp=lstate.train.step,
         )
     if not learn:

@@ -24,6 +24,17 @@ priority write-back (its draw order is in ``training/draws.py``).
 ``Trainer.run`` opens the device monitor's run window (``obs/device.py``)
 and the log cadence publishes the trainer's, the arena's and the quality
 plane's gauges from its one host fetch (``_obs_publish``).
+
+Distribution hooks, each the identity here, where the JAX trainer has
+them (``parallel/spmd.py`` and ``parallel/dp_learner.py`` override them):
+``_local_sigmas`` (this rank's slice of the global ladder), ``_psum`` (the
+completed-episode counters), ``_pmean`` (the learner metrics),
+``_fold_axis`` (the rank's draw stream, folded once in ``init``: the
+port's draws are a stream, not a key), ``_reshard_add`` (the fresh rows
+before the arena add), ``_reshard_batch`` (the learner step's rows, IS
+weights and smoothing normal), ``_put_staged`` (a fleet or sampler batch
+before the drain or pull learn), ``_log_extra_refs`` /
+``_log_extra_publish`` (extra values on the log cadence's one fetch).
 """
 
 from __future__ import annotations
@@ -111,7 +122,12 @@ class TrainerState:
 
 
 class Trainer:
-    """Phase functions for (env, agent, config) on one device."""
+    """Phase functions for (env, agent, config) on one device.
+
+    ``axis`` names the mesh axis the phases reduce over (None: one
+    device); ``global_envs`` is the fleet-wide env count."""
+
+    axis: Optional[str] = None
 
     def __init__(
         self,
@@ -132,6 +148,7 @@ class Trainer:
             prioritized=config.prioritized,
             alpha=config.priority_alpha,
         )
+        self.global_envs = config.num_envs
         self.sigmas = self._local_sigmas()
         # Telemetry: registration is idempotent, so every Trainer of the
         # process shares one instrument per name.
@@ -163,6 +180,44 @@ class Trainer:
             kind=cfg.ladder_kind,
             device=self.device,
         )
+
+    def _psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum a per-rank partial over the mesh (identity on one device)."""
+        return x
+
+    def _pmean(self, metrics: Metrics) -> Metrics:
+        """Mean of the learner metrics over the mesh (identity here)."""
+        return metrics
+
+    def _fold_axis(self, draws):
+        """The draw stream this rank continues on after ``init``'s
+        replicated draws (identity on one device)."""
+        return draws
+
+    def _reshard_add(self, seq, prios):
+        """Hook: relayout emitted sequences + priorities before the arena
+        add, after the initial-priority forward ran in their own layout."""
+        return seq, prios
+
+    def _reshard_batch(self, batch, weights, normal):
+        """Hook: this rank's share of a learner step's batch rows, IS
+        weights ``[B]`` and smoothing normal ``[U + n, B, A]`` (or None)."""
+        return batch, weights, normal
+
+    def _put_staged(self, staged, axis: int = 0):
+        """Hook: place a fleet batch tree for the learner: axis 0 is the
+        staged fleet layout (leaves ``[B, ...]``), axis 1 the sampler's
+        pulled layout (``[K, B, ...]``).  Identity here."""
+        del axis
+        return staged
+
+    def _log_extra_refs(self, arena_state) -> list:
+        """Hook: extra device tensors for the log cadence's one fetch."""
+        return []
+
+    def _log_extra_publish(self, fetched) -> None:
+        """Hook: fold the fetched values of ``_log_extra_refs`` (one list
+        per ref) onto the registry."""
 
     # ------------------------------------------------------------------ init
     def init(self, draws=None) -> TrainerState:
@@ -200,7 +255,7 @@ class Trainer:
             arena=arena_state,
             train=train,
             behavior_params={k: v.clone() for k, v in train.actor_params.items()},
-            draws=draws,
+            draws=self._fold_axis(draws),
             phase_idx=0,
             env_steps=0,
             episode_return=torch.zeros(e, device=self.device),
@@ -295,12 +350,12 @@ class Trainer:
             actor_carry=a_carry,
             critic_carry=c_carry,
             noise_state=noise_st,
-            env_steps=state.env_steps + cfg.stride * cfg.num_envs,
+            env_steps=state.env_steps + cfg.stride * self.global_envs,
             episode_return=ep_ret,
             completed_return_sum=state.completed_return_sum
-            + torch.stack(comp_sum).sum(),
+            + self._psum(torch.stack(comp_sum).sum()),
             completed_count=state.completed_count
-            + torch.stack(comp_cnt).sum().to(torch.float32),
+            + self._psum(torch.stack(comp_cnt).sum().to(torch.float32)),
             window=shift_in(state.window, stack_steps(records)),
             phase_idx=state.phase_idx + 1,
         )
@@ -311,13 +366,15 @@ class Trainer:
         if cfg.initial_priority == "td" and cfg.prioritized:
             return self.agent.initial_priority(train, seq)
         if cfg.prioritized:
-            return arena.priority.max().clamp_min(1.0).expand(cfg.num_envs).clone()
+            return (self.arena.priority_max(arena).clamp_min(1.0)
+                    .expand(cfg.num_envs).clone())
         return torch.ones(cfg.num_envs, device=self.device)
 
     def _emit_and_add(self, state: TrainerState) -> TrainerState:
         """Emit the window as one sequence per env and add with priority."""
         seq = emit(state.window)
         prios = self._initial_priorities(state.train, state.arena, seq)
+        seq, prios = self._reshard_add(seq, prios)
         # The live nets collected this window: both meta columns carry the
         # current learner step (behaviour version and entry stamp coincide).
         meta = torch.full(
@@ -340,7 +397,8 @@ class Trainer:
             w = importance_weights(res.probs, self.arena.size(arena), beta=beta)
         else:
             w = torch.ones(cfg.batch_size, device=self.device)
-        train, prios, metrics = self.agent.learner_step(train, res.batch, w, normal)
+        batch, w_local, normal = self._reshard_batch(res.batch, w, normal)
+        train, prios, metrics = self.agent.learner_step(train, batch, w_local, normal)
         if cfg.prioritized:
             arena = self.arena.update_priorities(arena, res.indices, prios)
         # Experience-quality metrics: ESS fraction of the IS weights, share of
@@ -351,7 +409,7 @@ class Trainer:
             res.probs.shape[0] * inv.square().sum()
         )
         metrics["quality_is_saturation"] = (w >= 1.0 - 1e-9).float().mean()
-        entry = arena.meta[res.indices, 1]
+        entry = res.entry if res.entry is not None else arena.meta[res.indices, 1]
         armed = entry >= 0
         age = torch.where(armed, (train.step - entry).clamp_min(0), 0)
         metrics["quality_replay_age"] = (
@@ -402,7 +460,7 @@ class Trainer:
                 steps.append(m)
                 res = nxt
         metrics = {k: torch.stack([m[k] for m in steps]).mean() for k in steps[0]}
-        return train, arena, metrics
+        return train, arena, self._pmean(metrics)
 
     def _learn(self, state: TrainerState) -> Tuple[TrainerState, Metrics]:
         train, arena, metrics = self._learn_many(state.train, state.arena, state.draws)
@@ -442,11 +500,21 @@ class Trainer:
         self, state: TrainerState
     ) -> Tuple[TrainerState, Dict[str, float]]:
         """Drain the completed-episode accumulators (one host fetch, which
-        also carries the arena's priority sum to its gauge)."""
-        count, ret_sum, psum = torch.stack(
-            [state.completed_count, state.completed_return_sum,
-             state.arena.priority.sum()]
+        also carries the arena's priority sum to its gauge and the values of
+        ``_log_extra_refs``)."""
+        extra = self._log_extra_refs(state.arena)
+        fetched = torch.cat(
+            [torch.stack([state.completed_count, state.completed_return_sum,
+                          self.arena.priority_sum(state.arena)])]
+            + [x.reshape(-1).to(torch.float32) for x in extra]
         ).tolist()
+        count, ret_sum, psum = fetched[:3]
+        if extra:
+            tail, off = [], 3
+            for x in extra:
+                tail.append(fetched[off:off + x.numel()])
+                off += x.numel()
+            self._log_extra_publish(tail)
         metrics = {
             "episode_return_mean": ret_sum / max(count, 1.0),
             "episodes": count,

@@ -2,8 +2,7 @@
 
 Every config of the JAX package has a port config of the same name whose
 agent, trainer and net fields equal JAX's, for every field the port has
-(the port's ``TrainerConfig`` lacks ``overlap_learner`` and its
-``AgentConfig`` lacks ``axis_name``).  The port's CLI flags give the same
+(the port's ``TrainerConfig`` lacks ``overlap_learner``).  The port's CLI flags give the same
 config as the JAX CLI's ``_apply_overrides`` for each flag the port has.
 Exact equality: these are constants.
 """

@@ -27,8 +27,12 @@ intact in one copy as ``[K, B]`` views, and a 2-shard sampler learner fed
 by a thread actor learns on the card and launches the scatter not once.
 Telemetry: ``flops_of`` of a pendulum_tiny learner step counts the same on
 the card as on the CPU, and a 2-phase profile window over ``Trainer.run``
-on the card holds one scatter kernel per learner step of the window.
+on the card holds one scatter kernel per learner step of the window.  The
+dp learner's write-back on each rank's capacity block (1, 2 and 4 ranks,
+the other ranks stood in for) equals the plain scatter on the whole vector.
 """
+
+import types
 
 import numpy as np
 import pytest
@@ -434,3 +438,45 @@ def test_profile_window_on_the_card_holds_the_scatter(tmp_path):
     scatters = [e for e in events if e.get("cat") == "kernel"
                 and "scatter_last_wins" in e.get("name", "")]
     assert len(scatters) == 2 * k, [e.get("name") for e in scatters]
+
+
+class _RankOf:
+    """Rank ``rank`` of a ``size``-rank mesh whose all-gather returns the
+    whole batch's values (a stand-in for the other ranks on one card)."""
+
+    def __init__(self, size, rank, everyone):
+        self.size, self.rank, self._everyone = size, rank, everyone
+
+    def block(self, n):
+        k = n // self.size
+        return slice(self.rank * k, (self.rank + 1) * k)
+
+    def all_gather(self, x):
+        del x
+        return self._everyone
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_block_write_back_on_every_rank_matches_plain_exactly(world):
+    """The dp learner's write-back (``CapacityBlockArena.update_priorities``)
+    on each rank's capacity block: the kernel at walker's B = 64 and
+    capacity 100k, other blocks' indices moved past the block's end, equal
+    to the plain scatter on the whole vector, sliced (bitwise)."""
+    from r2d2dpg_torch.replay import CapacityBlockArena
+
+    dev = _card()
+    prio, idx, vals = scatter_case("mixed", 100_000, 64, seed=world)
+    want = _plain(prio, idx, np.maximum(vals, PRIORITY_EPS))
+    everyone = torch.from_numpy(np.maximum(vals, PRIORITY_EPS)).to(dev)
+    got = []
+    for rank in range(world):
+        arena = CapacityBlockArena(100_000, _RankOf(world, rank, everyone))
+        block = torch.from_numpy(prio[arena.lo:arena.lo + arena.block].copy()).to(dev)
+        state = types.SimpleNamespace(priority=block)
+        before = PRIORITY_SCATTER.launches
+        arena.update_priorities(state, torch.from_numpy(idx).to(dev), everyone)
+        torch.cuda.synchronize()
+        assert PRIORITY_SCATTER.launches == before + 1
+        got.append(state.priority.cpu().numpy())
+    np.testing.assert_array_equal(np.concatenate(got), want)

@@ -170,8 +170,10 @@ def test_train_cli_runs_on_cpu(capsys):
     ])
     out = capsys.readouterr().out.splitlines()
     assert out[0] == "backend: cpu"
+    # The resolved topology stamp, as the JAX CLI prints it.
+    assert out[1].startswith("topology: collect=local ingest=fused")
     # warm 2 + fill 2 + 3 train phases, a log line every 2 phases
-    assert [line.split()[1] for line in out[1:]] == ["2/7", "4/7", "6/7"]
+    assert [line.split()[1] for line in out[2:]] == ["2/7", "4/7", "6/7"]
     assert "critic_loss" in out[-1] and "quality_replay_age" in out[-1]
     assert state.train.step == 3
     assert state.arena.total_added == 4 * 5
