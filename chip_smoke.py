@@ -170,10 +170,24 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    step, the params and priorities bitwise the plain run of 7's, the dp
    gauge ``r2d2dpg_dp_shard_occupancy{shard="0"}`` equal to the arena's
    size; the fleet into the dp learner (``fleet_dp1``): ``train.main
-   --actors 2 --learner-dp 1 --phases 20``, every staged batch through
-   ``DPLearnerTrainer._put_staged``, one scatter launch per drain-learn
-   step, the topology stamp, the dp gauges at the drain width and the
-   arena's size;
+   --actors 2 --learner-dp 1 --phases 20 --profile-window 4:3``, every
+   staged batch through ``DPLearnerTrainer._put_staged`` and through rank
+   0's broadcast path (one control record and one payload broadcast per
+   absorb and per drain-learn, one STOP), one scatter launch per
+   drain-learn step, the topology stamp, the dp gauges at the drain width
+   and the arena's size, NCCL kernels and the host-side ``nccl:*`` ops in
+   the profile window; the sampler into the dp learner (``sampler_dp1``):
+   ``--actors 2 --replay-shards 2 --learner-dp 1 --phases 10``, every
+   pulled batch through ``_put_staged(axis=1)`` and the priority gather,
+   one record and one payload per pull-learn and the STOP, 0 scatter
+   launches, its pull-learn rate beside the loopback leg's; the
+   lifecycle (``mesh_lifecycle1``), with ``--learner-dp 1`` then ``--spmd
+   1`` and ``--min-replay 100`` (depth cut): ``--checkpoint-every 5
+   --eval-every 5 --phases 10``, then
+   ``--resume --phases 5``, bitwise the uninterrupted 15-phase run's
+   params, priorities and eval lines (the resumed run's eval against an
+   ``Evaluator`` on the final params with a fresh eval stream), save and
+   restore seconds, checkpoint bytes;
 15. whether ``mujoco`` and ``dm_control`` import (informational);
 16. each phase's seconds, one JSON line per kernel summary (launches
    summed over every path, and the scatter's mean CUPTI µs inside the
@@ -1001,6 +1015,10 @@ TOPOLOGY_STAMPS = {
     ("--actors", "2", "--learner-dp", "1"): (
         "collect=fleet ingest=central_drain sample=arena learn=dp_mesh "
         "schedule=drain_paced actors=2 replay_shards=0 shard_procs=0 "
+        "shard_direct=0 learner_dp=1 spmd=0"),
+    ("--actors", "2", "--replay-shards", "2", "--learner-dp", "1"): (
+        "collect=fleet ingest=sharded_rings sample=two_level learn=dp_mesh "
+        "schedule=free_running actors=2 replay_shards=2 shard_procs=0 "
         "shard_direct=0 learner_dp=1 spmd=0"),
 }
 
@@ -2530,18 +2548,42 @@ def _fleet_autoscale_leg(torch, dev, label="fleet_autoscale"):
 
 
 FLEET_DP1_PHASES = 20
+FLEET_DP1_WINDOW = (4, 3)  # --profile-window P:N: drain-learn phases P..P+N-1
+
+
+def _window_collectives(logdir):
+    """The profile window's collectives: host-side ops named ``nccl:*``
+    (``gloo:*`` on the CPU; one per collective call) and the NCCL device
+    kernels, by name."""
+    (trace_name,) = os.listdir(os.path.join(logdir, "profile_window"))
+    with open(os.path.join(logdir, "profile_window", trace_name)) as f:
+        trace = json.load(f)["traceEvents"]
+    host, device = {}, {}
+    for e in trace:
+        name = e.get("name", "")
+        if e.get("cat") == "kernel" and COLLECTIVE_EVENTS["nccl_kernels"](name.lower()):
+            device[name] = device.get(name, 0) + 1
+        elif e.get("ph") == "X" and name.startswith(("nccl:", "gloo:")):
+            host[name] = host.get(name, 0) + 1
+    return host, device
 
 
 def _fleet_dp1_leg(torch, dev, label="fleet_dp1"):
     """``train.main --config pendulum_r2d2 --actors 2 --learner-dp 1
     --phases 20``: the fleet's central drain into the dp learner on a
-    world of one.  Every staged batch goes through
-    ``DPLearnerTrainer._put_staged`` (counted), the scatter launches once
-    per drain-learn step (counts set to 0 just before and read just after),
-    the run prints the topology stamp, and the dp gauges read the drain
-    width and the arena's size."""
+    world of one, through rank 0's broadcast path (``parallel/control.py``).
+    Every staged batch goes through ``DPLearnerTrainer._put_staged``
+    (counted), one control record and one payload broadcast go out for
+    each absorb and each drain-learn, and one STOP record at the end; the
+    scatter launches once per drain-learn step (counts set to 0 just
+    before and read just after), the run prints the topology stamp, and the
+    dp gauges read the drain width and the arena's size.  A profile window
+    over drain-learn phases 4..6 records the collectives (host ops and
+    NCCL kernels).  Sheds are recorded, inside the window (starting the
+    profiler pauses the drain) and outside it, and not held: they follow
+    the host's speed."""
     from r2d2dpg_torch import kernels
-    from r2d2dpg_torch.obs import get_registry
+    from r2d2dpg_torch.obs import get_flight_recorder, get_registry
     from r2d2dpg_torch.parallel import DPLearnerTrainer
     from r2d2dpg_torch.train import main as train_main
 
@@ -2560,20 +2602,31 @@ def _fleet_dp1_leg(torch, dev, label="fleet_dp1"):
     try:
         for k in kernels.ALL_KERNELS:
             k.launches = 0
-        t0 = time.perf_counter()
+        t0, t0_mono = time.perf_counter(), time.monotonic()
         with _group_of_one(), contextlib.redirect_stdout(buf):
             state = train_main([
                 "--config", "pendulum_r2d2", "--phases", str(FLEET_DP1_PHASES),
-                "--log-every", str(FLEET_DP1_PHASES // 2), "--logdir", logdir, *flags,
+                "--log-every", str(FLEET_DP1_PHASES // 2), "--logdir", logdir,
+                "--profile-window", "%d:%d" % FLEET_DP1_WINDOW, *flags,
             ])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
         lines = buf.getvalue().splitlines()
         stamp = _stamp_checked(label, flags, lines, logdir)
+        host_ops, nccl_kernels = _window_collectives(logdir)
     finally:
         DPLearnerTrainer._put_staged = plain_put
         shutil.rmtree(logdir, ignore_errors=True)
+    # Sheds against the profile window: starting the profiler pauses the
+    # drain, and a handler sheds after 1 s (--fleet-shed-after) of a full
+    # queue, so a shed up to 1 s past the window's end is the window's.
+    events = [e for e in get_flight_recorder().events() if e["t_mono"] >= t0_mono]
+    marks = {e["kind"]: e["t_mono"] for e in events
+             if e["kind"] in ("profile_start", "profile_stop")}
+    sheds = [e["t_mono"] for e in events if e["kind"] == "shed"]
+    in_window = [t for t in sheds
+                 if marks.get("profile_start", math.inf) <= t <= marks.get("profile_stop", -1) + 1.0]
     expected = FLEET_DP1_PHASES * tc.learner_steps
     reg = get_registry()
     stats_line = next(x for x in lines if x.startswith("fleet: ") and "wall_s" in x)
@@ -2587,8 +2640,21 @@ def _fleet_dp1_leg(torch, dev, label="fleet_dp1"):
            "arena_size": min(state.arena.total_added, tc.capacity),
            "drain_phases_per_s": stats.get("train_drain_phases_per_sec"),
            "sheds": stats.get("sheds"), "restarts": stats.get("actor_restarts"),
-           "learner_step": state.train.step}
+           "learner_step": state.train.step,
+           "absorb_drains": stats.get("absorb_drains"),
+           "control_records": stats.get("control_records"),
+           "payload_broadcasts": stats.get("payload_broadcasts"),
+           "window_phases": FLEET_DP1_WINDOW[1],
+           "window_host_collectives": host_ops, "window_nccl_kernels": nccl_kernels,
+           "window_seconds": marks.get("profile_stop", 0) - marks.get("profile_start", 0),
+           "sheds_in_window": len(in_window), "sheds_outside_window": len(sheds) - len(in_window)}
     print(json.dumps({label: rec}), flush=True)
+    # One record and one payload per absorb and drain-learn, and the STOP.
+    if (rec["payload_broadcasts"] != rec["absorb_drains"] + FLEET_DP1_PHASES
+            or rec["control_records"] != rec["payload_broadcasts"] + 1):
+        raise AssertionError(f"{label}: control broadcasts {rec}")
+    if not nccl_kernels:
+        raise AssertionError(f"{label}: no NCCL kernel in the profile window")
     if launches["priority_scatter"] != expected or state.train.step != expected:
         raise AssertionError(f"{label}: scatter launches {launches}, step "
                              f"{state.train.step}, expected {expected}")
@@ -2602,6 +2668,209 @@ def _fleet_dp1_leg(torch, dev, label="fleet_dp1"):
     return {label: launches["priority_scatter"]}
 
 
+SAMPLER_DP1_PHASES = 10
+
+
+def _sampler_dp1_leg(torch, dev, label="sampler_dp1"):
+    """``train.main --config pendulum_r2d2 --actors 2 --replay-shards 2
+    --learner-dp 1 --phases 10``: the sampler's pull loop into the dp
+    learner on a world of one, through rank 0's broadcast path.  Every
+    pulled batch goes through ``DPLearnerTrainer._put_staged(axis=1)`` and
+    its TD priorities through ``gather_priorities`` (both counted), one
+    control record and one payload broadcast go out per pull-learn and a
+    STOP at the end, the scatter never launches (no device arena), and the
+    pull-learn rate is recorded beside the loopback leg's of this run."""
+    from r2d2dpg_torch import kernels
+    from r2d2dpg_torch.fleet import sampler as sampler_mod
+    from r2d2dpg_torch.parallel import DPLearnerTrainer
+    from r2d2dpg_torch.train import main as train_main
+    from r2d2dpg_torch.tree import tree_leaves
+
+    tc = _config("pendulum_r2d2").trainer
+    flags = ("--actors", "2", "--replay-shards", "2", "--learner-dp", "1")
+    logdir = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")
+    placed, gathered = [], []
+    plain_put, plain_gather = DPLearnerTrainer._put_staged, sampler_mod.gather_priorities
+
+    def put(self, staged, axis=0):
+        placed.append(axis)
+        return plain_put(self, staged, axis)
+
+    def gather(t, prios):
+        out = plain_gather(t, prios)
+        gathered.append(tuple(out.shape))
+        return out
+
+    DPLearnerTrainer._put_staged, sampler_mod.gather_priorities = put, gather
+    buf = io.StringIO()
+    try:
+        for k in kernels.ALL_KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        with _group_of_one(), contextlib.redirect_stdout(buf):
+            state = train_main([
+                "--config", "pendulum_r2d2", "--phases", str(SAMPLER_DP1_PHASES),
+                "--log-every", str(SAMPLER_DP1_PHASES // 2), "--logdir", logdir, *flags,
+            ])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
+        lines = buf.getvalue().splitlines()
+        stamp = _stamp_checked(label, flags, lines, logdir)
+    finally:
+        DPLearnerTrainer._put_staged, sampler_mod.gather_priorities = plain_put, plain_gather
+        shutil.rmtree(logdir, ignore_errors=True)
+    words = next(x for x in lines if x.startswith("fleet: ") and "wall_s" in x).split()[1:]
+    stats = {k: float(v) for k, v in zip(words[::2], words[1::2])}
+    kb = (tc.learner_steps, tc.batch_size)
+    rec = {"flags": list(flags), "train_phases": SAMPLER_DP1_PHASES, "run_seconds": seconds,
+           "topology": stamp, "scatter_launches": launches["priority_scatter"],
+           "put_staged_axes": sorted(set(placed)), "put_staged_calls": len(placed),
+           "priority_gathers": len(gathered), "gathered_shapes": sorted(set(gathered)),
+           "control_records": stats.get("control_records"),
+           "payload_broadcasts": stats.get("payload_broadcasts"),
+           "pull_learn_phases_per_s": stats.get("train_phases_per_sec"),
+           "loopback_leg_phases_per_s": PULL_RATES.get("sampler_loopback"),
+           "pull_learn_ms": [stats.get("pull_learn_p50_ms"), stats.get("pull_learn_p99_ms")],
+           "put_ms": [stats.get("put_p50_ms"), stats.get("put_p99_ms")],
+           "prio_fetch_ms": [stats.get("prio_fetch_p50_ms"), stats.get("prio_fetch_p99_ms")],
+           "sheds": stats.get("sheds"), "evictions": stats.get("evictions"),
+           "learner_step": state.train.step}
+    print(json.dumps({label: rec}), flush=True)
+    n = SAMPLER_DP1_PHASES
+    if launches["priority_scatter"] or state.train.step != n * tc.learner_steps:
+        raise AssertionError(f"{label}: launches {launches}, step {state.train.step}")
+    if (rec["put_staged_axes"] != [1] or len(placed) != n or len(gathered) != n
+            or rec["gathered_shapes"] != [kb]):
+        raise AssertionError(f"{label}: placement and gathers {rec}")
+    if rec["payload_broadcasts"] != n or rec["control_records"] != n + 1:
+        raise AssertionError(f"{label}: control broadcasts {rec}")
+    if rec["sheds"] != 0 or rec["evictions"] != 0:
+        raise AssertionError(f"{label}: sheds/evictions {rec}")
+    if not all(bool(torch.isfinite(x).all()) for x in tree_leaves(state.train.actor_params)):
+        raise AssertionError(f"{label}: non-finite params")
+    return {label: launches["priority_scatter"]}
+
+
+LIFECYCLE_PHASES = (10, 5)  # train phases before and after the resume
+LIFECYCLE_MIN_REPLAY = 100  # depth cut: 25 fill phases instead of 50
+
+
+def _eval_lines(lines):
+    return [json.loads(x[len("eval "):]) for x in lines if x.startswith("eval ")]
+
+
+def _mesh_lifecycle1_leg(torch, dev, label="mesh_lifecycle1"):
+    """Checkpoints, resume and evals of the mesh trainers on a world of one,
+    ``--learner-dp 1`` then ``--spmd 1``: ``train.main --config
+    pendulum_r2d2 --checkpoint-dir D --checkpoint-every 5 --eval-every 5
+    --phases 10``, then ``--resume --phases 5``, against the uninterrupted
+    ``--phases 15`` run with the same ``--eval-every 5``; every run with
+    ``--min-replay 100`` (a depth cut: 25 fill phases, not 50).  The final params
+    and priorities must be bitwise equal, and so must the eval lines: the
+    first two to the uninterrupted run's at the same phases, the resumed
+    run's one (a resumed run's eval stream restarts at ``seed + 1``, as
+    JAX's eval key does) to an ``Evaluator`` run on the uninterrupted run's
+    final params with ``Draws(seed + 1)``.  The scatter launches once per
+    learner step in every run (counts set to 0 just before and read just
+    after each).  Save and restore seconds and the bytes of a checkpoint
+    step are recorded."""
+    from r2d2dpg_torch import kernels
+    from r2d2dpg_torch import train as train_mod
+    from r2d2dpg_torch.kernels import PRIORITY_SCATTER
+    from r2d2dpg_torch.training.draws import Draws
+    from r2d2dpg_torch.training.evaluator import Evaluator
+    from r2d2dpg_torch.tree import tree_leaves
+    from r2d2dpg_torch.utils import checkpoint as ck_mod
+
+    config = _config("pendulum_r2d2")
+    tc = config.trainer
+    first, second = LIFECYCLE_PHASES
+    timings = {}
+    plain_save, plain_resume = ck_mod.CheckpointManager.save, train_mod.resume_state
+
+    def save(self, step, state, trainer=None):
+        t = time.perf_counter()
+        plain_save(self, step, state, trainer)
+        timings.setdefault("save_s", []).append(time.perf_counter() - t)
+
+    def resume(trainer, ckpt):
+        t = time.perf_counter()
+        out = plain_resume(trainer, ckpt)
+        torch.cuda.synchronize()
+        timings.setdefault("restore_s", []).append(time.perf_counter() - t)
+        return out
+
+    def run(flags, argv):
+        for k in kernels.ALL_KERNELS:
+            k.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with _group_of_one(), contextlib.redirect_stdout(buf):
+            state = train_mod.main(["--config", "pendulum_r2d2", "--log-every", "16",
+                                    "--min-replay", str(LIFECYCLE_MIN_REPLAY),
+                                    "--eval-every", "5", *flags, *argv])
+        torch.cuda.synchronize()
+        return (state, buf.getvalue().splitlines(), time.perf_counter() - t0,
+                PRIORITY_SCATTER.launches)
+
+    env = config.env_factory(dev)
+    evaluator = Evaluator(env, config.build_agent(env).actor, 10)  # train's --eval-envs
+    ck_mod.CheckpointManager.save, train_mod.resume_state = save, resume
+    launches = 0
+    try:
+        for part, flags in (("learner_dp1", ("--learner-dp", "1")),
+                            ("spmd1", ("--spmd", "1"))):
+            ckdir = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_{part}_")
+            timings.clear()
+            try:
+                whole, whole_lines, whole_s, whole_n = run(
+                    flags, ["--phases", str(first + second)])
+                _, first_lines, first_s, first_n = run(
+                    flags, ["--phases", str(first), "--checkpoint-dir", ckdir,
+                            "--checkpoint-every", "5"])
+                saves = list(timings.get("save_s", []))
+                step_bytes = _dir_bytes(os.path.join(
+                    ckdir, str(ck_mod.latest_step(ckdir))))
+                resumed, res_lines, res_s, res_n = run(
+                    flags, ["--phases", str(second), "--checkpoint-dir", ckdir, "--resume"])
+            finally:
+                shutil.rmtree(ckdir, ignore_errors=True)
+            pairs = list(zip(tree_leaves(whole.train), tree_leaves(resumed.train), strict=True))
+            want = _eval_lines(whole_lines)
+            got = _eval_lines(first_lines) + _eval_lines(res_lines)
+            fresh = evaluator.run(whole.train.actor_params, Draws(tc.seed + 1, dev))
+            rec = {
+                "flags": list(flags), "phases": [first, second],
+                "params_bitwise": all(torch.equal(a, b) for a, b in pairs),
+                "priorities_bitwise": torch.equal(whole.arena.priority,
+                                                  resumed.arena.priority),
+                "eval_phases": [e["phase"] for e in got],
+                "evals_bitwise": got[:2] == want[:2] and all(
+                    got[2][k] == v for k, v in fresh.items()),
+                "eval_lines": got, "whole_eval_lines": want,
+                "run_seconds": {"whole": whole_s, "first": first_s, "resumed": res_s},
+                "save_s": saves, "resume_save_s": timings.get("save_s", [])[len(saves):],
+                "restore_s": timings.get("restore_s"),
+                "checkpoint_step_bytes": step_bytes,
+                "scatter_launches": {"whole": whole_n, "first": first_n, "resumed": res_n},
+            }
+            print(json.dumps({f"{label}_{part}": rec}), flush=True)
+            k = tc.learner_steps
+            if (whole_n, first_n, res_n) != ((first + second) * k, first * k, second * k):
+                raise AssertionError(f"{label} {part}: scatter launches {rec}")
+            if not (rec["params_bitwise"] and rec["priorities_bitwise"]):
+                raise AssertionError(f"{label} {part}: resume not bitwise: {rec}")
+            if len(got) != 3 or [e["phase"] for e in want] != rec["eval_phases"]:
+                raise AssertionError(f"{label} {part}: eval lines {rec}")
+            if not rec["evals_bitwise"]:
+                raise AssertionError(f"{label} {part}: eval lines differ: {rec}")
+            launches += whole_n + first_n + res_n
+    finally:
+        ck_mod.CheckpointManager.save, train_mod.resume_state = plain_save, plain_resume
+    return {label: launches}
+
+
 def _fleet_phase(torch, dev):
     """The fleet main path: both legs, then the card-vs-CPU drain."""
     launches = _fleet_leg(torch, dev, "fleet_f32", ())
@@ -2612,6 +2881,7 @@ def _fleet_phase(torch, dev):
     return launches
 
 
+PULL_RATES = {}  # each sampler leg's pull-learn phases/s, by label
 SAMPLER_TRAIN_PHASES = 60  # pull-learn phases of the loopback leg
 # The shard-procs leg runs longer: the killed shard process restarts on a
 # host whose cores the free-running actors keep busy, and its restart
@@ -2808,6 +3078,7 @@ def _sampler_leg(torch, dev, label, flags, phases=SAMPLER_TRAIN_PHASES):
     print("sampler stats line:", stats_line, flush=True)
     print("last log line:", logged[-1], flush=True)
     print(json.dumps({label: rec}), flush=True)
+    PULL_RATES[label] = rec["phases_per_s"]
     if probe is None or len(probe["compute_apps"]) != 1 or any(
             probe["child_card_fds"].values()):
         raise AssertionError(f"{label}: card processes {probe}")
@@ -3309,6 +3580,8 @@ def main() -> int:
         launches.update(timed("learner_dp1", _learner_dp1_leg, torch, dev))
     launches.update(timed("mesh_cli", _mesh_cli_legs, torch, dev, plain))
     launches.update(timed("fleet_dp1", _fleet_dp1_leg, torch, dev))
+    launches.update(timed("sampler_dp1", _sampler_dp1_leg, torch, dev))
+    launches.update(timed("mesh_lifecycle1", _mesh_lifecycle1_leg, torch, dev))
     timed("mujoco_probe", _mujoco_probe)
     phase_seconds["total"] = time.perf_counter() - t_start
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)

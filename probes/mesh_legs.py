@@ -3,16 +3,21 @@
 
     python3 probes/mesh_legs.py
 
-Run from the root of a checkout on a machine with a CUDA card (about three
+Run from the root of a checkout on a machine with a CUDA card (about four
 minutes on an H100 host).  Builds the port's kernels, then runs, exactly as
 ``chip_smoke.py`` runs them (any failed check raises): ``learner_dp1``
 (``DPLearnerTrainer`` at walker_r2d2's shapes on a world of one over NCCL,
 beside the plain ``Trainer``), the plain ``pendulum_r2d2`` train run
 ``--phases 10 --log-every 16``, then ``spmd1`` and ``learner_dp1_cli``
 (the same run with ``--spmd 1`` / ``--learner-dp 1``, bitwise on the plain
-one), and ``fleet_dp1`` (``--actors 2 --learner-dp 1 --phases 20``).  The
-first line is the card's name and power limit; each leg prints its JSON
-record; the last line gives each leg's scatter launches and seconds.
+one), ``fleet_dp1`` (``--actors 2 --learner-dp 1 --phases 20``, through
+rank 0's broadcast path), ``sampler_dp1`` (``--actors 2 --replay-shards 2
+--learner-dp 1 --phases 10``; without the loopback leg of a whole
+``chip_smoke.py`` run its rate has no neighbour) and ``mesh_lifecycle1``
+(checkpoints, ``--resume`` and ``--eval-every`` with ``--learner-dp 1``
+and ``--spmd 1``, bitwise on the uninterrupted run).  The first line is
+the card's name and power limit; each leg prints its JSON record; the
+last line gives each leg's scatter launches and seconds.
 """
 
 from __future__ import annotations
@@ -64,6 +69,8 @@ def main() -> int:
         ("plain_run", lambda: plain.update(_plain_run()) or {}),
         ("mesh_cli", lambda: cs._mesh_cli_legs(torch, dev, plain)),
         ("fleet_dp1", lambda: cs._fleet_dp1_leg(torch, dev)),
+        ("sampler_dp1", lambda: cs._sampler_dp1_leg(torch, dev)),
+        ("mesh_lifecycle1", lambda: cs._mesh_lifecycle1_leg(torch, dev)),
     )
     for label, leg in legs:
         t = time.perf_counter()

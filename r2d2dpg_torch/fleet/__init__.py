@@ -54,8 +54,8 @@ from r2d2dpg_torch.fleet.ingest import (
     FleetLearner,
     IngestServer,
     load_fleet_counters,
+    pack_host,
     prune_fleet_counters,
-    put_host,
     put_staged,
     save_fleet_counters,
     snapshot_params,
@@ -100,9 +100,9 @@ __all__ = [
     "build_actor_trainer",
     "default_actor_argv",
     "load_fleet_counters",
+    "pack_host",
     "parse_chaos_spec",
     "prune_fleet_counters",
-    "put_host",
     "put_staged",
     "save_fleet_counters",
     "shard_for_actor",

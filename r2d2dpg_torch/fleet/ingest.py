@@ -76,7 +76,7 @@ import queue
 import socket
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -114,6 +114,7 @@ from r2d2dpg_torch.obs.quality import (
     policy_lags,
     quality_stats_columns,
 )
+from r2d2dpg_torch.parallel.control import ABSORB, LEARN, STOP, control_plane
 from r2d2dpg_torch.replay.arena import StagedSequences, staged_nbytes
 from r2d2dpg_torch.training.pipeline import (
     coalesce_from_queue,
@@ -121,7 +122,9 @@ from r2d2dpg_torch.training.pipeline import (
     merge_state,
     split_state,
 )
+from r2d2dpg_torch.training.assembler import emit
 from r2d2dpg_torch.training.trainer import Trainer, TrainerState
+from r2d2dpg_torch.tree import tree_map
 from r2d2dpg_torch.utils.codes import OK, REFUSED_AUTH, REFUSED_WIRE, SHED_INGEST
 from r2d2dpg_torch.utils.metrics import PercentileWindow
 from r2d2dpg_torch.utils.profiling import annotate
@@ -846,6 +849,15 @@ def put_staged(batches: List[StagedSequences], device) -> StagedSequences:
     On the CPU the buffer itself backs the tensors.  Priorities must be
     resolved on every batch or on none (mixing raises); provenance present
     on only some batches is dropped, as ``replay.stack_staged`` does."""
+    return pack_staged(batches, device)[0]
+
+
+def pack_staged(batches: List[StagedSequences], device,
+                template: Any = None) -> Tuple[StagedSequences, torch.Tensor]:
+    """``put_staged``, and the one device byte buffer its leaves view (what
+    rank 0 broadcasts to the other ranks of a mesh).  Given ``template``
+    (``staged_template``: the layout a follower derives), the batch's
+    leaves must match it in order, shape and dtype."""
     if not batches:
         raise ValueError("put_staged needs at least one batch")
     resolved = [b.priorities is not None for b in batches]
@@ -865,38 +877,100 @@ def put_staged(batches: List[StagedSequences], device) -> StagedSequences:
         if per_batch and len(leaves) != len(per_batch[0]):
             raise ValueError("put_staged: batches of different structure")
         per_batch.append(leaves)
-    return build(_put_columns(list(zip(*per_batch)), device))
+    columns = list(zip(*per_batch))
+    specs = [((sum(a.shape[0] for a in col),) + tuple(col[0].shape[1:]), col[0].dtype)
+             for col in columns]
+    _check_template(specs, template)
+    views, dev = _put_columns(columns, specs, device)
+    return build(views), dev
 
 
-def put_host(tree: Any, device) -> Any:
+def pack_host(tree: Any, device, template: Any = None) -> Tuple[Any, torch.Tensor]:
     """A tree of numpy arrays on ``device`` with ONE host-to-device copy:
     ``put_staged``'s single fresh buffer for one tree (the sampler's
-    pulled batch); the leaves are typed views of the device buffer."""
+    pulled batch); the leaves are typed views of the device buffer, which
+    is returned beside them.  With ``template``, as ``pack_staged``."""
     leaves, build = flatten_tree(tree, lambda x: isinstance(x, np.ndarray))
-    return build(_put_columns([[x] for x in leaves], device))
+    specs = _specs(leaves)
+    _check_template(specs, template)
+    views, dev = _put_columns([[x] for x in leaves], specs, device)
+    return build(views), dev
 
 
-def _put_columns(columns, device) -> List[torch.Tensor]:
-    """Each column's row blocks stacked into one fresh host byte buffer
-    (16-byte aligned per column), one copy to ``device``, one typed view
-    per column."""
+def unpack_buffer(buf: torch.Tensor, template: Any) -> Any:
+    """``template`` (a tree of numpy arrays: the layout) rebuilt as typed
+    views of ``buf``, a device byte buffer that ``pack_staged`` or
+    ``pack_host`` made on rank 0 and a follower received whole."""
+    leaves, build = flatten_tree(template, lambda x: isinstance(x, np.ndarray))
+    layout, total = _layout(_specs(leaves))
+    if total != buf.numel():
+        raise ValueError(f"a payload of {buf.numel()} bytes for a layout of {total}")
+    return build(_views(buf, layout))
+
+
+def staged_template(window, width: int, resolved: bool,
+                    provenance: bool) -> StagedSequences:
+    """The host layout of a staged batch of ``width`` sequences emitted
+    from ``window`` (the learner's own window: the same leaves, shapes and
+    dtypes as the actors' emits), with the producer's priorities and the
+    provenance columns when present."""
+    def rows(x):
+        return np.empty((width,) + tuple(x.shape[1:]),
+                        torch.empty(0, dtype=x.dtype).numpy().dtype)
+
+    col = (lambda dtype: np.empty(width, dtype))
+    return StagedSequences(
+        seq=tree_map(rows, emit(window)),
+        priorities=col(np.float32) if resolved else None,
+        behavior_version=col(np.int64) if provenance else None,
+        collect_id=col(np.int64) if provenance else None,
+    )
+
+
+def _specs(leaves) -> list:
+    return [(tuple(x.shape), x.dtype) for x in leaves]
+
+
+def _check_template(specs, template) -> None:
+    """A leader's batch must have the layout its followers derive."""
+    if template is None:
+        return
+    want = _specs(flatten_tree(template, lambda x: isinstance(x, np.ndarray))[0])
+    if specs != want:
+        raise ValueError(f"the batch's layout {specs} is not the learner's "
+                         f"template {want}")
+
+
+def _layout(specs) -> Tuple[list, int]:
+    """``(offset, nbytes, shape, dtype)`` per ``(shape, dtype)``, 16-byte
+    aligned, and the total bytes."""
     layout, total = [], 0
-    for col in columns:
-        shape = (sum(a.shape[0] for a in col),) + tuple(col[0].shape[1:])
-        dtype = col[0].dtype
+    for shape, dtype in specs:
         nbytes = int(np.prod(shape)) * dtype.itemsize
         layout.append((total, nbytes, shape, dtype))
         total += -(-nbytes // 16) * 16  # 16-byte aligned views
-    host = np.empty(total, np.uint8)
-    for col, (off, nbytes, shape, dtype) in zip(columns, layout):
-        out = host[off:off + nbytes].view(dtype).reshape(shape)
-        np.concatenate(col, axis=0, out=out)
-    dev = torch.from_numpy(host).to(device)
+    return layout, total
+
+
+def _views(dev: torch.Tensor, layout) -> List[torch.Tensor]:
     return [
         dev[off:off + nbytes].view(torch.from_numpy(np.empty(0, dtype)).dtype)
         .view(shape)
         for off, nbytes, shape, dtype in layout
     ]
+
+
+def _put_columns(columns, specs, device) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Each column's row blocks stacked into one fresh host byte buffer
+    (16-byte aligned per column), one copy to ``device``, one typed view
+    per column; and the device buffer."""
+    layout, total = _layout(specs)
+    host = np.empty(total, np.uint8)
+    for col, (off, nbytes, shape, dtype) in zip(columns, layout):
+        out = host[off:off + nbytes].view(dtype).reshape(shape)
+        np.concatenate(col, axis=0, out=out)
+    dev = torch.from_numpy(host).to(device)
+    return _views(dev, layout), dev
 
 
 # -------------------------------------------------------- fleet checkpoints
@@ -1074,10 +1148,18 @@ class FleetLearner:
         raise to abort the run (the train CLI checks that the supervisor
         has not given actors up).  ``phase_fn(drained)`` runs after each
         drain-learn phase with the 1-based count (the chaos engine fires
-        its learner-side faults there)."""
+        its learner-side faults there).
+
+        On a mesh trainer this is rank 0's loop (``parallel/control.py``):
+        each absorb and drain-learn sends its control record and the packed
+        batch to the other ranks, which run ``follow_drain``; the run's end
+        sends STOP, an exception ERROR before it propagates."""
         if self.server.address is None:
             raise RuntimeError("call start() before run()")
         t = self.trainer
+        control = control_plane(t)
+        if control is not None:
+            control.open()
         mon = get_device_monitor().install()
         mon.begin_run()
         state = t.init() if state is None else state
@@ -1177,11 +1259,30 @@ class FleetLearner:
                     # One host-to-device copy, then the trainer's placement
                     # hook (the dp learner checks the width against its
                     # mesh; identity for one device).
-                    staged = t._put_staged(put_staged(host_staged, t.device))
+                    n_seqs = sum(int(np.shape(b.seq.reward)[0]) for b in host_staged)
+                    template = None
+                    if control is not None:
+                        template = staged_template(
+                            cstate.window, n_seqs,
+                            host_staged[0].priorities is not None,
+                            all(b.behavior_version is not None
+                                and b.collect_id is not None for b in host_staged))
+                    staged, buf = pack_staged(host_staged, t.device, template)
+                    staged = t._put_staged(staged)
+                    learn = absorbed + n_seqs > min_seqs
+                    if control is not None:
+                        # Every rank hears the drain before anyone acts.
+                        after = drained + int(learn)
+                        control.send(
+                            LEARN if learn else ABSORB, width=n_seqs,
+                            resolved=staged.priorities is not None,
+                            provenance=staged.behavior_version is not None,
+                            drained=after, nbytes=buf.numel(),
+                            log=bool(learn and log_every and after % log_every == 0))
+                        control.send_payload(buf)
                 t_stack_end = time.time()
-                n_seqs = int(staged.seq.reward.shape[0])
                 absorbed += n_seqs
-                if absorbed <= min_seqs:
+                if not learn:
                     with t.arena.staged_writer():
                         lstate, _ = drain_staged(t, lstate, staged, learn=False)
                     continue
@@ -1285,11 +1386,10 @@ class FleetLearner:
                         names = list(last_metrics)
                         # The dp learner's per-shard gauges ride this
                         # fetch (Trainer._log_extra_refs).
-                        extra = t._log_extra_refs(lstate.arena)
+                        psum, extra = _log_refs(t, lstate.arena)
                         fetched = torch.cat(
                             [torch.stack(
-                                [t.arena.priority_sum(lstate.arena)]
-                                + [last_metrics[k].float() for k in names])]
+                                [psum] + [last_metrics[k].float() for k in names])]
                             + [x.reshape(-1).to(torch.float32) for x in extra]
                         ).tolist()
                     if extra:
@@ -1313,6 +1413,13 @@ class FleetLearner:
                     ep_count = 0.0
                     t._obs_publish(scalars)
                     emit_log(drained, scalars)
+        except BaseException as e:
+            if control is not None and not control.closed:
+                control.fail(e)
+            raise
+        else:
+            if control is not None:
+                control.stop(drained)
         finally:
             if t.device.type == "cuda":
                 torch.cuda.synchronize(t.device)
@@ -1367,6 +1474,11 @@ class FleetLearner:
                 **quality_stats_columns(),
                 **mon.run_stats(),
             }
+            if control is not None:
+                self._stats.update(
+                    absorb_drains=float(control.payloads - drained_here),
+                    control_records=float(control.records),
+                    payload_broadcasts=float(control.payloads))
             if train_t0 is not None:
                 # Steady-state rates (the whole-run rates above include
                 # start-up).
@@ -1388,6 +1500,49 @@ class FleetLearner:
             merge_state(state, cstate, lstate),
             phase_idx=cstate.phase_idx + drained,
         )
+
+
+def _log_refs(t: Trainer, arena) -> Tuple[torch.Tensor, list]:
+    """The log cadence's device values, in the order of their collectives
+    on a mesh (the leader and its followers call this together): the
+    extra refs, then the arena's priority sum."""
+    extra = t._log_extra_refs(arena)
+    return t.arena.priority_sum(arena), extra
+
+
+def follow_drain(trainer: Trainer, state: Optional[TrainerState] = None) -> TrainerState:
+    """A rank > 0's side of ``FleetLearner.run`` on a mesh trainer: each
+    control record, then the packed staged batch (received in place into
+    a fresh device buffer: no host copy), then the same absorb or
+    drain-learn and the same log-cadence collectives as rank 0, until
+    STOP.  An ERROR record raises ``RuntimeError("rank 0 stopped: ...")``.
+    Returns the final state, its ``phase_idx`` stamped as rank 0's."""
+    t = trainer
+    control = control_plane(t)
+    control.open()
+    state = t.init() if state is None else state
+    cstate, lstate = split_state(state)
+    drained = 0
+    note_width = getattr(t, "dp_note_learn_width", None)
+    while True:
+        rec = control.recv()
+        drained = rec.drained
+        if rec.op == STOP:
+            break
+        buf = control.recv_payload(rec.nbytes)
+        staged = t._put_staged(unpack_buffer(buf, staged_template(
+            cstate.window, rec.width, rec.resolved, rec.provenance)))
+        with t.arena.staged_writer():
+            if rec.op == ABSORB:
+                lstate, _ = drain_staged(t, lstate, staged, learn=False)
+                continue
+            if note_width is not None:
+                note_width(rec.width)
+            lstate, _ = drain_staged(t, lstate, staged, prefetch=True)
+        if rec.log:
+            _log_refs(t, lstate.arena)
+    return dataclasses.replace(merge_state(state, cstate, lstate),
+                               phase_idx=cstate.phase_idx + drained)
 
 
 def snapshot_params(train) -> Any:

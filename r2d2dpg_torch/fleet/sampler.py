@@ -40,7 +40,7 @@ What the card needs:
 - **One copy in, one copy out, per phase.**  The pulled ``[K*B, ...]``
   numpy batch (permuted on the host) and its float32 combined
   probabilities cross to the device in ONE host-to-device copy
-  (``ingest.put_host``, the ``put_staged`` pattern) on the learner's
+  (``ingest.pack_host``, the ``put_staged`` pattern) on the learner's
   thread and current stream, as views ``[K, B, ...]``; the K learner
   steps' TD priorities ``[K, B]`` come back in ONE synchronous copy after
   the K-th update (the ``sampler/prio_fetch`` range, timed per phase).
@@ -78,10 +78,12 @@ from r2d2dpg_torch.fleet import transport, wire
 from r2d2dpg_torch.fleet.ingest import (
     FleetConfig,
     IngestServer,
+    pack_host,
     prune_fleet_counters,
-    put_host,
     save_fleet_counters,
     snapshot_params,
+    staged_template,
+    unpack_buffer,
 )
 from r2d2dpg_torch.obs import flight_event, get_device_monitor, get_registry
 from r2d2dpg_torch.obs.device import count_flops
@@ -94,6 +96,7 @@ from r2d2dpg_torch.obs.quality import (
     replay_ages,
 )
 from r2d2dpg_torch.ops import anneal_beta, importance_weights
+from r2d2dpg_torch.parallel.control import LEARN, STOP, control_plane
 from r2d2dpg_torch.replay.arena import SequenceBatch, StagedSequences
 from r2d2dpg_torch.replay.sharded import (
     ReplayShard,
@@ -248,6 +251,94 @@ class _PrefetchPull:
         return self._result
 
 
+def pull_learn(t: Trainer, train, seqs: SequenceBatch, probs: torch.Tensor,
+               size: int, draws):
+    """K importance-weighted learner steps on a pulled batch.
+
+    ``seqs`` leaves are ``[K, B, ...]`` (this rank's ``B/D`` rows on a
+    mesh) and ``probs`` the combined two-level probabilities ``[K, B]``
+    (float32), on the learner's device; ``size`` is the fleet-wide
+    occupancy (the N of the IS correction).  Returns ``(train, priorities
+    [K, B/D], metrics)``, the metrics the mean over the K steps.  No arena
+    scatter: the priorities go back to the shards on the host."""
+    cfg = t.config
+    acfg = t.agent.config
+    prios, steps = [], []
+    for k in range(cfg.learner_steps):
+        batch = tree_map(lambda x: x[k], seqs)
+        if cfg.prioritized:
+            beta = anneal_beta(train.step, beta0=cfg.beta0, steps=cfg.beta_steps)
+            w = importance_weights(probs[k], size, beta=beta)
+        else:
+            w = torch.ones(cfg.batch_size, device=probs.device)
+        normal = None
+        if acfg.target_policy_sigma > 0:
+            normal = draws.normal(
+                (acfg.unroll + acfg.n_step, cfg.batch_size, batch.action.shape[-1]))
+        # The rows arrive as this rank's share (_put_staged(axis=1));
+        # the weights and the normal are the whole batch's.
+        batch, w, normal = t._reshard_batch(batch, w, normal)
+        train, p, m = t.agent.learner_step(train, batch, w, normal)
+        prios.append(p)
+        steps.append(m)
+    metrics = {k: torch.stack([m[k] for m in steps]).mean() for k in steps[0]}
+    return train, torch.stack(prios), t._pmean(metrics)
+
+
+def gather_priorities(t: Trainer, prios: torch.Tensor) -> Optional[torch.Tensor]:
+    """The ``[K, B]`` TD priorities in global batch order on rank 0 (each
+    rank's ``[K, B/D]`` columns, gathered in rank order); None on the other
+    ranks; ``prios`` itself off a mesh."""
+    mesh = getattr(t, "mesh", None)
+    if mesh is None:
+        return prios
+    parts = mesh.gather(prios)
+    return None if parts is None else torch.cat(parts, dim=1)
+
+
+def pulled_template(window, n: int) -> Dict[str, Any]:
+    """The host layout of a pulled batch of ``n`` sequences and its
+    probabilities (``ingest.staged_template``'s rows)."""
+    return {"seq": staged_template(window, n, False, False).seq,
+            "probs": np.empty(n, np.float32)}
+
+
+def _place_views(t: Trainer, dev: Dict[str, Any]):
+    """``[K, B, ...]`` views of a placed ``[K*B, ...]`` pulled batch, then
+    the trainer's placement hook on the batch axis: the dp learner keeps
+    this rank's B/D rows (identity for one device).  The probabilities
+    stay whole: the IS weights normalize over the batch."""
+    kb = (t.config.learner_steps, t.config.batch_size)
+    seqs = tree_map(lambda x: x.view(kb + tuple(x.shape[1:])), dev["seq"])
+    return t._put_staged(seqs, axis=1), dev["probs"].view(kb)
+
+
+def follow_pull(trainer: Trainer, state: Optional[TrainerState] = None) -> TrainerState:
+    """A rank > 0's side of ``SamplerLearner.run`` on a mesh trainer: each
+    control record, then the pulled batch received into a fresh device
+    buffer, its ``B/D`` rows learned as rank 0 learns them, and the TD
+    priorities gathered to rank 0, until STOP (an ERROR raises)."""
+    t = trainer
+    control = control_plane(t)
+    control.open()
+    state = t.init() if state is None else state
+    cstate, lstate = split_state(state)
+    train, drained = lstate.train, 0
+    while True:
+        rec = control.recv()
+        drained = rec.drained
+        if rec.op == STOP:
+            break
+        buf = control.recv_payload(rec.nbytes)
+        seqs, probs = _place_views(t, unpack_buffer(buf, pulled_template(
+            cstate.window, rec.width)))
+        train, prios, _ = pull_learn(t, train, seqs, probs, rec.size, lstate.draws)
+        gather_priorities(t, prios)
+    lstate = dataclasses.replace(lstate, train=train)
+    return dataclasses.replace(merge_state(state, cstate, lstate),
+                               phase_idx=cstate.phase_idx + drained)
+
+
 class SamplerLearner:
     """The learner side of in-network sampling (``--replay-shards N``).
 
@@ -394,50 +485,25 @@ class SamplerLearner:
     # ---------------------------------------------------------------- learn
     def _learn(self, train, seqs: SequenceBatch, probs: torch.Tensor,
                size: int, draws):
-        """K importance-weighted learner steps on a pulled batch.
-
-        ``seqs`` leaves are ``[K, B, ...]`` and ``probs`` the combined
-        two-level probabilities ``[K, B]`` (float32), on the learner's
-        device; ``size`` is the fleet-wide occupancy (the N of the IS
-        correction).  Returns ``(train, priorities [K, B], metrics)``,
-        the metrics the mean over the K steps.  No arena scatter: the
-        priorities go back to the shards on the host."""
-        t = self.trainer
-        cfg = t.config
-        acfg = t.agent.config
-        prios, steps = [], []
-        for k in range(cfg.learner_steps):
-            batch = tree_map(lambda x: x[k], seqs)
-            if cfg.prioritized:
-                beta = anneal_beta(train.step, beta0=cfg.beta0, steps=cfg.beta_steps)
-                w = importance_weights(probs[k], size, beta=beta)
-            else:
-                w = torch.ones(cfg.batch_size, device=probs.device)
-            normal = None
-            if acfg.target_policy_sigma > 0:
-                normal = draws.normal(
-                    (acfg.unroll + acfg.n_step, cfg.batch_size, batch.action.shape[-1]))
-            # The rows arrive as this rank's share (_put_staged(axis=1));
-            # the weights and the normal are the whole batch's.
-            batch, w, normal = t._reshard_batch(batch, w, normal)
-            train, p, m = t.agent.learner_step(train, batch, w, normal)
-            prios.append(p)
-            steps.append(m)
-        metrics = {k: torch.stack([m[k] for m in steps]).mean() for k in steps[0]}
-        return train, torch.stack(prios), t._pmean(metrics)
+        """K importance-weighted learner steps on a pulled batch
+        (``pull_learn``)."""
+        return pull_learn(self.trainer, train, seqs, probs, size, draws)
 
     def _place(self, seq_np: SequenceBatch, probs_np: np.ndarray):
         """The pulled batch and its combined probabilities on the learner's
         device in one host-to-device copy, as ``[K, B, ...]`` views."""
-        cfg = self.trainer.config
-        kb = (cfg.learner_steps, cfg.batch_size)
-        dev = put_host({"seq": seq_np, "probs": probs_np.astype(np.float32)},
-                       self.trainer.device)
-        # The trainer's placement hook on the batch axis: the dp learner
-        # keeps this rank's B/D rows (identity for one device).  The
-        # probabilities stay whole: the IS weights normalize over the batch.
-        seqs = tree_map(lambda x: x.view(kb + tuple(x.shape[1:])), dev["seq"])
-        return self.trainer._put_staged(seqs, axis=1), dev["probs"].view(kb)
+        return self._pack(seq_np, probs_np)[:2]
+
+    def _pack(self, seq_np: SequenceBatch, probs_np: np.ndarray, window=None):
+        """``_place`` and the device byte buffer of the copy (what rank 0
+        broadcasts); with ``window``, the layout is checked against the
+        template the followers derive from it."""
+        t = self.trainer
+        n = t.config.learner_steps * t.config.batch_size
+        dev, buf = pack_host(
+            {"seq": seq_np, "probs": probs_np.astype(np.float32)}, t.device,
+            None if window is None else pulled_template(window, n))
+        return (*_place_views(t, dev), buf)
 
     # ------------------------------------------------------- sample assembly
     def _roundtrip(self, unpacker, parts) -> Any:
@@ -742,10 +808,18 @@ class SamplerLearner:
         are never checkpointed (a resumed learner refills them from live
         actors).  ``health_fn()`` runs while the absorb waits and may
         raise to abort the run; ``phase_fn(drained)`` runs after each
-        pull-learn phase with the 1-based count (the chaos engine)."""
+        pull-learn phase with the 1-based count (the chaos engine).
+
+        On a mesh trainer this is rank 0's loop, as ``FleetLearner.run``'s:
+        each pull-learn sends its control record (the IS size rides it) and
+        the pulled batch; the other ranks run ``follow_pull``, and the TD
+        priorities come back to rank 0 in global batch order."""
         if self.server.address is None:
             raise RuntimeError("call start() before run()")
         t = self.trainer
+        control = control_plane(t)
+        if control is not None:
+            control.open()
         cfg = t.config
         mon = get_device_monitor().install()
         mon.begin_run()
@@ -856,7 +930,13 @@ class SamplerLearner:
                 self.sampler_wait.add(pulled["stall_s"])
                 t_put = time.monotonic()
                 with annotate("sampler/put"):
-                    seqs, probs = self._place(seq_np, probs_np)
+                    seqs, probs, buf = self._pack(
+                        seq_np, probs_np, None if control is None else cstate.window)
+                    if control is not None:
+                        # Every rank hears the pull before anyone learns.
+                        control.send(LEARN, width=n_draws, drained=drained + 1,
+                                     size=occ, nbytes=buf.numel())
+                        control.send_payload(buf)
                 put_s.add(time.monotonic() - t_put)
                 with mon.program("sampler_learn"), annotate("sampler/learn"):
                     if drained == 0:
@@ -875,7 +955,7 @@ class SamplerLearner:
                 # K-th update.
                 t_fetch = time.monotonic()
                 with annotate("sampler/prio_fetch"):
-                    prios = prios_dev.cpu().numpy()
+                    prios = gather_priorities(t, prios_dev).cpu().numpy()
                 fetch_s.add(time.monotonic() - t_fetch)
                 t_learn_done = time.time()
                 self._write_back(handles, prios)
@@ -924,6 +1004,13 @@ class SamplerLearner:
                     ep_count = 0.0
                     t._obs_publish(scalars)
                     emit_log(drained, scalars)
+        except BaseException as e:
+            if control is not None and not control.closed:
+                control.fail(e)
+            raise
+        else:
+            if control is not None:
+                control.stop(drained)
         finally:
             if t.device.type == "cuda":
                 torch.cuda.synchronize(t.device)
@@ -986,6 +1073,9 @@ class SamplerLearner:
                 **quality_stats_columns(),
                 **mon.run_stats(),
             }
+            if control is not None:
+                self._stats.update(control_records=float(control.records),
+                                   payload_broadcasts=float(control.payloads))
             if self._remote:
                 self._stats.update({
                     "shard_deaths": float(self.shards.deaths_total),

@@ -1,6 +1,14 @@
 """The multi-device learner paths over ``torch.distributed``.
 
-Port of ``r2d2dpg_tpu/parallel/``.  The design, decided before the code:
+Port of ``r2d2dpg_tpu/parallel/``.  **The one rule: rank 0 decides, and
+every rank hears the decision before it acts.**  Any choice read from host
+state (the clock, the ingest queue, the supervisor, the shards, the health
+checks, an exception on rank 0) reaches every rank through a broadcast
+before any rank acts on it (``control.py``): the fleet loops begin each
+iteration with one fixed-shape control record from rank 0, an exception
+on rank 0 sends ``error`` before it propagates, and the ``--minutes``
+deadline is rank 0's (``Trainer._agree``).  A world of one runs the same
+broadcasts.  The design, decided before the code:
 
 - **One process per device.**  JAX drives D devices from one process; the
   port runs D processes, one device each, over ``torch.distributed``:
@@ -12,8 +20,17 @@ Port of ``r2d2dpg_tpu/parallel/``.  The design, decided before the code:
   or ``--learner-dp D`` differs from ``WORLD_SIZE`` refuses at startup.
 - **Rank r** computes on ``cuda:<LOCAL_RANK>``, or on the CPU when the
   caller asks for it (a missing card is an error).
-- **Side effects stay on rank 0**: logs, the exporter, ``topology.txt``
-  and flight dumps (``distributed.is_primary``).
+- **Side effects stay on rank 0**: logs, the exporter, ``topology.txt``,
+  flight dumps, checkpoint files and the eval line
+  (``distributed.is_primary``).
+- **The fleet is rank 0's** (``--actors N --learner-dp D``): one ingest
+  server and one supervisor for the whole fleet, as JAX's single process
+  has; each drain's (or pull's) packed batch reaches every rank by one
+  broadcast of the device buffer, and ranks > 0 run ``follow_drain`` /
+  ``follow_pull`` on the same trainer.
+- **A checkpoint is the global state** in JAX's layout (``layout.py``):
+  saved by every rank, gathered to rank 0 one field at a time and written
+  there; every rank reads the same files back and keeps its rows.
 
 Two trainers, as in JAX:
 

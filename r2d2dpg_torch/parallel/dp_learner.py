@@ -35,9 +35,18 @@ So a world of one is bitwise the plain ``Trainer`` (every collective is
 the identity there), and a world of D computes the same function up to
 the order of its sums.  ``lstate_shardings`` has no counterpart: eager
 torch keeps each tensor where it was made, so there is no output layout
-to pin.  The fleet composes at a world of one (``--actors N
---learner-dp 1``, with or without ``--replay-shards``); a wider world
-with actors waits for rank 0's ingest to broadcast the staged batches.
+to pin.  A checkpoint holds the global state (``parallel/layout.py``):
+the capacity blocks concatenated, the rest rank 0's; its draws are
+replicated, so it resumes at any D that divides capacity, batch and
+``num_envs``.
+
+The fleet feeds it through rank 0 (``parallel/control.py``): rank 0 runs
+the ingest server, the supervisor and the drain (or pull) loop, and
+broadcasts each iteration's control record and packed batch; every other
+rank runs the follower loop on the same trainer, so every rank holds the
+whole staged batch (axis 0) or keeps its ``B/D`` rows of a pulled one
+(axis 1), and the sampler's TD priorities are gathered back to rank 0 in
+global batch order for its PRIO frames.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from __future__ import annotations
 from r2d2dpg_torch.agents.ddpg import R2D2DPG
 from r2d2dpg_torch.envs.core import Environment
 from r2d2dpg_torch.obs.registry import get_registry
+from r2d2dpg_torch.parallel.layout import MeshState
 from r2d2dpg_torch.parallel.mesh import DP_AXIS, Mesh, sharded
 from r2d2dpg_torch.parallel.spmd import pmean_metrics
 from r2d2dpg_torch.replay.arena import CapacityBlockArena
@@ -52,7 +62,7 @@ from r2d2dpg_torch.training.trainer import Metrics, Trainer, TrainerConfig
 from r2d2dpg_torch.tree import tree_leaves, tree_map
 
 
-class DPLearnerTrainer(Trainer):
+class DPLearnerTrainer(MeshState, Trainer):
     """Capacity-split replay + data-parallel learner on a ``dp`` mesh.
 
     ``config`` is global (total capacity, global batch size)."""
@@ -131,14 +141,13 @@ class DPLearnerTrainer(Trainer):
             )
         if axis == 0:
             return staged
-        if self.num_devices > 1:
-            # The sampler learner pulls on one process; a multi-process pull
-            # is open work (ROADMAP).
-            raise ValueError(
-                "batch-axis placement (axis != 0) is single-process only"
-            )
         place = sharded(self.mesh)
         return tree_map(lambda x: place(x, axis=axis), staged)
+
+    def _is_sharded(self, path) -> bool:
+        """The arena's buffers split into capacity blocks; the rest is
+        replicated."""
+        return path[0] == "arena" and path[1:2] in (("data",), ("priority",), ("meta",))
 
     # ------------------------------------------------------------------ obs
     def dp_note_learn_width(self, b: int) -> None:

@@ -10,8 +10,10 @@ device order, the same rows), ``replicated`` keeps everything.
 
 The collectives the trainers need are methods, each one call on the
 group: ``pmean_`` (NCCL/gloo ``AVG``, in place), ``psum_``, ``pmax_``,
-``all_gather`` and ``reduce_scatter`` (both along axis 0, in rank order).
-A mesh of one runs the same calls.
+``all_gather`` and ``reduce_scatter`` (both along axis 0, in rank order),
+``broadcast_`` (rank ``src``'s tensor into every rank's, in place),
+``gather`` (every rank's tensor to one rank) and ``barrier``.  A mesh of
+one runs the same calls.
 """
 
 from __future__ import annotations
@@ -72,6 +74,26 @@ class Mesh:
 
     def pmax_(self, x: torch.Tensor) -> torch.Tensor:
         return self._reduce_(x, _dist().ReduceOp.MAX)
+
+    def broadcast_(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank ``src``'s ``x`` into every rank's ``x``, in place (``x``
+        must be contiguous and of one shape and dtype on every rank)."""
+        _dist().broadcast(x, src=src, group=self.group)
+        return x
+
+    def gather(self, x: torch.Tensor, dst: int = 0) -> Optional[list]:
+        """Every rank's ``x`` (one shape on every rank), in rank order, on
+        rank ``dst``; None elsewhere."""
+        x = x.contiguous()
+        out = ([torch.empty_like(x) for _ in range(self.size)]
+               if self.rank == dst else None)
+        _dist().gather(x, gather_list=out, dst=dst, group=self.group)
+        return out
+
+    def barrier(self) -> None:
+        """Return once every rank has reached this call (one small sum on
+        the mesh device, so it orders after this rank's queued work)."""
+        self.psum_(torch.zeros(1, device=self.device))
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's ``x`` stacked along axis 0 in rank order."""

@@ -24,6 +24,11 @@ its own stream (``Draws.fold``, the rule in ``training/draws.py``): rank 0
 keeps the run's draws, so ``--spmd 1`` is bitwise the plain ``Trainer``.
 The arena's gauges (occupancy, priority sum) read this rank's arena, as
 JAX's read its local shard.
+
+A checkpoint holds the global state in JAX's layout (``parallel/layout.py``):
+the env side, the window, the arena's buffers and the episode returns
+concatenated over the ranks, the rest rank 0's, and one draw stream per
+rank, so a full checkpoint resumes only at its own world size.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch
 from r2d2dpg_torch.agents.ddpg import R2D2DPG
 from r2d2dpg_torch.envs.core import Environment
 from r2d2dpg_torch.ops import sigma_ladder
+from r2d2dpg_torch.parallel.layout import MeshState
 from r2d2dpg_torch.parallel.mesh import DP_AXIS, Mesh
 from r2d2dpg_torch.training.trainer import Metrics, Trainer, TrainerConfig, TrainerState
 from r2d2dpg_torch.tree import tree_map
@@ -54,7 +60,7 @@ def pmean_metrics(mesh: Mesh, metrics: Metrics) -> Metrics:
     return dict(zip(names, flat.unbind()))
 
 
-class SPMDTrainer(Trainer):
+class SPMDTrainer(MeshState, Trainer):
     """Trainer whose phases run on every rank of a ``dp`` mesh.
 
     ``config`` is global (fleet-wide env count, global batch size, total
@@ -123,6 +129,17 @@ class SPMDTrainer(Trainer):
 
     def _fold_axis(self, draws):
         return draws.fold(self.mesh.rank)
+
+    # ------------------------------------------------------ global layout
+    def _is_sharded(self, path) -> bool:
+        """JAX's ``_state_spec``: the env side and the arena's buffers are
+        split by lane / slot; the rest is replicated."""
+        return path[0] in ENV_FIELDS or (
+            path[0] == "arena" and path[1:2] in (("data",), ("priority",), ("meta",)))
+
+    @property
+    def draw_streams(self) -> int:
+        return self.num_devices
 
     # ------------------------------------------------------------------ init
     def init(self, draws=None) -> TrainerState:

@@ -29,9 +29,8 @@ rows differ from the JAX table on purpose in these places:
 - ``actors-x-overlap-learner`` and ``learner-dp-x-overlap-learner`` wait
   for ``--overlap-learner`` (the host-pool trainer).
 - ``multiprocess-not-yet-ported`` is the port's own: a world of more than
-  one process refuses what this port does not run there yet
-  (``--actors``, ``--checkpoint-dir``/``--resume``, ``--eval-every``,
-  ``--pipeline``).
+  one process refuses ``--pipeline``, which a mesh run places only with
+  the host-pool trainer (not ported yet).
 
 ``Refusal.processes`` is the process count a row's ``argv`` needs to fire
 (the multi-process rows are pinned through ``validate`` with it).
@@ -199,11 +198,6 @@ def _chaos_direct_faults(a) -> bool:
 
 def _sampler_pull_knobs(a) -> bool:
     return bool(a.shard_pullers or a.shard_prefetch)
-
-
-def _not_ported_multiprocess(a) -> bool:
-    return bool(a.actors or a.checkpoint_dir or a.resume or a.eval_every
-                or a.pipeline)
 
 
 # ONE table.  Every pairing refused anywhere in the CLI lives here, with
@@ -490,14 +484,14 @@ REFUSALS: Tuple[Refusal, ...] = (
     # ------------------------------------------------- the port's own row
     Refusal(
         key="multiprocess-not-yet-ported",
-        when=lambda a, np: bool(np > 1 and _not_ported_multiprocess(a)),
+        when=lambda a, np: bool(np > 1 and a.pipeline),
         reason=(
-            "--actors/--checkpoint-dir/--resume/--eval-every/--pipeline are "
-            "not ported to multi-process runs yet: run them at world size 1 "
-            "(ROADMAP.md lists them as the next work)"
+            "--pipeline 1 is not ported to multi-process runs yet: a "
+            "mesh-placed pipeline needs the host-pool trainer, which waits "
+            "for the DM-Control envs (ROADMAP.md); run it at world size 1"
         ),
         match="not ported to multi-process",
-        argv=("--learner-dp", "2", "--eval-every", "5"),
+        argv=("--spmd", "2", "--pipeline", "1"),
         processes=2,
     ),
 )

@@ -37,7 +37,12 @@ of one in this process; D > 1 runs under ``torchrun --nproc-per-node D -m
 r2d2dpg_torch.train ...`` (a D that differs from ``WORLD_SIZE`` refuses).
 Logs, the CSV, the exporter and flight dumps are rank 0's.  With
 ``--obs-fleet 1`` on a multi-process run every rank's registry folds into
-rank 0's scrape under ``host=proc<i>``.
+rank 0's scrape under ``host=proc<i>``.  Rank 0 decides what host state
+decides (``parallel/control.py``): the ``--minutes`` deadline, and under
+``--actors N`` the whole fleet (ingest, supervisors, drain or pull loop),
+which the other ranks follow.  A checkpoint of a mesh run is its global
+state, saved by every rank and written by rank 0; ``--eval-every`` runs
+on rank 0, then every rank meets at one barrier.
 
 ``--phases N`` counts TRAIN phases, as in the JAX CLI: a fresh run does
 the config's warm-up and replay-fill phases, then N train phases (one when
@@ -151,6 +156,7 @@ Flags outside this subset are not accepted yet.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -165,6 +171,7 @@ from r2d2dpg_torch.configs import CONFIGS, ExperimentConfig, get_config
 from r2d2dpg_torch.device import device_name
 from r2d2dpg_torch.fleet.chaos import parse_chaos_spec
 from r2d2dpg_torch.parallel import distributed
+from r2d2dpg_torch.parallel.control import control_plane
 from r2d2dpg_torch.obs import (
     DivergenceError,
     DivergenceWatchdog,
@@ -243,7 +250,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         "(parallel/dp_learner.py): replay arena split into capacity "
         "blocks, learner batch split per rank, params replicated, the "
         "priority scatter on every rank's block.  Composes with --actors N "
-        "at --learner-dp 1 and with --actors 0; --learner-dp 1 is pinned "
+        "(rank 0 runs the ingest and the drain or pull loop, every rank "
+        "learns) and with --actors 0; --learner-dp 1 is pinned "
         "bit-identical to the plain schedule.  D > 1 under torchrun "
         "--nproc-per-node D (gloo with --device cpu).  0 = off")
     p.add_argument(
@@ -622,7 +630,36 @@ def _run_fleet(cfg, topo, trainer, state, logger, ckpt, args, watchdog, flight,
     ``--replay-shards``, the replay shards), a supervisor owns the actor
     subprocesses (and another the shard processes), and the drain or pull
     loop runs here.  ``--phases`` counts drain-learn (pull-learn) phases;
-    ``replay_capacity`` is the config's capacity, which the shards own."""
+    ``replay_capacity`` is the config's capacity, which the shards own.
+
+    On a dp mesh all of that is rank 0's; every other rank builds the same
+    trainer and follows rank 0's control records (``parallel/control.py``).
+    A ``--resume`` reads the same light checkpoint and counter sidecar on
+    every rank, held equal across ranks before the first drain."""
+    from r2d2dpg_torch.fleet import load_fleet_counters
+    from r2d2dpg_torch.fleet.ingest import follow_drain
+    from r2d2dpg_torch.fleet.sampler import follow_pull
+
+    resume_from = None
+    if args.resume:
+        if ckpt.latest_step is None:
+            raise SystemExit(f"--resume: no checkpoint found under {args.checkpoint_dir}")
+        state = dataclasses.replace(state, train=ckpt.restore(state))
+        resume_from = load_fleet_counters(args.checkpoint_dir, ckpt.latest_step)
+        trainer._check_replicated(state, resume_from)
+    if not distributed.is_primary():
+        return (follow_pull if args.replay_shards else follow_drain)(trainer, state)
+    control = control_plane(trainer)
+    # Rank 0 stopping anywhere (a refused flag, a dead supervisor) tells
+    # the followers before it propagates.
+    with control.leading() if control is not None else contextlib.nullcontext():
+        return _lead_fleet(cfg, topo, trainer, state, logger, ckpt, args, watchdog,
+                           flight, flight_path, replay_capacity, resume_from)
+
+
+def _lead_fleet(cfg, topo, trainer, state, logger, ckpt, args, watchdog, flight,
+                flight_path, replay_capacity, resume_from) -> TrainerState:
+    """``_run_fleet``'s learner: the ingest, the supervisors and the loop."""
     from r2d2dpg_torch.fleet import (
         ActorSupervisor,
         AutoscaleConfig,
@@ -633,7 +670,6 @@ def _run_fleet(cfg, topo, trainer, state, logger, ckpt, args, watchdog, flight,
         SupervisorConfig,
         WireConfig,
         default_actor_argv,
-        load_fleet_counters,
         prune_fleet_counters,
         save_fleet_counters,
         structural_argv,
@@ -655,8 +691,6 @@ def _run_fleet(cfg, topo, trainer, state, logger, ckpt, args, watchdog, flight,
         flight.record("fleet_unauthenticated_bind", address=args.fleet_address)
     heartbeat_s = (args.fleet_heartbeat if args.fleet_heartbeat is not None
                    else fleet_transport.READ_DEADLINE_S)
-    if args.resume and ckpt.latest_step is None:
-        raise SystemExit(f"--resume: no checkpoint found under {args.checkpoint_dir}")
     fleet_config = FleetConfig(
         num_actors=args.actors,
         address=args.fleet_address,
@@ -713,11 +747,8 @@ def _run_fleet(cfg, topo, trainer, state, logger, ckpt, args, watchdog, flight,
              + (f", {args.shard_procs} standalone shard procs"
                 if args.shard_procs else "") + ")"
              if args.replay_shards else ""), flush=True)
-    resume_from = None
     if args.resume:
         step = ckpt.latest_step
-        state = dataclasses.replace(state, train=ckpt.restore(state))
-        resume_from = load_fleet_counters(args.checkpoint_dir, step)
         if not resume_from:
             print(f"fleet: WARNING: checkpoint step {step} has no counter "
                   "sidecar; counters restart at 0", flush=True)
@@ -1036,9 +1067,9 @@ def main(argv=None) -> TrainerState:
         if args.actors and not light:
             # A fleet checkpoint is the learner subtree + counter sidecar;
             # the arena is re-absorbed from the actors on resume.
-            print("fleet: checkpoints under --actors N are always light "
-                  "(learner subtree + counters; the arena is re-absorbed "
-                  "on resume)", flush=True)
+            say("fleet: checkpoints under --actors N are always light "
+                "(learner subtree + counters; the arena is re-absorbed "
+                "on resume)", flush=True)
             light = True
         ckpt = CheckpointManager(
             args.checkpoint_dir,
@@ -1047,16 +1078,18 @@ def main(argv=None) -> TrainerState:
         )
     if args.resume and not args.actors:
         state = resume_state(trainer, ckpt)
-        print(f"resumed from phase {state.phase_idx} "
-              f"(learner step {state.train.step})", flush=True)
+        say(f"resumed from phase {state.phase_idx} "
+            f"(learner step {state.train.step})", flush=True)
     else:
         state = trainer.init()
     evaluator = None
-    if args.eval_every:
+    if args.eval_every and primary:
+        # The params are replicated: rank 0 evaluates them for every rank.
         evaluator = Evaluator(
             cfg.env_factory(trainer.device), trainer.agent.actor, args.eval_envs
         )
         eval_draws = Draws(cfg.trainer.seed + 1, trainer.device)
+    mesh = getattr(trainer, "mesh", None)
     flight = get_flight_recorder()
     flight_path, exporter = _arm_telemetry(args, flight, primary)
     logger = None
@@ -1128,13 +1161,18 @@ def main(argv=None) -> TrainerState:
                 # After the log call, so the poisoned row is on disk.
                 watchdog.check(phase, watch)
         if ckpt is not None:
-            ckpt.maybe_save(phase, state)
-        if evaluator is not None and phase > fill and (phase - fill) % args.eval_every == 0:
-            ev = evaluator.run(state.train.actor_params, eval_draws)
-            ev["env_steps"] = float(state.env_steps)
-            print("eval " + json.dumps({"phase": phase, **ev}), flush=True)
-            if logger is not None:
-                logger.log(phase, ev)
+            ckpt.maybe_save(phase, state, trainer)
+        if args.eval_every and phase > fill and (phase - fill) % args.eval_every == 0:
+            if evaluator is not None:
+                ev = evaluator.run(state.train.actor_params, eval_draws)
+                ev["env_steps"] = float(state.env_steps)
+                print("eval " + json.dumps({"phase": phase, **ev}), flush=True)
+                if logger is not None:
+                    logger.log(phase, ev)
+            if mesh is not None:
+                # No rank enters the next phase's collectives while rank 0
+                # evaluates.
+                mesh.barrier()
         if (args.nan_inject_phase is not None
                 and phase - max(start, fill) == args.nan_inject_phase):
             return dataclasses.replace(state, train=_poison_actor_params(state.train))
@@ -1150,7 +1188,7 @@ def main(argv=None) -> TrainerState:
             minutes=args.minutes,
         )
         if ckpt is not None and ckpt.save_every:
-            ckpt.save_final(state.phase_idx, state)
+            ckpt.save_final(state.phase_idx, state, trainer)
     except DivergenceError as e:
         _abort_on_divergence(e, flight, flight_path, ckpt)
     finally:

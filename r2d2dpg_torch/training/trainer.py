@@ -34,7 +34,11 @@ port's draws are a stream, not a key), ``_reshard_add`` (the fresh rows
 before the arena add), ``_reshard_batch`` (the learner step's rows, IS
 weights and smoothing normal), ``_put_staged`` (a fleet or sampler batch
 before the drain or pull learn), ``_log_extra_refs`` /
-``_log_extra_publish`` (extra values on the log cadence's one fetch).
+``_log_extra_publish`` (extra values on the log cadence's one fetch),
+``_agree`` (rank 0's value of a host decision, such as the ``minutes``
+deadline), and the checkpoint hooks ``global_field`` / ``global_state`` /
+``local_state`` / ``_global_template`` / ``_check_replicated`` (the
+global state a checkpoint holds, ``parallel/layout.py``).
 """
 
 from __future__ import annotations
@@ -218,6 +222,32 @@ class Trainer:
     def _log_extra_publish(self, fetched) -> None:
         """Hook: fold the fetched values of ``_log_extra_refs`` (one list
         per ref) onto the registry."""
+
+    def _agree(self, flag: bool) -> bool:
+        """Hook: rank 0's ``flag`` on every rank (identity here)."""
+        return flag
+
+    # Independent draw streams the state carries (``--spmd D``: one per rank).
+    draw_streams = 1
+
+    def global_field(self, state: TrainerState, name: str) -> Any:
+        """Hook: one top-level field of the global state (identity here)."""
+        return getattr(state, name)
+
+    def global_state(self, state: TrainerState) -> TrainerState:
+        """Hook: the global state a checkpoint holds (identity here)."""
+        return state
+
+    def local_state(self, global_state: TrainerState) -> TrainerState:
+        """Hook: this rank's slice of a global state (identity here)."""
+        return global_state
+
+    def _global_template(self, state: TrainerState) -> TrainerState:
+        """Hook: a restore template of the global state's shapes."""
+        return state
+
+    def _check_replicated(self, state, extra=None) -> None:
+        """Hook: hold the replicated leaves equal across ranks."""
 
     # ------------------------------------------------------------------ init
     def init(self, draws=None) -> TrainerState:
@@ -573,7 +603,8 @@ class Trainer:
         every phase: ``scalars`` holds what was logged (episode metrics and
         the last learner metrics) on a log phase, and is None otherwise; a
         state it returns replaces the run's.  ``minutes`` bounds the wall
-        clock: no phase starts once it is spent.
+        clock: no phase starts once it is spent, by rank 0's clock
+        (``_agree``), so every rank of a mesh stops after the same phase.
         """
         state = self.init() if state is None else state
         deadline = time.monotonic() + minutes * 60 if minutes is not None else None
@@ -584,7 +615,7 @@ class Trainer:
         train_done = 0
         try:
             for phase in range(state.phase_idx, num_phases):
-                if deadline is not None and time.monotonic() >= deadline:
+                if deadline is not None and self._agree(time.monotonic() >= deadline):
                     break
                 if phase < warm:
                     with annotate("trainer/collect_phase"):

@@ -23,8 +23,18 @@ semantics:
 A full checkpoint holds the arena, the window, the env state, the carries,
 the counters and the state of the ``Draws`` generator, so a resume
 continues the run exactly.  A light resume keeps only the learner and
-re-runs warm-up and fill.  Reading the JAX package's orbax checkpoints
-needs orbax, which imports JAX: it is not done here (ROADMAP.md).
+re-runs warm-up and fill.
+
+A trainer on a ``dp`` mesh (``--spmd D``, ``--learner-dp D``) saves its
+GLOBAL state (``parallel/layout.py``): every rank calls ``save(...,
+trainer=)``, each field is gathered to rank 0 and written there before
+the next one is gathered, and only rank 0 writes.  ``resume_state`` reads
+the same files on every rank into the global template, keeps the rank's
+rows and holds the replicated leaves equal across ranks.  A ``--spmd D``
+checkpoint carries D draw streams and resumes only at world size D.
+
+Reading the JAX package's orbax checkpoints needs orbax, which imports
+JAX: it is not done here (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import torch
 
 from r2d2dpg_torch.obs import flight_event
+from r2d2dpg_torch.parallel import distributed
 from r2d2dpg_torch.training.draws import Draws
 
 LIGHT_MARKER = "LIGHT_CHECKPOINTS"
@@ -184,14 +195,15 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def _write_step(directory: str, step: int, tree: Dict[str, Any]) -> None:
-    """``tree``'s top-level keys as files of ``<directory>/<step>/``, atomically."""
+def _write_step(directory: str, step: int, fields: Iterator[Tuple[str, Any]]) -> None:
+    """Each ``(key, tree)`` of ``fields`` as the file ``<key>.pt`` of
+    ``<directory>/<step>/``, one at a time, atomically."""
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, str(step))
     tmp = f"{final}.tmp-{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    for key, value in tree.items():
+    for key, value in fields:
         torch.save(value, os.path.join(tmp, f"{key}.pt"))
     if os.path.exists(final):  # a same-step save replaces the old one
         shutil.rmtree(final)
@@ -257,38 +269,69 @@ class CheckpointManager:
         self.save_every = save_every
         self.max_to_keep = max_to_keep
         self.light = light
+        self._saved_step: Optional[int] = None  # this manager's last save
 
     # ------------------------------------------------------------------ save
-    def maybe_save(self, phase: int, state: Any) -> bool:
+    def maybe_save(self, phase: int, state: Any, trainer=None) -> bool:
         """Save if ``phase`` hits the cadence.  Returns True when saved."""
         if self.save_every <= 0 or phase % self.save_every != 0:
             return False
-        self.save(phase, state)
+        self.save(phase, state, trainer)
         return True
 
-    def save(self, step: int, state: Any) -> None:
+    def save(self, step: int, state: Any, trainer=None) -> None:
         """Save at ``step``, replacing an existing same-step checkpoint (a
         light resume restarts its phase numbering at 0, so a resumed run
         revisits steps already on disk).  In light mode ``state`` only
-        needs a ``train`` attribute."""
-        self._check_layout(saving=True)
-        if self.light:
-            tree = {"train": to_tree(state.train)}
-        else:
-            tree = to_tree(state)
-        _write_step(self.directory, step, tree)
-        for old in self.all_steps()[: -self.max_to_keep]:
-            shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
-        flight_event(
-            "checkpoint_save", step=int(step), directory=self.directory,
-            light=self.light,
-        )
+        needs a ``train`` attribute.
 
-    def save_final(self, step: int, state: Any) -> None:
-        """End-of-run save; a no-op when the cadence already saved ``step``."""
-        if self.latest_step == step:
+        With ``trainer`` (a mesh trainer) the save is collective: every
+        rank calls it, the fields are gathered to rank 0 one at a time,
+        and rank 0 writes them; its layout check is agreed first."""
+        primary = distributed.is_primary()
+        refused = None
+        if primary:
+            try:
+                self._check_layout(saving=True)
+            except ValueError as e:
+                refused = e
+        if trainer is not None and not trainer._agree(refused is None):
+            raise refused or ValueError(
+                f"rank 0 refused the checkpoint layout of {self.directory}")
+        if refused is not None:
+            raise refused
+        names = ["train"] if self.light else [f.name for f in dataclasses.fields(state)]
+
+        def fields():
+            for name in names:
+                value = (getattr(state, name) if trainer is None
+                         else trainer.global_field(state, name))
+                if primary:
+                    yield name, to_tree(value)
+
+        if primary:
+            _write_step(self.directory, step, fields())
+            for old in self.all_steps()[: -self.max_to_keep]:
+                shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
+            flight_event(
+                "checkpoint_save", step=int(step), directory=self.directory,
+                light=self.light,
+            )
+        else:
+            for _ in fields():
+                pass
+        self._saved_step = step
+
+    def save_final(self, step: int, state: Any, trainer=None) -> None:
+        """End-of-run save; a no-op when the cadence already saved ``step``
+        (rank 0's reading of it, with ``trainer``)."""
+        done = self._saved_step == step or (
+            self._saved_step is None and self.latest_step == step)
+        if trainer is not None:
+            done = trainer._agree(done)
+        if done:
             return
-        self.save(step, state)
+        self.save(step, state, trainer)
 
     def _check_layout(self, *, saving: bool) -> None:
         """Refuse light/full mode mismatches against what is on disk."""
@@ -319,8 +362,9 @@ class CheckpointManager:
     def all_steps(self) -> List[int]:
         return all_steps(self.directory)
 
-    def restore(self, template: Any) -> Any:
-        """The latest checkpoint in ``template``'s structure and devices.
+    def restore(self, template: Any, device=None) -> Any:
+        """The latest checkpoint in ``template``'s structure and devices
+        (or on ``device``).
 
         ``template`` is a concrete ``TrainerState`` (``trainer.init()``; its
         draws object takes the saved generator state).  In light mode only
@@ -330,11 +374,20 @@ class CheckpointManager:
         hint = "another config, knob or device than the saving run?"
         if self.light:
             out, _ = restore_subtree(
-                self.directory, {"train": template.train}, hint=hint)
+                self.directory, {"train": template.train}, hint=hint, device=device)
             return out["train"]
         fields = dict(_children(template))
-        out, _ = restore_subtree(self.directory, fields, hint=hint)
+        out, _ = restore_subtree(self.directory, fields, hint=hint, device=device)
         return dataclasses.replace(template, **out)
+
+    def saved_draw_streams(self) -> int:
+        """The draw streams of the latest full checkpoint: its world size
+        for ``--spmd D`` (``parallel/layout.py::RankDraws``), else 1."""
+        path = os.path.join(self.directory, str(self.latest_step), "draws.pt")
+        if not os.path.exists(path):
+            return 1  # the restore names the missing leaves
+        draws = torch.load(path, map_location="cpu", weights_only=True)
+        return int(draws.get("world_size", 1)) if isinstance(draws, dict) else 1
 
 
 def resume_state(trainer, ckpt: CheckpointManager):
@@ -342,9 +395,23 @@ def resume_state(trainer, ckpt: CheckpointManager):
 
     A full checkpoint gives back the whole state (the resume continues the
     run exactly on the device it was saved from); a light one only the
-    learner, with replay, window, envs and the phase schedule fresh.
+    learner, with replay, window, envs and the phase schedule fresh.  A
+    mesh trainer reads the global state and keeps its rows; a checkpoint
+    with per-rank draw streams refuses another world size.
     """
     fresh = trainer.init()
     if ckpt.light:
-        return dataclasses.replace(fresh, train=ckpt.restore(fresh))
-    return ckpt.restore(fresh)
+        state = dataclasses.replace(fresh, train=ckpt.restore(fresh))
+    else:
+        saved, have = ckpt.saved_draw_streams(), trainer.draw_streams
+        if saved != have:
+            raise ValueError(
+                f"{ckpt.directory} step {ckpt.latest_step} was saved at world "
+                f"size {saved} with one draw stream per --spmd rank; this run "
+                f"has world size {have}: resume it at world size {saved}, or "
+                "from a light checkpoint")
+        template = trainer._global_template(fresh)
+        state = trainer.local_state(ckpt.restore(
+            template, device=None if template is fresh else "cpu"))
+    trainer._check_replicated(state)
+    return state

@@ -184,9 +184,13 @@ def test_put_staged_widths_and_axes():
     fake = type("T", (), {"num_devices": 3, "mesh": three})()
     with pytest.raises(ValueError, match="staged width 8 does not divide the 3-device mesh"):
         DPLearnerTrainer._put_staged(fake, {"obs": torch.zeros(8, 3)})
-    two = type("T", (), {"num_devices": 2, "mesh": dataclasses.replace(t.mesh, size=2)})()
-    with pytest.raises(ValueError, match=r"batch-axis placement \(axis != 0\) is single-process only"):
-        DPLearnerTrainer._put_staged(two, seqs, axis=1)
+    # A world of 2: rank r keeps columns [4r, 4r + 4) of the batch axis.
+    obs = torch.arange(48.0).reshape(2, 8, 3)
+    for r in range(2):
+        two = type("T", (), {"num_devices": 2,
+                             "mesh": dataclasses.replace(t.mesh, size=2, rank=r)})()
+        got = DPLearnerTrainer._put_staged(two, {"obs": obs}, axis=1)["obs"]
+        assert torch.equal(got, obs[:, 4 * r:4 * r + 4])
 
 
 def test_dp_refusals_and_occupancy_equal_jax():

@@ -82,17 +82,23 @@ def test_narrowed_and_dropped_rows():
 
 
 def test_multiprocess_row_names_each_flag_left_out():
-    # (--actors pairs with --learner-dp, --pipeline with --spmd: the other
-    # pairings have JAX rows of their own.)
+    """The port-only row refuses ``--pipeline`` at a world of 2 and nothing
+    else: the fleet, checkpoints, resume and evals run there."""
+    row = topology.REFUSALS[-1]
+    assert row.key == "multiprocess-not-yet-ported"
+    assert "host-pool trainer" in row.reason and "--pipeline 1" in row.reason
+    with pytest.raises(SystemExit, match="not ported to multi-process"):
+        topology.validate(_port_args("--spmd", "2", "--pipeline", "1"), process_count=2)
+    assert not row.when(_port_args("--pipeline", "1"), 1)
+    # (--actors pairs with --learner-dp: --spmd has a JAX row of its own.)
     for mesh, argv in ((("--learner-dp", "2"), ("--actors", "2")),
+                       (("--learner-dp", "2"), ("--actors", "2", "--replay-shards", "2")),
                        (("--spmd", "2"), ("--checkpoint-dir", "d")),
-                       (("--learner-dp", "2"), ("--resume",)),
-                       (("--spmd", "2"), ("--eval-every", "5")),
-                       (("--spmd", "2"), ("--pipeline", "1"))):
-        with pytest.raises(SystemExit, match="not ported to multi-process"):
-            topology.validate(_port_args(*mesh, *argv), process_count=2)
-        # A world of one runs them (or refuses them on a JAX row).
-        assert not topology.REFUSALS[-1].when(_port_args(*argv), 1)
+                       (("--learner-dp", "2"), ("--resume", "--checkpoint-dir", "d")),
+                       (("--spmd", "2"), ("--eval-every", "5"))):
+        got = topology.validate(_port_args(*mesh, *argv), process_count=2)
+        want = jtopology.validate(_jax_args(*mesh, *argv), process_count=1)
+        assert got.describe() == want.describe()
 
 
 GRID = [
@@ -108,6 +114,7 @@ GRID = [
     ("--spmd", "1"),
     ("--spmd", "8"),
     ("--actors", "2", "--learner-dp", "1"),
+    ("--actors", "2", "--learner-dp", "2"),
     ("--actors", "2", "--replay-shards", "2", "--learner-dp", "2"),
 ]
 
