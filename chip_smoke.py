@@ -94,7 +94,7 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    on the CPU, through the f32 wire codec) on the card and on the CPU,
    params within 1e-4, and device-busy time of a drain-learn phase;
    before that drain check, the chaos drills on the central drain
-   (``fleet_chaos``): ``--actors 3 --phases 40 --seed 3 --fleet-heartbeat
+   (``fleet_chaos``): ``--actors 3 --phases 80 --seed 3 --fleet-heartbeat
    2.5 --chaos-spec kill_actor@p5,corrupt_frame@p8,stall_actor@p12:7s,
    kill_ingest_conn@p18 --obs-fleet 1``,
    each fault injected once (one ``chaos_inject`` line in the dumps that
@@ -188,6 +188,27 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    params, priorities and eval lines (the resumed run's eval against an
    ``Evaluator`` on the final params with a fresh eval stream), save and
    restore seconds, checkpoint bytes;
+14b. the host-pool trainer (``hybrid1``, after the mesh legs):
+   ``HostSPMDTrainer`` at walker_r2d2's published width (64 envs, stride
+   20, 4 learner steps a phase, batch 64, hidden 256, seq 43, capacity
+   100k, ``min_replay`` 2,000) on the host stand-in env
+   (``r2d2dpg_torch/testing.py::HostStandInEnv``: walker-walk's spec,
+   fixed numpy dynamics, no physics): (a) ``build_spmd`` on a process
+   group of one over NCCL, warm-up, fill and 10 train phases, params and
+   priorities bitwise the plain ``Trainer``'s on the same stand-in and
+   seed; (b) ``build`` with ``overlap_learner`` (a mesh of one), 10 train
+   phases, every substep sampling the arena as of the previous emit, then
+   3 phases each with overlap off, on, on, off on the same trainer (the
+   like-for-like ratio); (c) ``PipelineExecutor`` over (b)'s trainer with
+   overlap off, 10 phases; each with the counts set to 0 just before and
+   read just after: one scatter launch per learner step, ``train.step`` 4
+   and ``env_steps`` 20 x 64 per phase, 20 host steps per phase, finite
+   metrics; wall and device-busy ms per train phase, the idle share, the
+   host-step p50/p99 and (c)'s ``overlap_fraction``.  The fleet legs
+   (``fleet_f32``, ``fleet_autoscale``) print a ``<label>_drain_stalls``
+   record beside their sheds: every drain-learn iteration of 0.5 s or
+   more, with its segments, the learner thread's and the process's CPU
+   time and sampled stacks (``fleet/ingest.py::_StallClock``);
 15. whether ``mujoco`` and ``dm_control`` import (informational);
 16. each phase's seconds, one JSON line per kernel summary (launches
    summed over every path, and the scatter's mean CUPTI µs inside the
@@ -1943,7 +1964,7 @@ def _fleet_leg(torch, dev, label, flags):
         for k in kernels.ALL_KERNELS:
             k.launches = 0
         watcher.start()
-        t0, cpu0 = time.perf_counter(), sum(os.times()[:2])
+        t0, cpu0, t0_wall = time.perf_counter(), sum(os.times()[:2]), time.time()
         with scraper, contextlib.redirect_stdout(buf):
             state = train_main([
                 "--config", "pendulum_r2d2", "--actors", str(FLEET_ACTORS),
@@ -1955,6 +1976,7 @@ def _fleet_leg(torch, dev, label, flags):
         seconds = time.perf_counter() - t0
         learner_cpu_s = sum(os.times()[:2]) - cpu0
         launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
+        _stall_report(label, _merged_events(logdir, t0_wall), t0_wall)
     finally:
         done.set()
         watcher.join()
@@ -2014,6 +2036,27 @@ def _fleet_leg(torch, dev, label, flags):
     if len(killed["compute_apps"]) != 1 or any(killed["actor_card_fds"].values()):
         raise AssertionError(f"{label}: card processes {killed}")
     return {label: launches["priority_scatter"]}
+
+
+def _stall_report(label, events, t0_wall):
+    """Print where each long drain-learn iteration's time went (the
+    ``drain_stall`` events of ``fleet/ingest.py::_StallClock``) beside the
+    sheds' times: recorded, not held."""
+    keys = ("drained", "wall_s", "segments_ms", "thread_cpu_ms", "process_cpu_ms",
+            "threads", "queued", "stack")
+    stalls = [{"t_s": round(e["t_wall"] - t0_wall, 3), **{k: e.get(k) for k in keys}}
+              for e in events if e["kind"] == "drain_stall"]
+    waits = [(round(e["t_wall"] - t0_wall, 3), round(e["wait_s"], 3), e.get("shed"),
+              e.get("actor")) for e in events if e["kind"] == "put_wait"]
+    clock = [{k: e.get(k) for k in ("iterations", "wall_s", "thread_cpu_s", "cpu_share")}
+             for e in events if e["kind"] == "drain_clock"]
+    print(json.dumps({f"{label}_drain_stalls": {
+        "count": len(stalls), "stalls": stalls[:30],
+        "drain_clock": clock, "put_waits_over_0.5s": len(waits),
+        "put_waits": waits[:40],
+        "shed_t_s": [round(e["t_wall"] - t0_wall, 3) for e in events
+                     if e["kind"] == "shed"]}}), flush=True)
+    return stalls
 
 
 def _actors_down_seen(samples, killed):
@@ -2160,7 +2203,11 @@ def _fleet_card_vs_cpu(torch, dev, learn_phases=5, min_replay=32):
 # deadlines, so the stall runs past twice the heartbeat.  Seed 3 gives the
 # four faults disjoint targets (kill actor 2, corrupt actor 1, stall actor
 # 0, conn-drop actor 1): a killed actor's restart re-arms its own drills.
-FLEET_CHAOS_PHASES = 40
+# Drain-learn phases of the chaos leg: the run must outlast the stalled
+# actor's reconnect (the 7 s stall, then ~0.6 s), which 40 phases did not
+# always do once the actors ran one intra-op thread each and the learner
+# drained faster.
+FLEET_CHAOS_PHASES = 80
 FLEET_CHAOS_HEARTBEAT_S = 2.5
 FLEET_CHAOS_STALL_S = 7
 FLEET_CHAOS_SEED = 3
@@ -2169,10 +2216,10 @@ FLEET_CHAOS_SPEC = (f"kill_actor@p5,corrupt_frame@p8,stall_actor@p12:"
 
 
 def _fleet_chaos_leg(torch, dev, label="fleet_chaos"):
-    """``train.main --actors 3 --phases 40 --fleet-heartbeat 2.5
+    """``train.main --actors 3 --phases 80 --fleet-heartbeat 2.5
     --chaos-spec kill_actor@p5,corrupt_frame@p8,stall_actor@p12:7s,
     kill_ingest_conn@p18 --obs-fleet 1`` at pendulum_r2d2, learner on the
-    card: all 40 phases run, each fault is injected once and followed by
+    card: all 80 phases run, each fault is injected once and followed by
     its recovery in the merged flight dumps, env steps never go down, one
     compute process on the card, one scatter launch per learner step; the
     learner's final scrape reads the actor-side drill counts
@@ -2485,6 +2532,7 @@ def _fleet_autoscale_leg(torch, dev, label="fleet_autoscale"):
     steps = _env_steps(logged)
     probe = seen.get("probe")
     decisions = [e for e in events if e["kind"] == "autoscale_decision"]
+    _stall_report(label, events, t0_wall)
     rec = {
         "flags": [*FLEET_AUTOSCALE_FLAGS, "--phases", FLEET_AUTOSCALE_PHASES],
         "actors": FLEET_AUTOSCALE_ACTORS, "run_seconds": seconds,
@@ -3484,6 +3532,247 @@ def _sampler_phase(torch, dev):
     return launches
 
 
+HYBRID_TRAIN_PHASES = 10  # train phases of each hybrid1 schedule
+HYBRID_TURN_PHASES = 3  # train phases of each turn of (b)'s like-for-like timing
+HYBRID_STAND_IN_SEED = 0
+HYBRID_BACKEND = "nccl"  # the process group of (a)
+
+
+def _hybrid_config(overlap):
+    """walker_r2d2 at its published width on the host stand-in env."""
+    import dataclasses
+
+    from r2d2dpg_torch.configs import WALKER_R2D2
+    from r2d2dpg_torch.testing import stand_in_factory
+
+    return dataclasses.replace(
+        WALKER_R2D2, env_factory=stand_in_factory(HYBRID_STAND_IN_SEED),
+        trainer=dataclasses.replace(WALKER_R2D2.trainer, overlap_learner=overlap))
+
+
+def _filled(trainer):
+    """A fresh state through the warm-up and replay-fill phases."""
+    state = trainer.init()
+    for _ in range(trainer.window_fill_phases):
+        state = trainer.collect_phase(state)
+    for _ in range(trainer.replay_fill_phases):
+        state = trainer.fill_phase(state)
+    return state
+
+
+def _finite(torch, label, tensors):
+    bad = [k for k, x in tensors.items() if not bool(torch.isfinite(x.float()).all())]
+    if bad:
+        raise AssertionError(f"{label}: non-finite {bad}")
+
+
+def _hybrid_schedule(torch, label, trainer, state, run):
+    """``run(state) -> (state, metrics list)`` over ``HYBRID_TRAIN_PHASES``
+    train phases with the launch count set to 0 just before and read just
+    after; holds the counters, the host-step count and finite values."""
+    from r2d2dpg_torch import kernels
+
+    cfg = trainer.global_config
+    hist = trainer._obs_host_step
+    hist.reset()
+    step0, phase0 = state.train.step, state.phase_idx
+    torch.cuda.synchronize()
+    for k in kernels.ALL_KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    state, metrics = run(state)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / HYBRID_TRAIN_PHASES * 1e3
+    launches = kernels.PRIORITY_SCATTER.launches
+    count, _, p50, p99 = hist.snapshot()
+    n = HYBRID_TRAIN_PHASES
+    problems = []
+    if launches != n * cfg.learner_steps:
+        problems.append(f"scatter launches {launches}, expected {n * cfg.learner_steps}")
+    if state.train.step - step0 != n * cfg.learner_steps:
+        problems.append(f"learner steps {state.train.step - step0}")
+    if state.phase_idx - phase0 != n or (
+            state.env_steps != state.phase_idx * cfg.stride * cfg.num_envs):
+        problems.append(f"phases {state.phase_idx - phase0}, env steps {state.env_steps}")
+    if count != n * cfg.stride:
+        problems.append(f"host steps {count}, expected {n * cfg.stride}")
+    _finite(torch, label, {**{f"metric {k}": v for m in metrics for k, v in m.items()},
+                           "priority": state.arena.priority,
+                           **{f"param {k}": v for k, v in state.train.actor_params.items()}})
+    if problems:
+        raise AssertionError(f"{label}: {problems}")
+    rec = {"train_phases": n, "wall_ms_per_train_phase": wall_ms,
+           "host_step_ms": [p50 * 1e3, p99 * 1e3], "scatter_launches": launches,
+           "learner_steps": state.train.step, "env_steps": state.env_steps}
+    return state, rec
+
+
+def _device_share(rec, device_ms):
+    rec.update(device_busy_ms_per_train_phase=device_ms,
+               device_idle_share=None if device_ms is None
+               else 1 - device_ms / rec["wall_ms_per_train_phase"])
+
+
+def _hybrid1_leg(torch, dev, label="hybrid1"):
+    """``HostSPMDTrainer`` at walker_r2d2's published width (64 envs,
+    stride 20, 4 learner steps a phase, batch 64, hidden 256, seq 43,
+    capacity 100k, ``min_replay`` 2,000) on the host stand-in env
+    (``r2d2dpg_torch/testing.py::HostStandInEnv``: walker-walk's spec,
+    numpy dynamics, no physics), through its three schedules:
+
+    (a) ``build_spmd`` on a process group of one over NCCL, overlap off:
+        warm-up, fill, 10 train phases; params and priorities bitwise the
+        plain ``Trainer``'s on the same stand-in and seed;
+    (b) ``build("cuda")`` with ``overlap_learner``: the trainer on a mesh of
+        one, 10 train phases; every substep samples the arena as of the
+        previous emit;
+    (c) ``PipelineExecutor`` over (b)'s trainer with overlap off, 10 phases.
+
+    Each: one scatter launch per learner step, ``train.step`` 4 per phase,
+    ``env_steps`` stride x 64 per phase, stride host steps per phase,
+    finite metrics; wall and device-busy ms per train phase, the idle
+    share and the host-step p50/p99; (c)'s ``overlap_fraction``."""
+    import dataclasses
+
+    from r2d2dpg_torch.parallel import HostSPMDTrainer, make_mesh
+    from r2d2dpg_torch.training.pipeline import PipelineConfig, PipelineExecutor
+    from r2d2dpg_torch.training.trainer import Trainer
+    from r2d2dpg_torch.tree import tree_leaves
+
+    n = HYBRID_TRAIN_PHASES
+    launches, out = {}, {}
+
+    def locked(trainer):
+        def run(state):
+            metrics = []
+            for _ in range(n):
+                state, m = trainer.train_phase(state)
+                metrics.append(m)
+            return state, metrics
+        return run
+
+    def profile_phase(trainer, box):
+        def one():
+            box["state"], _ = trainer.train_phase(box["state"])
+        return _device_profile(one, 1)[0]
+
+    # (a) sequential, over a process group of one, beside the plain Trainer.
+    t_leg = time.perf_counter()
+    with _group_of_one():
+        seq = _hybrid_config(False).build_spmd(make_mesh(1, dev), dev)
+        if not isinstance(seq, HostSPMDTrainer) or torch.distributed.get_backend() != HYBRID_BACKEND:
+            raise AssertionError(f"{label}: {type(seq).__name__} on "
+                                 f"{torch.distributed.get_backend()}")
+        state = _filled(seq)
+        state, rec = _hybrid_schedule(torch, f"{label}_seq", seq, state, locked(seq))
+        plain = _hybrid_config(False).build(dev)
+        if type(plain) is not Trainer:
+            raise AssertionError(f"{label}: plain build gave {type(plain).__name__}")
+        pstate = _filled(plain)
+        for _ in range(n):
+            pstate, _ = plain.train_phase(pstate)
+        torch.cuda.synchronize()
+        pairs = list(zip(tree_leaves(state.train), tree_leaves(pstate.train), strict=True))
+        rec["params_bitwise_plain"] = all(torch.equal(a, b) for a, b in pairs)
+        rec["priorities_bitwise_plain"] = torch.equal(state.arena.priority,
+                                                      pstate.arena.priority)
+        del plain, pstate
+        box = {"state": state}
+        _device_share(rec, profile_phase(seq, box))
+        launches[f"{label}_seq"] = rec["scatter_launches"]
+        out["seq"] = rec
+        del seq, state, box
+    torch.cuda.empty_cache()
+    if not (out["seq"]["params_bitwise_plain"] and out["seq"]["priorities_bitwise_plain"]):
+        raise AssertionError(f"{label}: (a) not bitwise the plain Trainer: {out['seq']}")
+
+    # (b) overlap on a mesh of one, and (c) the pipeline over the same trainer.
+    with _group_of_one():
+        ov = _hybrid_config(True).build(dev)
+        if not isinstance(ov, HostSPMDTrainer) or ov.mesh.size != 1:
+            raise AssertionError(f"{label}: overlap build gave {type(ov).__name__}")
+        state = _filled(ov)
+        added = []  # the arena's total_added at each train phase's start
+        seen = []  # (that, the total_added each substep sampled)
+        plain_learn_step = ov._learn_step
+
+        def spy(train, arena, draws):
+            seen.append((added[-1], arena.total_added))
+            return plain_learn_step(train, arena, draws)
+
+
+        def overlap_run(state):
+            metrics = []
+            for _ in range(n):
+                added.append(state.arena.total_added)
+                state, m = ov.train_phase(state)
+                metrics.append(m)
+            return state, metrics
+
+        ov._learn_step = spy
+        try:
+            state, rec = _hybrid_schedule(torch, f"{label}_overlap", ov, state, overlap_run)
+        finally:
+            del ov._learn_step
+        lagged = [start == sampled for start, sampled in seen]
+        rec["substeps"] = len(seen)
+        rec["substeps_on_previous_emit"] = sum(lagged)
+        if len(seen) != n * ov.config.learner_steps or not all(lagged):
+            raise AssertionError(f"{label}: substeps sampled {seen}, phases added {added}")
+        box = {"state": state}
+        _device_share(rec, profile_phase(ov, box))
+        state = box["state"]
+        launches[f"{label}_overlap"] = rec["scatter_launches"]
+        # Like for like: the same trainer and state, overlap off and on in
+        # turns (off, on, on, off), so both see the same host.
+        turns = {False: 0.0, True: 0.0}
+        for flag in (False, True, True, False):
+            ov.config = dataclasses.replace(ov.config, overlap_learner=flag)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HYBRID_TURN_PHASES):
+                state, _ = ov.train_phase(state)
+            torch.cuda.synchronize()
+            turns[flag] += time.perf_counter() - t0
+        rec["turns_ms_per_phase"] = {
+            "sequential": turns[False] / (2 * HYBRID_TURN_PHASES) * 1e3,
+            "overlap": turns[True] / (2 * HYBRID_TURN_PHASES) * 1e3}
+        rec["turns_overlap_over_sequential"] = turns[True] / turns[False]
+        out["overlap"] = rec
+
+        ex = PipelineExecutor(ov, PipelineConfig(enabled=True, queue_depth=2))
+        logged = []
+
+        def pipelined(state):
+            state = ex.run_train_phases(state, n, log_every=n, log_fn=logged.append)
+            return state, []
+
+        state, rec = _hybrid_schedule(torch, f"{label}_pipelined", ov, state, pipelined)
+        stats = ex.stats()
+        numbers = [float(w) for w in logged[-1].split()[3:] if w[:1] in "-0123456789"]
+        if not logged or not all(math.isfinite(x) for x in numbers):
+            raise AssertionError(f"{label}: pipelined log {logged}")
+        rec.update(overlap_fraction=stats["overlap_fraction"], executor_stats=stats)
+        box = {"state": state}
+
+        def two():
+            box["state"] = ex.run_train_phases(box["state"], 2)
+
+        device_ms = _device_profile(two, 1)[0]
+        _device_share(rec, None if device_ms is None else device_ms / 2)
+        launches[f"{label}_pipelined"] = rec["scatter_launches"]
+        out["pipelined"] = rec
+        del ov, ex, state, box
+    torch.cuda.empty_cache()
+    out.update(config="walker_r2d2", env="HostStandInEnv", seconds=time.perf_counter() - t_leg,
+               overlap_over_seq=(out["overlap"]["wall_ms_per_train_phase"]
+                                 / out["seq"]["wall_ms_per_train_phase"]),
+               pipelined_over_seq=(out["pipelined"]["wall_ms_per_train_phase"]
+                                   / out["seq"]["wall_ms_per_train_phase"]))
+    print(json.dumps({label: out}), flush=True)
+    return launches
+
+
 def _mujoco_probe():
     """Whether ``mujoco`` and ``dm_control`` import here, with their versions.
 
@@ -3582,6 +3871,7 @@ def main() -> int:
     launches.update(timed("fleet_dp1", _fleet_dp1_leg, torch, dev))
     launches.update(timed("sampler_dp1", _sampler_dp1_leg, torch, dev))
     launches.update(timed("mesh_lifecycle1", _mesh_lifecycle1_leg, torch, dev))
+    launches.update(timed("hybrid1", _hybrid1_leg, torch, dev))
     timed("mujoco_probe", _mujoco_probe)
     phase_seconds["total"] = time.perf_counter() - t_start
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)

@@ -1,12 +1,12 @@
 """Named experiment configs of the port.
 
 Port of ``r2d2dpg_tpu/configs/__init__.py``, every config with the JAX
-constants: ``pendulum_tiny``, ``pendulum_ddpg`` and ``pendulum_r2d2`` train
-end to end.  ``walker_r2d2``, ``walker_r2d2_ns5``, ``humanoid_r2d2`` and
-``cheetah_pixels`` carry their agent, net and trainer constants, so
-``build_agent`` makes their learners at the published shapes, but their
-DM-Control envs are not ported (ROADMAP.md, queue 1 item 7), so ``build``
-raises for them.
+constants and env arguments: ``pendulum_tiny``, ``pendulum_ddpg`` and
+``pendulum_r2d2`` on the tensor Pendulum; ``walker_r2d2`` and
+``walker_r2d2_ns5`` (walker-walk, action repeat 2), ``humanoid_r2d2``
+(humanoid-run, action repeat 2) and ``cheetah_pixels`` (cheetah-run from
+64x64 frames, action repeat 4) on the host DM-Control pool
+(``envs/dmc_host.py``), which needs mujoco and dm_control where it runs.
 """
 
 from __future__ import annotations
@@ -37,10 +37,24 @@ class ExperimentConfig:
     compute_dtype: str = "float32"
 
     def build(self, device: DeviceLike = None) -> Trainer:
-        """The phase-locked trainer on ``device`` (``cuda`` by default)."""
+        """The phase-locked trainer on ``device`` (``cuda`` by default);
+        with ``overlap_learner`` the host-pool trainer on a mesh of one."""
         device = resolve_device(device)
         env = self.env_factory(device)
-        return Trainer(env, self.build_agent(env), self.trainer, device)
+        agent = self.build_agent(env)
+        if self.trainer.overlap_learner:
+            # The interleaved learner lives in HostSPMDTrainer; the base
+            # Trainer would ignore the flag, so it refuses.
+            if not getattr(env, "batched", False):
+                raise ValueError(
+                    "overlap_learner requires a host-pool env (pure-JAX "
+                    "envs collect in-graph; there is no host gap to hide "
+                    "updates under)"
+                )
+            from r2d2dpg_torch.parallel import HostSPMDTrainer, make_mesh
+
+            return HostSPMDTrainer(env, agent, self.trainer, make_mesh(1, device))
+        return Trainer(env, agent, self.trainer, device)
 
     def build_agent(self, env: Environment, axis_name=None) -> R2D2DPG:
         """Actor and critic for ``env.spec`` (flat obs, or ``(H, W, C)``
@@ -81,17 +95,32 @@ class ExperimentConfig:
                 "HostSPMDTrainer); with --actors N the fleet collects and "
                 "any config works"
             )
+        if self.trainer.overlap_learner:
+            raise ValueError(
+                "overlap_learner requires a host-pool env trainer "
+                "(HostSPMDTrainer); the dp learner would silently ignore it"
+            )
         agent = self.build_agent(env, axis_name=None)
         return DPLearnerTrainer(env, agent, self.trainer, mesh)
 
     def build_spmd(self, mesh, device: DeviceLike = None) -> Trainer:
         """Every rank of ``mesh`` runs the whole loop on its share of the
-        envs and the arena (``--spmd D``, ``parallel/spmd.py``).  The
-        host-pool trainer for batched envs waits for the DM-Control envs."""
-        from r2d2dpg_torch.parallel import DP_AXIS, SPMDTrainer
+        envs (``--spmd D``): ``SPMDTrainer`` for tensor envs
+        (``parallel/spmd.py``), ``HostSPMDTrainer`` for host-pool envs
+        (``parallel/hybrid.py``)."""
+        from r2d2dpg_torch.parallel import DP_AXIS, HostSPMDTrainer, SPMDTrainer
 
         device = resolve_device(mesh.device if device is None else device)
         env = self.env_factory(device)
+        if getattr(env, "batched", False):
+            agent = self.build_agent(env, axis_name=None)
+            return HostSPMDTrainer(env, agent, self.trainer, mesh)
+        if self.trainer.overlap_learner:
+            raise ValueError(
+                "overlap_learner requires a host-pool env (pure-JAX envs "
+                "collect in-graph; there is no host gap to hide updates "
+                "under) — SPMDTrainer would silently ignore it"
+            )
         agent = self.build_agent(env, axis_name=DP_AXIS)
         return SPMDTrainer(env, agent, self.trainer, mesh)
 
@@ -102,11 +131,12 @@ def _pendulum(device) -> Environment:
     return Pendulum(device=device)
 
 
-def _dmc(domain: str, task: str):
+def _dmc(domain: str, task: str, pixels: bool = False, action_repeat: int = 1):
     def factory(device) -> Environment:
-        raise NotImplementedError(
-            f"DM-Control {domain}-{task} is not ported yet "
-            "(ROADMAP.md, queue 1 item 7)"
+        from r2d2dpg_torch.envs.dmc_host import DMCHostEnv
+
+        return DMCHostEnv(
+            domain, task, pixels=pixels, action_repeat=action_repeat, device=device
         )
 
     return factory
@@ -170,11 +200,10 @@ PENDULUM_R2D2 = ExperimentConfig(
 )
 
 # 3: the headline config (walker-walk); its learner shapes are what the
-# learner-step measurement runs.  The envs of configs 3-5 wait for the
-# DM-Control slice.
+# learner-step measurement runs.
 WALKER_R2D2 = ExperimentConfig(
     name="walker_r2d2",
-    env_factory=_dmc("walker", "walk"),
+    env_factory=_dmc("walker", "walk", action_repeat=2),
     use_lstm=True,
     agent=AgentConfig(
         burnin=20,
@@ -209,7 +238,7 @@ WALKER_R2D2_NS5 = dataclasses.replace(
 # 4: long sequences (seq-len 85 stored: burn-in 40 + unroll 40 + n-step 5).
 HUMANOID_R2D2 = ExperimentConfig(
     name="humanoid_r2d2",
-    env_factory=_dmc("humanoid", "run"),
+    env_factory=_dmc("humanoid", "run", action_repeat=2),
     use_lstm=True,
     agent=AgentConfig(
         burnin=40,
@@ -236,7 +265,7 @@ HUMANOID_R2D2 = ExperimentConfig(
 # 5: from pixels (CNN + LSTM on 64x64x3 uint8 frames).
 CHEETAH_PIXELS = ExperimentConfig(
     name="cheetah_pixels",
-    env_factory=_dmc("cheetah", "run"),
+    env_factory=_dmc("cheetah", "run", pixels=True, action_repeat=4),
     use_lstm=True,
     pixels=True,
     agent=AgentConfig(

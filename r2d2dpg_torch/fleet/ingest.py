@@ -29,7 +29,10 @@ connection's only writer, so acks and param pushes never interleave)::
 Backpressure and shedding: the actor blocks on the ACK, so it has at most
 one unacknowledged batch in flight; the handler waits ``shed_after_s`` for
 queue room and then sheds loudly (``SHED_INGEST`` ack, a ``shed`` flight
-event, the per-actor shed counter).  The scalar stats of a shed batch are
+event, the per-actor shed counter).  Waiting handlers get room in arrival
+order (a port-only rule: JAX's sliced ``queue.put`` lets a late handler
+take room freed for an earlier one), and a steady-state wait of 0.5 s or
+more is a ``put_wait`` flight event.  The scalar stats of a shed batch are
 banked and folded back by the learner: experience may be dropped, the
 accounting may not.
 
@@ -68,6 +71,7 @@ limit is ``drain_coalesce`` from the first drain).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import hmac
 import json
@@ -134,6 +138,10 @@ from r2d2dpg_torch.utils.profiling import annotate
 # drain-learn has run: startup (actor spawn, replay fill) must not cost
 # every actor one shed.
 STARTUP_SHED_GRACE_S = 120.0
+# A drain-learn iteration whose learner-side time (dequeue to the end of
+# the iteration) reaches this many seconds lands in the flight recorder as
+# a ``drain_stall`` event with where its time went (``_StallClock``).
+STALL_EVENT_S = 0.5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,6 +221,11 @@ class IngestServer:
         # startup_shed_grace_s after the first queue hand-off.
         self._steady = threading.Event()
         self._first_put_at: Optional[float] = None
+        # Handlers take queue room in arrival order (``_put_or_shed``): one
+        # ticket each, and only the oldest ticket waits on the queue.
+        self._handoff = threading.Condition()
+        self._tickets: "collections.deque[int]" = collections.deque()
+        self._next_ticket = 0
         self.address: Optional[str] = None  # resolved at start()
         # What actors dial: ``address``, or loopback for a wildcard bind.
         self.connect_address: Optional[str] = None
@@ -597,7 +610,15 @@ class IngestServer:
         The bound is ``shed_after_s`` once the learner marks steady (or the
         grace has elapsed since the first hand-off), the startup grace
         before that.  The wait runs in short slices, so a stopping server
-        reclaims its handlers quickly."""
+        reclaims its handlers quickly.
+
+        Handlers get queue room in arrival order: each takes a ticket, and
+        only the oldest waits on the queue, the others on ``_handoff``.  A
+        sliced ``queue.put`` alone is not fair: a waiter whose slice ends
+        rejoins the queue's waiters behind the others, and a handler that
+        arrives as a slot frees can take it before the woken waiter does,
+        so on a full queue one handler could wait several drains while
+        another waited one."""
         now = time.monotonic()
         in_grace = not self._steady.is_set() and (
             self._first_put_at is None
@@ -611,19 +632,48 @@ class IngestServer:
             )
         else:
             deadline = now + self.shed_after_s
-        while not self._stop.is_set():
-            try:
-                self.queue.put(
-                    msg,
-                    timeout=min(0.25, max(deadline - time.monotonic(), 0.0)),
-                )
-                if self._first_put_at is None:
-                    self._first_put_at = time.monotonic()
-                return True
-            except queue.Full:
-                if time.monotonic() >= deadline:
-                    return False
-        return False  # stopping: drop silently, the run is over
+        with self._handoff:
+            ticket = self._next_ticket
+            self._next_ticket += 1
+            self._tickets.append(ticket)
+        try:
+            while not self._stop.is_set():
+                with self._handoff:
+                    if self._tickets[0] != ticket:  # an older handler waits first
+                        left = deadline - time.monotonic()
+                        if left <= 0:
+                            self._note_put_wait(msg, now, shed=True)
+                            return False
+                        self._handoff.wait(min(0.25, left))
+                        continue
+                try:
+                    self.queue.put(
+                        msg,
+                        timeout=min(0.25, max(deadline - time.monotonic(), 0.0)),
+                    )
+                    if self._first_put_at is None:
+                        self._first_put_at = time.monotonic()
+                    self._note_put_wait(msg, now, shed=False)
+                    return True
+                except queue.Full:
+                    if time.monotonic() >= deadline:
+                        self._note_put_wait(msg, now, shed=True)
+                        return False
+            return False  # stopping: drop silently, the run is over
+        finally:
+            with self._handoff:
+                self._tickets.remove(ticket)
+                self._handoff.notify_all()
+
+    def _note_put_wait(self, msg, t0: float, shed: bool) -> None:
+        """A steady-state hand-off that waited ``STALL_EVENT_S`` or more for
+        queue room lands in the flight recorder as ``put_wait`` (the queue
+        contention a shed comes from)."""
+        waited = time.monotonic() - t0
+        if waited >= STALL_EVENT_S and self._steady.is_set():
+            flight_event("put_wait", wait_s=waited, shed=shed,
+                         actor=msg.get("actor_id") if isinstance(msg, dict) else None,
+                         queued=self.queue.qsize())
 
     def _handle(self, ident: int, conn: socket.socket) -> None:
         actor = "?"
@@ -1028,6 +1078,91 @@ def prune_fleet_counters(directory: str, keep_steps) -> None:
                 pass
 
 
+class _StallClock:
+    """Where a long drain-learn iteration's time went, on the learner thread.
+
+    ``begin()`` at the dequeue, ``mark(name)`` after each segment,
+    ``end(**fields)`` at the iteration's end: when the iteration took
+    ``STALL_EVENT_S`` or more, one ``drain_stall`` flight event carries its
+    wall seconds, each segment's ms, the learner thread's CPU ms
+    (``time.thread_time``) beside the whole process's (``os.times``), and
+    ``stack``: where the thread stood, sampled
+    every ``SAMPLE_S`` by a watcher thread once the iteration is
+    ``STALL_EVENT_S / 2`` old (innermost frame first, with counts).  A
+    thread that waits for the GIL, a lock, the card or a core shows
+    little CPU beside the wall.  ``close()``
+    records one ``drain_clock`` event: every drain-learn iteration's wall
+    and the learner thread's CPU seconds, summed."""
+
+    SAMPLE_S = 0.02
+
+    def __init__(self):
+        self._t = self._cpu = self._proc = None
+        self._segments: Dict[str, float] = {}
+        self._samples: Dict[str, int] = {}
+        self._sums = [0, 0.0, 0.0]  # iterations, wall s, thread CPU s
+        self._tid = threading.get_ident()
+        self._stop = threading.Event()
+        self._watcher = threading.Thread(target=self._watch, name="fleet-stall-watch",
+                                         daemon=True)
+        self._watcher.start()
+
+    def close(self) -> None:
+        self._stop.set()
+        n, wall, cpu = self._sums
+        if n:
+            flight_event("drain_clock", iterations=n, wall_s=wall, thread_cpu_s=cpu,
+                         cpu_share=cpu / max(wall, 1e-9))
+
+    def _watch(self) -> None:
+        import sys
+
+        while not self._stop.wait(self.SAMPLE_S):
+            t = self._t
+            if t is None or time.monotonic() - t < STALL_EVENT_S / 2:
+                continue
+            frame = sys._current_frames().get(self._tid)
+            if frame is None:
+                continue
+            where = []
+            while frame is not None and len(where) < 3:
+                code = frame.f_code
+                where.append(f"{os.path.basename(code.co_filename)}:{frame.f_lineno}"
+                             f":{code.co_name}")
+                frame = frame.f_back
+            key = " < ".join(where)
+            self._samples[key] = self._samples.get(key, 0) + 1
+
+    def begin(self) -> None:
+        self._segments, self._samples = {}, {}
+        self._cpu = time.thread_time()
+        self._proc = sum(os.times()[:2])
+        self._t = self._last = time.monotonic()
+
+    def mark(self, name: str) -> None:
+        now = time.monotonic()
+        self._segments[name] = self._segments.get(name, 0.0) + (now - self._last) * 1e3
+        self._last = now
+
+    def end(self, **fields) -> None:
+        if self._t is None:
+            return
+        wall = time.monotonic() - self._t
+        self._t = None
+        cpu = time.thread_time() - self._cpu
+        self._sums[0] += 1
+        self._sums[1] += wall
+        self._sums[2] += cpu
+        if wall < STALL_EVENT_S:
+            return
+        rec = {"wall_s": wall, "segments_ms": self._segments,
+               "thread_cpu_ms": cpu * 1e3,
+               "process_cpu_ms": (sum(os.times()[:2]) - self._proc) * 1e3,
+               "threads": threading.active_count(),
+               "stack": sorted(self._samples.items(), key=lambda kv: -kv[1])[:6]}
+        flight_event("drain_stall", **rec, **fields)
+
+
 class FleetLearner:
     """The staging queue's single consumer: drain -> arena add -> K updates.
 
@@ -1203,6 +1338,7 @@ class FleetLearner:
         coalesce_sum = 0
         coalesce_n = 0
         drain_flops: Dict[int, Optional[float]] = {}  # drain width -> FLOPs
+        stall = _StallClock()
         try:
             while drained < num_train_phases:
                 if deadline is not None and time.monotonic() >= deadline:
@@ -1232,6 +1368,7 @@ class FleetLearner:
                     continue
                 wait_hist.add(time.monotonic() - t_wait)
                 last_batch_t = time.monotonic()
+                stall.begin()
                 t_dequeue = time.time()
                 # Coalesced drain: the got batch plus whatever backlog the
                 # queue already holds, up to the power-of-two bucket of
@@ -1281,6 +1418,7 @@ class FleetLearner:
                             log=bool(learn and log_every and after % log_every == 0))
                         control.send_payload(buf)
                 t_stack_end = time.time()
+                stall.mark("pack")
                 absorbed += n_seqs
                 if not learn:
                     with t.arena.staged_writer():
@@ -1314,6 +1452,7 @@ class FleetLearner:
                             t, lstate, staged, prefetch=True)
                 mon.note_learn(drain_flops[n_seqs])
                 t_dispatch_end = time.time()
+                stall.mark("learn")
                 if traces:
                     # One synchronization per SAMPLED drain makes the learn
                     # hop honest; unsampled drains pay nothing.
@@ -1354,8 +1493,10 @@ class FleetLearner:
                     # Startup is over: handlers shed on the real bound now.
                     self.server.mark_steady()
                     mon.mark_steady()
+                stall.mark("trace")
                 if phase_fn is not None:
                     phase_fn(drained)
+                stall.mark("phase_fn")
                 if (
                     ckpt is not None
                     and checkpoint_every > 0
@@ -1372,6 +1513,7 @@ class FleetLearner:
                             "param_version": version,
                         },
                     )
+                stall.mark("checkpoint")
                 if drained % max(self.config.publish_every, 1) == 0:
                     version += 1
                     self.server.publish_params(
@@ -1379,6 +1521,7 @@ class FleetLearner:
                     )
                     if log_every and drained % log_every == 0:
                         flight_event("param_publish", version=version)
+                stall.mark("publish")
                 if log_every and drained % log_every == 0:
                     # ONE fetch per log cadence: the learn metrics and the
                     # arena's priority sum.
@@ -1413,6 +1556,8 @@ class FleetLearner:
                     ep_count = 0.0
                     t._obs_publish(scalars)
                     emit_log(drained, scalars)
+                stall.mark("log")
+                stall.end(drained=drained, width=n_seqs, queued=self.queue.qsize())
         except BaseException as e:
             if control is not None and not control.closed:
                 control.fail(e)
@@ -1421,6 +1566,7 @@ class FleetLearner:
             if control is not None:
                 control.stop(drained)
         finally:
+            stall.close()
             if t.device.type == "cuda":
                 torch.cuda.synchronize(t.device)
             mon.end_run()

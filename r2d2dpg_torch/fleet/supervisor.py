@@ -28,7 +28,10 @@ drain is ignored past ``retire_grace_s``.
 Every child runs on the CPU: its environment hides every card
 (``CUDA_VISIBLE_DEVICES=""``), an actor's argv carries ``--device cpu``
 and a shard process makes no CUDA call, so only the learner opens a CUDA
-context on the card.
+context on the card.  A child also runs one intra-op thread
+(``OMP_NUM_THREADS=1``) unless the caller's environment names another
+count: N children each spinning torch's default one thread per core
+oversubscribe the host whose cores the learner's dispatch needs.
 """
 
 from __future__ import annotations
@@ -110,8 +113,11 @@ class ActorSupervisor:
         self.id_field = id_field or role
         self._clock = clock
         self._env = dict(os.environ if env is None else env)
-        # CPU discipline (module docstring): no card is visible to a child.
+        # CPU discipline (module docstring): no card is visible to a child,
+        # and a child runs one intra-op thread unless the caller's
+        # environment names another count.
         self._env["CUDA_VISIBLE_DEVICES"] = ""
+        self._env.setdefault("OMP_NUM_THREADS", "1")
         # The child imports the port from this checkout, whatever its cwd.
         root = os.path.dirname(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))))

@@ -41,17 +41,23 @@ Two trainers, as in JAX:
   contiguous capacity blocks of ``C/D``; the priority scatter kernel runs
   on every rank's block.
 
-``HostSPMDTrainer`` (the host-pool trainer) waits for the DM-Control envs.
+And ``HostSPMDTrainer`` (``hybrid.py``) for host-pool envs
+(``DMCHostEnv``): each rank steps its own pool of ``num_envs/D`` envs from
+the host, the arena is replicated, the learner batch split ``B/D`` per
+rank; ``--spmd D`` with a DM-Control config, or ``--overlap-learner 1`` on
+a mesh of one.
 """
 
 from r2d2dpg_torch.parallel import distributed
 from r2d2dpg_torch.parallel.dp_learner import DPLearnerTrainer
+from r2d2dpg_torch.parallel.hybrid import HostSPMDTrainer
 from r2d2dpg_torch.parallel.mesh import DP_AXIS, Mesh, make_mesh, replicated, sharded
 from r2d2dpg_torch.parallel.spmd import SPMDTrainer
 
 __all__ = [
     "DP_AXIS",
     "DPLearnerTrainer",
+    "HostSPMDTrainer",
     "Mesh",
     "SPMDTrainer",
     "distributed",

@@ -4,6 +4,7 @@ from r2d2dpg_torch.replay.arena import (
     PROVENANCE_ABSENT,
     ArenaState,
     CapacityBlockArena,
+    ReplicatedArena,
     ReplayArena,
     SampleResult,
     SequenceBatch,
@@ -16,6 +17,7 @@ __all__ = [
     "PROVENANCE_ABSENT",
     "ArenaState",
     "CapacityBlockArena",
+    "ReplicatedArena",
     "ReplayArena",
     "SampleResult",
     "SequenceBatch",

@@ -531,3 +531,21 @@ class CapacityBlockArena(ReplayArena):
         local = torch.where(own, indices - self.lo, self.block)
         priority_scatter(state.priority, local.contiguous(), values.contiguous())
         return state
+
+
+class ReplicatedArena(ReplayArena):
+    """The host-pool trainer's arena: every rank of ``mesh`` holds the whole
+    arena (``parallel/hybrid.py``).  The adds arrive already gathered; the
+    write-back all-gathers the ``B/D`` new priorities of every rank in
+    global batch order, then every rank launches the scatter kernel on its
+    own copy of the whole priority vector."""
+
+    def __init__(
+        self, capacity: int, mesh, *, prioritized: bool = True, alpha: float = 0.6
+    ):
+        super().__init__(capacity, prioritized=prioritized, alpha=alpha)
+        self.mesh = mesh
+
+    def update_priorities(self, state, indices, priorities) -> ArenaState:
+        return super().update_priorities(
+            state, indices, self.mesh.all_gather(priorities))

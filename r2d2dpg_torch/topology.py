@@ -26,11 +26,10 @@ rows differ from the JAX table on purpose in these places:
 - ``pipeline-x-phase-subsystems`` is narrowed to ``--profile-phases``: the
   port's pipeline runs ``--resume`` and ``--eval-every``.  Its message
   names only that flag.
-- ``actors-x-overlap-learner`` and ``learner-dp-x-overlap-learner`` wait
-  for ``--overlap-learner`` (the host-pool trainer).
 - ``multiprocess-not-yet-ported`` is the port's own: a world of more than
-  one process refuses ``--pipeline``, which a mesh run places only with
-  the host-pool trainer (not ported yet).
+  one process refuses ``--pipeline``.  The pipelined executor's collector
+  and learner threads would both call collectives on the one process
+  group, which needs an order across ranks that is not ported.
 
 ``Refusal.processes`` is the process count a row's ``argv`` needs to fire
 (the multi-process rows are pinned through ``validate`` with it).
@@ -272,6 +271,17 @@ REFUSALS: Tuple[Refusal, ...] = (
         argv=("--actors", "2", "--nan-inject-phase", "1"),
     ),
     Refusal(
+        key="actors-x-overlap-learner",
+        when=lambda a, np: bool(a.actors and a.overlap_learner),
+        reason=(
+            "--actors N does not compose with --overlap-learner 1: the "
+            "interleaved updates hide under a host env pool this process "
+            "does not step under a fleet (docs/TOPOLOGY.md)"
+        ),
+        match="does not compose",
+        argv=("--actors", "2", "--overlap-learner", "1"),
+    ),
+    Refusal(
         key="fleet-knobs-without-actors",
         when=lambda a, np: bool(not a.actors and _fleet_only_knobs(a)),
         reason=(
@@ -432,6 +442,17 @@ REFUSALS: Tuple[Refusal, ...] = (
     ),
     # ------------------------------------------------------ chaos drills
     Refusal(
+        key="learner-dp-x-overlap-learner",
+        when=lambda a, np: bool(a.learner_dp and a.overlap_learner),
+        reason=(
+            "--learner-dp does not compose with --overlap-learner 1: the "
+            "interleaved-update schedule belongs to the host-pool trainer "
+            "(docs/TOPOLOGY.md)"
+        ),
+        match="does not compose",
+        argv=("--learner-dp", "2", "--overlap-learner", "1"),
+    ),
+    Refusal(
         key="sampler-chaos-without-shards",
         when=lambda a, np: _chaos_sampler_faults(a),
         reason=(
@@ -486,9 +507,10 @@ REFUSALS: Tuple[Refusal, ...] = (
         key="multiprocess-not-yet-ported",
         when=lambda a, np: bool(np > 1 and a.pipeline),
         reason=(
-            "--pipeline 1 is not ported to multi-process runs yet: a "
-            "mesh-placed pipeline needs the host-pool trainer, which waits "
-            "for the DM-Control envs (ROADMAP.md); run it at world size 1"
+            "--pipeline 1 is not ported to multi-process runs yet: its "
+            "collector and learner threads would both call collectives on "
+            "one process group, which needs a cross-rank order that is not "
+            "ported; run it at world size 1"
         ),
         match="not ported to multi-process",
         argv=("--spmd", "2", "--pipeline", "1"),

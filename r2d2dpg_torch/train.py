@@ -236,6 +236,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument(
         "--param-sync-every", type=int, default=None,
         help="refresh behavior params every K phases (0 = always fresh)")
+    p.add_argument(
+        "--overlap-learner", type=int, default=None, choices=[0, 1],
+        help="host-pool trainers: interleave learner updates between env "
+        "steps so they hide under the MuJoCo step (1 = on)")
     # Multi-device learner paths (parallel/): one process per device.
     p.add_argument(
         "--spmd", type=int, default=0, metavar="D",
@@ -482,8 +486,10 @@ def _apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:
     base_batch = cfg.trainer.batch_size
     t = {f: getattr(args, f) for f in (
         "num_envs", "batch_size", "learner_steps", "min_replay",
-        "param_sync_every", "seed", "sigma_max", "ladder_alpha")}
+        "param_sync_every", "overlap_learner", "seed", "sigma_max", "ladder_alpha")}
     t = {k: v for k, v in t.items() if v is not None}
+    if "overlap_learner" in t:
+        t["overlap_learner"] = bool(t["overlap_learner"])
     if t:
         cfg = dataclasses.replace(cfg, trainer=dataclasses.replace(cfg.trainer, **t))
     a = {f: getattr(args, f)
@@ -648,13 +654,21 @@ def _run_fleet(cfg, topo, trainer, state, logger, ckpt, args, watchdog, flight,
         resume_from = load_fleet_counters(args.checkpoint_dir, ckpt.latest_step)
         trainer._check_replicated(state, resume_from)
     if not distributed.is_primary():
-        return (follow_pull if args.replay_shards else follow_drain)(trainer, state)
-    control = control_plane(trainer)
-    # Rank 0 stopping anywhere (a refused flag, a dead supervisor) tells
-    # the followers before it propagates.
-    with control.leading() if control is not None else contextlib.nullcontext():
-        return _lead_fleet(cfg, topo, trainer, state, logger, ckpt, args, watchdog,
-                           flight, flight_path, replay_capacity, resume_from)
+        state = (follow_pull if args.replay_shards else follow_drain)(trainer, state)
+    else:
+        control = control_plane(trainer)
+        # Rank 0 stopping anywhere (a refused flag, a dead supervisor) tells
+        # the followers before it propagates.
+        with control.leading() if control is not None else contextlib.nullcontext():
+            state = _lead_fleet(cfg, topo, trainer, state, logger, ckpt, args, watchdog,
+                                flight, flight_path, replay_capacity, resume_from)
+    mesh = getattr(trainer, "mesh", None)
+    if mesh is not None and ckpt is not None and ckpt.save_every:
+        # Rank 0 writes the run's last checkpoint after the loop's STOP: no
+        # rank leaves the run before it is on disk, so a --resume that
+        # follows reads the same step on every rank.
+        mesh.barrier()
+    return state
 
 
 def _lead_fleet(cfg, topo, trainer, state, logger, ckpt, args, watchdog, flight,

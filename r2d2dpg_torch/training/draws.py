@@ -7,7 +7,8 @@ order, the numbers the JAX program drew.
 
 Per collect step the trainer draws, in this order: the exploration
 normal ``[E, A]`` (gaussian or OU noise only), then the env's fresh start
-state (Pendulum: theta ``[E]``, then thdot ``[E]``).  Per learner step it
+state (Pendulum: theta ``[E]``, then thdot ``[E]``; a DM-Control host env
+draws only at reset, its ``[E]`` integer seeds).  Per learner step it
 draws the sampling uniforms ``[B]``, then, with target-policy smoothing on
 (``target_policy_sigma > 0``), the smoothing normal ``[U + n, B, A]``
 (time-major; JAX draws it from ``fold_in(key, 1)`` of the same learner
@@ -71,6 +72,12 @@ class Draws:
         u = torch.rand(tuple(shape), generator=self.generator, device=self.device)
         return u * (high - low) + low
 
+    def randint(self, shape: Sequence[int], low: int, high: int) -> torch.Tensor:
+        """Uniform int64 in ``[low, high)`` (a host env's reset seeds)."""
+        return torch.randint(
+            low, high, tuple(shape), generator=self.generator, device=self.device
+        )
+
     def fold(self, rank: int) -> "Draws":
         """Rank ``rank``'s own stream: this one at rank 0, else a fresh
         generator seeded ``fold_seed(seed, rank)``."""
@@ -104,6 +111,10 @@ class ReplayDraws:
     def uniform(
         self, shape: Sequence[int], low: float = 0.0, high: float = 1.0
     ) -> torch.Tensor:
+        del low, high
+        return self._next(shape)
+
+    def randint(self, shape: Sequence[int], low: int, high: int) -> torch.Tensor:
         del low, high
         return self._next(shape)
 

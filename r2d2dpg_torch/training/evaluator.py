@@ -30,6 +30,10 @@ class Evaluator:
 
     def __init__(self, env: Environment, actor: ActorNet, num_envs: int = 10):
         self.env = env
+        # A host-pool env labels its metrics by role, so the eval fleet's
+        # step latencies stay apart from the training pool's.
+        if hasattr(env, "set_role"):
+            env.set_role("eval")
         self.actor = actor
         self.num_envs = num_envs
 

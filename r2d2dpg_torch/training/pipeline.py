@@ -69,8 +69,14 @@ What eager torch needs that JAX's donation and program order gave:
   replaced with fresh zero tensors, as in JAX.
 - **Collector errors** are re-raised on the calling thread after the join.
 
-Host-driven collection (``HostSPMDTrainer``) and shard-map trainers are
-refused: the first lives with the multi-device paths (ROADMAP item 12).
+Host-driven collection (``HostSPMDTrainer``, ``parallel/hybrid.py``) runs
+at world size 1: the collector thread's ``trainer._collect`` is then the
+hybrid's host stride loop (``_stride_loop``) on the collector's modules and
+stream, and calls no collective.  At world size > 1 the executor refuses:
+the learner thread's collectives (gradients, the gathered adds and
+priorities) and the collector's would share one process group from two
+threads, which needs an order across ranks that is not ported.
+Shard-map trainers are refused.
 """
 
 from __future__ import annotations
@@ -297,8 +303,9 @@ class _ParamBox:
 class PipelineExecutor:
     """Drives a trainer's phase schedule with collect and learn overlapped.
 
-    Works with the base ``Trainer``.  Shard-map trainers (``axis`` set) and
-    host-driven trainers (``_host_collect``) are refused.  Warm-up and
+    Works with the base ``Trainer`` and, at world size 1, with the
+    host-driven ``HostSPMDTrainer``.  Shard-map trainers (``axis`` set) are
+    refused.  Warm-up and
     replay-fill phases run phase-locked on the calling thread: the learner
     has nothing to do until replay holds ``min_replay`` sequences.
     """
@@ -310,11 +317,12 @@ class PipelineExecutor:
                 "boundary; shard_map trainers fuse whole phases — use the "
                 "base Trainer"
             )
-        if hasattr(trainer, "_host_collect"):
+        if hasattr(trainer, "_host_collect") and trainer.mesh.size > 1:
             raise ValueError(
-                "PipelineExecutor: host-driven collection (HostSPMDTrainer) "
-                "is not ported; it comes with the multi-device paths "
-                "(ROADMAP item 12)"
+                "PipelineExecutor: host-driven collection runs at world size "
+                f"1 only (got {trainer.mesh.size}): two threads calling "
+                "collectives on one process group need a cross-rank order, "
+                "which is not ported"
             )
         if config.queue_depth < 1:
             raise ValueError("queue_depth must be >= 1")
@@ -330,7 +338,8 @@ class PipelineExecutor:
     # ------------------------------------------------------- the two sides
     def _collect_phase_pipelined(self, cstate, behavior, critic_params):
         """One collect phase on the collector thread: stride env steps on
-        the collector's modules, window shift, emit."""
+        the collector's modules (the host stride loop for a host-driven
+        trainer), window shift, emit."""
         with scope("pipeline_collect"):
             cstate = self.trainer._collect(
                 cstate, behavior=behavior, critic_params=critic_params,

@@ -17,7 +17,10 @@ K > 0 refreshes a behaviour snapshot every K phases.
 
 ``_collect`` takes the nets it runs (``nets``, the agent's by default), so
 the pipelined executor's collector thread runs its own module copies
-(``training/pipeline.py``).  ``_learn_many(prefetch=True)`` is the
+(``training/pipeline.py``); ``_absorb`` folds a phase's step records into
+the state, shared with the host-pool trainer's stride loop.  A host-stepped
+env (``batched``, ``envs/dmc_host.py``) needs no branch here: every env of
+the port steps all its lanes in one call.  ``_learn_many(prefetch=True)`` is the
 executor's double-buffered drain: batch k+1 is sampled before update k's
 priority write-back (its draw order is in ``training/draws.py``).
 
@@ -36,7 +39,8 @@ weights and smoothing normal), ``_put_staged`` (a fleet or sampler batch
 before the drain or pull learn), ``_log_extra_refs`` /
 ``_log_extra_publish`` (extra values on the log cadence's one fetch),
 ``_agree`` (rank 0's value of a host decision, such as the ``minutes``
-deadline), and the checkpoint hooks ``global_field`` / ``global_state`` /
+deadline), ``_env_reset`` (the fleet's reset: a host-pool trainer's rank
+resets its own rows), and the checkpoint hooks ``global_field`` / ``global_state`` /
 ``local_state`` / ``_global_template`` / ``_check_replicated`` (the
 global state a checkpoint holds, ``parallel/layout.py``).
 """
@@ -77,8 +81,7 @@ Metrics = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """Static orchestration hyperparameters (same fields as the JAX package,
-    less ``overlap_learner``, which belongs to the host-pool trainers)."""
+    """Static orchestration hyperparameters (the JAX package's fields)."""
 
     num_envs: int = 64
     stride: int = 20  # env steps per phase == emission stride
@@ -96,6 +99,11 @@ class TrainerConfig:
     noise: str = "gaussian"  # "gaussian" | "ou" | "none"
     param_sync_every: int = 0  # 0 = always-fresh behavior params
     initial_priority: str = "td"  # "td" | "max"
+    # Host-pool trainers only (parallel/hybrid.py): dispatch the phase's
+    # learner steps one at a time between env steps, so each runs on the
+    # device while the host is in the physics step.  Its learner samples
+    # the arena as of the previous emit.
+    overlap_learner: bool = False
     seed: int = 0
 
 
@@ -250,10 +258,14 @@ class Trainer:
         """Hook: hold the replicated leaves equal across ranks."""
 
     # ------------------------------------------------------------------ init
+    def _env_reset(self, draws):
+        """Hook: reset the fleet (a host-pool trainer resets its own rows)."""
+        return self.env.reset(self.config.num_envs, draws)
+
     def init(self, draws=None) -> TrainerState:
         cfg = self.config
         draws = Draws(cfg.seed, self.device) if draws is None else draws
-        env_state, ts = self.env.reset(cfg.num_envs, draws)
+        env_state, ts = self._env_reset(draws)
         e, a_dim = cfg.num_envs, self.env.spec.action_dim
         # Params are initialized on the CPU from the seed, then moved, so a
         # seed means the same nets on every device.
@@ -347,8 +359,8 @@ class Trainer:
         draws = state.draws
         env_state, obs, reset = state.env_state, state.obs, state.reset
         a_carry, c_carry = state.actor_carry, state.critic_carry
-        noise_st, ep_ret = state.noise_state, state.episode_return
-        records, comp_sum, comp_cnt = [], [], []
+        noise_st = state.noise_state
+        records = []
         for _ in range(cfg.stride):
             pre_carries = {"actor": a_carry, "critic": c_carry}
             action, a_carry, c_carry, noise_st = self._policy_step(
@@ -366,12 +378,26 @@ class Trainer:
                     carries=pre_carries,
                 )
             )
-            ep_ret = ep_ret + ts.reward
-            done = ts.reset > 0
+            obs, reset = ts.obs, ts.reset
+        return self._absorb(state, records, env_state, obs, reset, a_carry,
+                            c_carry, noise_st)
+
+    def _absorb(
+        self, state, records, env_state, obs, reset, a_carry, c_carry, noise_st
+    ):
+        """Fold one phase's ``stride`` step records into the state: the
+        episode bookkeeping, the window shift and the counters.  A step's
+        done flag is the next step's reset flag (``reset`` after the last)."""
+        ep_ret = state.episode_return
+        comp_sum, comp_cnt = [], []
+        dones = [r.reset for r in records[1:]] + [reset]
+        for record, done in zip(records, dones):
+            ep_ret = ep_ret + record.reward
+            done = done > 0
             comp_sum.append(torch.where(done, ep_ret, 0.0).sum())
             comp_cnt.append(done.sum())
             ep_ret = torch.where(done, 0.0, ep_ret)
-            obs, reset = ts.obs, ts.reset
+        cfg = self.config
         return dataclasses.replace(
             state,
             env_state=env_state,

@@ -1,13 +1,17 @@
 """Port parity: the named configs and the training CLI's overrides against JAX.
 
 Every config of the JAX package has a port config of the same name whose
-agent, trainer and net fields equal JAX's, for every field the port has
-(the port's ``TrainerConfig`` lacks ``overlap_learner``).  The port's CLI flags give the same
-config as the JAX CLI's ``_apply_overrides`` for each flag the port has.
-Exact equality: these are constants.
+agent, trainer and net fields equal JAX's, and whose env factory takes
+JAX's arguments (the DM-Control configs' domain, task, pixels and action
+repeat).  The port's CLI flags give the same config as the JAX CLI's
+``_apply_overrides`` for each flag the port has.  Exact equality: these
+are constants.  ``train --config walker_r2d2 --device cpu`` runs 2 train
+phases at reduced widths through ``--overlap-learner 0`` and ``1``,
+``--pipeline 1`` and ``--spmd 2`` (2 gloo processes).
 """
 
 import dataclasses
+import inspect
 import types
 
 import pytest
@@ -43,8 +47,24 @@ def test_config_constants_equal_jax(name):
 
 @pytest.mark.parametrize("name", DMC)
 def test_dmc_env_factories_name_roadmap_item_7(name):
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        get_config(name).build("cpu")
+    """The DM-Control factories (ROADMAP item 7 until the envs were
+    ported) build JAX's env: the same arguments, the same spec; the
+    config builds the plain trainer on it."""
+    from r2d2dpg_torch.envs import DMCHostEnv
+    from r2d2dpg_torch.training.trainer import Trainer
+
+    def args(factory):
+        return inspect.getclosurevars(factory).nonlocals
+
+    cfg = get_config(name)
+    got, want = args(cfg.env_factory), args(J_CONFIGS[name].env_factory)
+    assert got == want and set(got) == {"domain", "task", "pixels", "action_repeat"}
+    trainer = cfg.build("cpu")
+    assert type(trainer) is Trainer and isinstance(trainer.env, DMCHostEnv)
+    ref = J_CONFIGS[name].env_factory()
+    assert trainer.env.spec.__dict__ == ref.spec.__dict__
+    assert trainer.env.action_repeat == ref.action_repeat == want["action_repeat"]
+    assert trainer.env.native == ref.native
 
 
 @pytest.mark.parametrize("name,obs_shape,act,seq_len", [
@@ -89,6 +109,8 @@ FLAG_SETS = [
     ("--param-sync-every", "2"),
     ("--num-envs", "2", "--batch-size", "16", "--learner-steps", "2",
      "--min-replay", "40", "--param-sync-every", "0", "--seed", "3"),
+    ("--overlap-learner", "1"),
+    ("--overlap-learner", "0", "--learner-steps", "8"),
 ]
 
 
@@ -440,3 +462,57 @@ def test_serve_selftest_with_obs_port_starts_exporter(tmp_path, capsys):
         assert f"r2d2dpg_health_status {level}" in text.splitlines()
     finally:
         obs.stop_exporter()
+
+
+# ------------------------------------------------- walker_r2d2 through the CLI
+WALKER_CLI = ["--config", "walker_r2d2", "--device", "cpu", "--num-envs", "4",
+              "--batch-size", "4", "--min-replay", "4", "--learner-steps", "2",
+              "--phases", "2", "--log-every", "1"]
+
+
+@pytest.mark.parametrize("flags", [("--overlap-learner", "0"), ("--overlap-learner", "1"),
+                                   ("--pipeline", "1")],
+                         ids=["overlap0", "overlap1", "pipeline"])
+def test_train_cli_runs_walker(flags, capsys):
+    from r2d2dpg_tpu import topology as jtopology
+    from r2d2dpg_torch.parallel import HostSPMDTrainer
+    from r2d2dpg_torch.train import main
+
+    state = main(WALKER_CLI + list(flags))
+    out = capsys.readouterr().out.splitlines()
+    want = jtopology.resolve(j_parse_args(["--config", "walker_r2d2", *flags])).describe()
+    assert out[0] == "backend: cpu" and out[1] == f"topology: {want}"
+    assert state.train.step == 2 * 2
+    logged = [x for x in out if x.startswith("phase ")]
+    assert logged and "critic_loss" in logged[-1]
+    built = _apply_overrides(get_config("walker_r2d2"),
+                             parse_args(WALKER_CLI + list(flags))).build("cpu")
+    assert isinstance(built, HostSPMDTrainer) == (flags == ("--overlap-learner", "1"))
+
+
+WALKER_SPMD_BODY = """
+from r2d2dpg_torch.train import main
+import contextlib, io
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    state = main(%r)
+torch.save({"out": buf.getvalue(), "step": state.train.step,
+            "env_steps": state.env_steps}, os.path.join(OUT, f"rank{mesh.rank}.pt"))
+""" % (WALKER_CLI + ["--spmd", "2"],)
+
+
+def test_train_cli_runs_walker_spmd2(tmp_path):
+    """``--spmd 2`` with a DM-Control config: the host-pool trainer in 2
+    gloo processes, each stepping its own pool of 2 envs."""
+    from r2d2dpg_tpu import topology as jtopology
+
+    from test_torch_parallel import spawn_world
+
+    outs = spawn_world(2, WALKER_SPMD_BODY, tmp_path, timeout=600)
+    want = jtopology.resolve(j_parse_args(["--config", "walker_r2d2", "--spmd", "2"]))
+    lines = outs[0]["out"].splitlines()
+    assert f"topology: {want.describe()}" in lines
+    assert [o["step"] for o in outs] == [4, 4]
+    assert outs[0]["env_steps"] == outs[1]["env_steps"]
+    assert any(x.startswith("phase ") and "critic_loss" in x for x in lines)
+    assert outs[1]["out"] == ""  # rank 1 prints nothing

@@ -30,6 +30,8 @@ the card as on the CPU, and a 2-phase profile window over ``Trainer.run``
 on the card holds one scatter kernel per learner step of the window.  The
 dp learner's write-back on each rank's capacity block (1, 2 and 4 ranks,
 the other ranks stood in for) equals the plain scatter on the whole vector.
+A host env's step results reach the card through the pinned upload ring
+bitwise, float32 and uint8 frames, after the ring wrapped.
 """
 
 import types
@@ -480,3 +482,36 @@ def test_block_write_back_on_every_rank_matches_plain_exactly(world):
         assert PRIORITY_SCATTER.launches == before + 1
         got.append(state.priority.cpu().numpy())
     np.testing.assert_array_equal(np.concatenate(got), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_host_upload_ring_on_the_card(dtype):
+    """A host env's step results reach the card in one packed copy through
+    the pinned ring (``envs/core.py::HostUpload``): every step's tensors
+    equal the host arrays (bitwise), also after the ring wrapped many times
+    with a side stream's queued work ahead of each copy, and earlier steps'
+    tensors keep their values while later steps reuse the host buffers."""
+    from r2d2dpg_torch.envs.core import HostUpload
+
+    dev = _card()
+    up = HostUpload(dev)
+    rng = np.random.default_rng(0)
+    shape = (64, 24) if dtype == np.float32 else (8, 64, 64, 3)
+    side = torch.cuda.Stream(dev)
+    kept = []
+    with torch.cuda.stream(side):
+        for _ in range(3 * HostUpload.RING + 1):
+            big = torch.ones(4096, 4096, device=dev)
+            big @ big  # work queued ahead of the copy
+            host = (rng.uniform(-1, 1, shape).astype(np.float32) if dtype == np.float32
+                    else rng.integers(0, 256, shape, dtype=np.uint8))
+            r, d, res = (rng.uniform(-1, 1, shape[0]).astype(np.float32) for _ in range(3))
+            ts = up.upload(host, r, d, res)
+            kept.append(((host, r, d, res), ts))
+    torch.cuda.synchronize()
+    for (host, r, d, res), ts in kept:
+        assert ts.obs.device.type == "cuda" and ts.obs.dtype == torch.from_numpy(host).dtype
+        np.testing.assert_array_equal(ts.obs.cpu().numpy(), host)
+        for got, want in ((ts.reward, r), (ts.discount, d), (ts.reset, res)):
+            np.testing.assert_array_equal(got.cpu().numpy(), want)

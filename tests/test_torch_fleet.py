@@ -876,13 +876,101 @@ def test_cli_refuses_unavailable_zstd(monkeypatch):
     assert msg.startswith("--fleet-compress:") and "not available" in msg
 
 
+def test_ingest_handoffs_take_queue_room_in_arrival_order():
+    """Handlers waiting on a full queue get its room first come, first
+    served, however their waits' slices fall (``_put_or_shed``), and one
+    whose wait passes ``shed_after_s`` sheds with a ``put_wait`` event."""
+    q = queue.Queue(maxsize=1)
+    q.put({"actor_id": "filler"})
+    srv = IngestServer(q, shed_after_s=5.0, startup_shed_grace_s=5.0)
+    srv.mark_steady()
+    done = []
+    threads = [threading.Thread(target=lambda i=i: done.append(
+        (i, srv._put_or_shed({"actor_id": str(i)})))) for i in range(3)]
+    for t in threads:  # arrivals 0.3 s apart: each slice (0.25 s) ends first
+        t.start()
+        time.sleep(0.3)
+    order = []
+    for _ in range(4):
+        order.append(q.get(timeout=10)["actor_id"])
+        time.sleep(0.3)
+    for t in threads:
+        t.join(timeout=10)
+    assert order == ["filler", "0", "1", "2"]
+    assert sorted(done) == [(0, True), (1, True), (2, True)] and not srv._tickets
+    # Room freed for a waiting handler goes to it, not to a handler that
+    # arrives as it frees (here on this very thread, holding the GIL).
+    srv.shed_after_s = 1.0
+    q.put({"actor_id": "filler"})
+    waiter = threading.Thread(target=lambda: done.append(
+        ("old", srv._put_or_shed({"actor_id": "old"}))))
+    waiter.start()
+    time.sleep(0.4)
+    assert q.get(timeout=5)["actor_id"] == "filler"
+    late = srv._put_or_shed({"actor_id": "new"})
+    waiter.join(timeout=10)
+    assert q.get(timeout=5)["actor_id"] == "old"
+    assert ("old", True) in done and late is False
+    # A wait past the bound sheds, recorded as a long hand-off.
+    srv.shed_after_s = 0.6
+    get_flight_recorder().clear()
+    q.put({"actor_id": "filler"})
+    assert srv._put_or_shed({"actor_id": "7"}) is False
+    waits = [e for e in get_flight_recorder().events() if e["kind"] == "put_wait"]
+    assert waits and waits[-1]["shed"] and waits[-1]["actor"] == "7"
+
+
+def test_stall_clock_records_long_drain_iterations():
+    """A drain-learn iteration of ``STALL_EVENT_S`` or more is one
+    ``drain_stall`` event with its segments, CPU and sampled stacks;
+    ``close`` sums every iteration into ``drain_clock``."""
+    from r2d2dpg_torch.fleet.ingest import STALL_EVENT_S, _StallClock
+
+    get_flight_recorder().clear()
+    clock = _StallClock()
+    clock.begin()
+    clock.mark("pack")
+    clock.end(drained=1)  # short: no event
+    clock.begin()
+    time.sleep(STALL_EVENT_S + 0.1)
+    clock.mark("learn")
+    clock.end(drained=2, width=4)
+    clock.close()
+    events = get_flight_recorder().events()
+    (stall,) = [e for e in events if e["kind"] == "drain_stall"]
+    assert stall["drained"] == 2 and stall["width"] == 4
+    assert stall["wall_s"] >= STALL_EVENT_S and stall["segments_ms"]["learn"] >= 500
+    assert stall["thread_cpu_ms"] < 200  # asleep, not computing
+    assert any("time.sleep" in where or "test_torch_fleet.py" in where
+               for where, _ in stall["stack"])
+    (total,) = [e for e in events if e["kind"] == "drain_clock"]
+    assert total["iterations"] == 2 and total["wall_s"] >= STALL_EVENT_S
+
+
 # -------------------------------------------------- CLI with real actors
 @pytest.mark.parametrize("flags", [(), ("--fleet-wire", "bf16", "--fleet-compress",
                                         "zlib", "--drain-coalesce", "2")],
                          ids=["f32", "bf16_zlib"])
-def test_train_cli_with_actor_subprocesses(tmp_path, capsys, flags):
+def test_train_cli_with_actor_subprocesses(tmp_path, capsys, flags, monkeypatch):
+    """Both actors stream into a short CLI run.
+
+    The run ends after 5 staged batches, which one actor alone supplies
+    within ~0.5 s of its first; under a loaded test host one actor's start
+    (importing torch) can lag the other's by more than that, and the run
+    then ended before the late actor's first SEQS.  So the learner's run
+    starts once both handlers have read a SEQS frame (bounded: a missing
+    actor still fails the assertion below); the run itself is unchanged."""
     from r2d2dpg_torch.train import main
 
+    plain_run = FleetLearner.run
+
+    def run_when_both_stream(self, *args, **kwargs):
+        deadline = time.monotonic() + 120.0
+        while len(self.server.first_seqs_at) < 2 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        return plain_run(self, *args, **kwargs)
+
+    monkeypatch.setattr(FleetLearner, "run", run_when_both_stream)
     state = main(["--config", "pendulum_tiny", "--actors", "2", "--phases", "3",
                   "--device", "cpu", "--log-every", "1", "--logdir", str(tmp_path),
                   "--checkpoint-dir", str(tmp_path / "ck"), "--checkpoint-every", "2",

@@ -389,8 +389,11 @@ def test_collector_error_surfaces_on_the_caller():
 def test_executor_refuses_shard_map_and_host_driven_trainers():
     with pytest.raises(ValueError, match="shard_map"):
         PipelineExecutor(types.SimpleNamespace(axis="dp"))
+    # Host-driven collection runs at world size 1 (test_torch_hybrid.py);
+    # at a world of 2 its two threads would share one process group.
     with pytest.raises(ValueError, match="host-driven"):
-        PipelineExecutor(types.SimpleNamespace(axis=None, _host_collect=None))
+        PipelineExecutor(types.SimpleNamespace(axis=None, _host_collect=None,
+                                               mesh=types.SimpleNamespace(size=2)))
     with pytest.raises(ValueError, match="queue_depth"):
         PipelineExecutor(PENDULUM_TINY.build("cpu"), PipelineConfig(queue_depth=0))
 

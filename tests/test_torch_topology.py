@@ -4,9 +4,8 @@
   real train CLI at one process; through ``validate`` at the row's
   ``processes``) with the JAX row's message, exactly.  The exceptions are
   pinned on their own: ``pipeline-x-phase-subsystems`` (narrowed to
-  ``--profile-phases``), ``pipeline-x-nan-inject`` (no port row), the two
-  ``--overlap-learner`` rows (no such flag yet) and the port-only
-  ``multiprocess-not-yet-ported``.
+  ``--profile-phases``), ``pipeline-x-nan-inject`` (no port row) and the
+  port-only ``multiprocess-not-yet-ported``.
 - ``resolve`` and ``describe()`` equal JAX's, letter for letter, on a grid
   of flag sets; the value checks give JAX's messages.
 - The world-size rule: ``--spmd D`` / ``--learner-dp D`` need D processes.
@@ -25,8 +24,7 @@ from r2d2dpg_torch import topology, train
 J_ROWS = {r.key: r for r in jtopology.REFUSALS}
 NARROWED = {"pipeline-x-phase-subsystems"}
 PORT_ONLY = {"multiprocess-not-yet-ported"}
-NOT_IN_PORT = {"pipeline-x-nan-inject", "actors-x-overlap-learner",
-               "learner-dp-x-overlap-learner"}
+NOT_IN_PORT = {"pipeline-x-nan-inject"}
 
 
 def _port_args(*argv):
@@ -86,7 +84,7 @@ def test_multiprocess_row_names_each_flag_left_out():
     else: the fleet, checkpoints, resume and evals run there."""
     row = topology.REFUSALS[-1]
     assert row.key == "multiprocess-not-yet-ported"
-    assert "host-pool trainer" in row.reason and "--pipeline 1" in row.reason
+    assert "cross-rank order" in row.reason and "--pipeline 1" in row.reason
     with pytest.raises(SystemExit, match="not ported to multi-process"):
         topology.validate(_port_args("--spmd", "2", "--pipeline", "1"), process_count=2)
     assert not row.when(_port_args("--pipeline", "1"), 1)
@@ -117,6 +115,31 @@ GRID = [
     ("--actors", "2", "--learner-dp", "2"),
     ("--actors", "2", "--replay-shards", "2", "--learner-dp", "2"),
 ]
+
+
+@pytest.mark.parametrize("argv", [
+    ("--overlap-learner", "1"), ("--overlap-learner", "0"), ("--spmd", "2"),
+    ("--spmd", "2", "--overlap-learner", "1"), ("--pipeline", "1"),
+], ids=lambda a: "_".join(a))
+def test_walker_describe_equals_jax(argv):
+    """The DM-Control config's stamps: the host-pool trainer's flags."""
+    port = topology.resolve(train.parse_args(["--config", "walker_r2d2", *argv]))
+    ref = jtopology.resolve(jtrain.parse_args(["--config", "walker_r2d2", *argv]))
+    assert port.describe() == ref.describe()
+    assert train.parse_args(["--config", "walker_r2d2", *argv]).overlap_learner == (
+        jtrain.parse_args(["--config", "walker_r2d2", *argv]).overlap_learner)
+
+
+def test_overlap_learner_rows_fire_with_jax_messages():
+    for argv in (("--actors", "2", "--overlap-learner", "1"),
+                 ("--learner-dp", "2", "--overlap-learner", "1")):
+        with pytest.raises(SystemExit) as port:
+            topology.validate(_port_args(*argv), process_count=2)
+        with pytest.raises(SystemExit) as ref:
+            jtopology.validate(_jax_args(*argv), process_count=1)
+        assert str(port.value) == str(ref.value)
+        assert "--overlap-learner 1" in str(port.value)
+    assert topology.validate(_port_args("--overlap-learner", "1")).describe()
 
 
 @pytest.mark.parametrize("argv", GRID, ids=lambda a: "_".join(a) or "plain")
