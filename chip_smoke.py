@@ -77,7 +77,8 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    --pipeline-depth 2 --trace-sample 0.1`` at pendulum_r2d2 (warm-up 4 +
    fill 50 + 40 train phases), counts set to 0 just before and read just
    after (one launch per learner step), the run's counters, priorities
-   moved and finite, the executor's stats, the sampled hop spans; then 40
+   moved and finite, the executor's stats, the sampled hop spans, every
+   train phase k on the params after ``max(0, k - 3)`` drains; then 40
    phase-locked train phases timed in the same process and device-busy
    time of 3 pipelined ones;
 13. the actor fleet: ``train.main --config pendulum_r2d2 --actors 3
@@ -200,11 +201,18 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    phases, every substep sampling the arena as of the previous emit, then
    3 phases each with overlap off, on, on, off on the same trainer (the
    like-for-like ratio); (c) ``PipelineExecutor`` over (b)'s trainer with
-   overlap off, 10 phases; each with the counts set to 0 just before and
+   overlap off, 10 phases; (d) ``hybrid1_pipelined_mesh``:
+   ``PipelineExecutor(queue_depth=2)`` over ``build_spmd`` on a process
+   group of one over NCCL (``--spmd D --pipeline 1``'s path at D = 1),
+   10 train phases twice from one state, the two runs' params and
+   priorities bitwise equal, no ``torch.distributed`` collective on the
+   collector thread; each with the counts set to 0 just before and
    read just after: one scatter launch per learner step, ``train.step`` 4
    and ``env_steps`` 20 x 64 per phase, 20 host steps per phase, finite
-   metrics; wall and device-busy ms per train phase, the idle share, the
-   host-step p50/p99 and (c)'s ``overlap_fraction``.  The fleet legs
+   metrics, and for (c) and (d) every phase k on the params after
+   ``max(0, k - 3)`` drains with no refresh waiting; wall and device-busy
+   ms per train phase, the idle share, the host-step p50/p99, (c)'s and
+   (d)'s ``overlap_fraction`` and (d)'s queue waits p50/p99.  The fleet legs
    (``fleet_f32``, ``fleet_autoscale``) print a ``<label>_drain_stalls``
    record beside their sheds: every drain-learn iteration of 0.5 s or
    more, with its segments, the learner thread's and the process's CPU
@@ -1434,11 +1442,21 @@ def _pipelined_phase(torch, dev, train_phases=40):
     from r2d2dpg_torch.train import main as train_main
     from r2d2dpg_torch.training.pipeline import PipelineConfig, PipelineExecutor
 
+    from r2d2dpg_torch import train as train_mod
+
     label = "pendulum_r2d2_pipelined"
     config = _config("pendulum_r2d2")
     tc = config.trainer
     logdir = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
     buf = io.StringIO()
+    made = []  # the executor train.main builds, for its param versions
+
+    class Recording(PipelineExecutor):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    train_mod.PipelineExecutor = Recording
     try:
         random.seed(0)  # which batches --trace-sample picks
         get_flight_recorder().clear_spans()
@@ -1457,7 +1475,9 @@ def _pipelined_phase(torch, dev, train_phases=40):
             launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
         trace_written = os.path.exists(os.path.join(logdir, "trace.json"))
     finally:
+        train_mod.PipelineExecutor = PipelineExecutor
         shutil.rmtree(logdir, ignore_errors=True)
+    _check_versions(label, made[0], train_phases, 2)
     lines = buf.getvalue().splitlines()
     trainer = config.build(dev)
     fill = trainer.window_fill_phases + trainer.replay_fill_phases
@@ -3626,12 +3646,15 @@ def _hybrid1_leg(torch, dev, label="hybrid1"):
     (b) ``build("cuda")`` with ``overlap_learner``: the trainer on a mesh of
         one, 10 train phases; every substep samples the arena as of the
         previous emit;
-    (c) ``PipelineExecutor`` over (b)'s trainer with overlap off, 10 phases.
+    (c) ``PipelineExecutor`` over (b)'s trainer with overlap off, 10 phases;
+    (d) the pipeline over ``build_spmd`` on a process group of one, twice
+        from one state (``_hybrid1_pipelined_mesh``).
 
     Each: one scatter launch per learner step, ``train.step`` 4 per phase,
     ``env_steps`` stride x 64 per phase, stride host steps per phase,
     finite metrics; wall and device-busy ms per train phase, the idle
-    share and the host-step p50/p99; (c)'s ``overlap_fraction``."""
+    share and the host-step p50/p99; (c)'s and (d)'s ``overlap_fraction``
+    and param versions."""
     import dataclasses
 
     from r2d2dpg_torch.parallel import HostSPMDTrainer, make_mesh
@@ -3664,6 +3687,8 @@ def _hybrid1_leg(torch, dev, label="hybrid1"):
             raise AssertionError(f"{label}: {type(seq).__name__} on "
                                  f"{torch.distributed.get_backend()}")
         state = _filled(seq)
+        # (d) starts from this filled state too (and the stand-in's host state).
+        start = (_clone_state(torch, state), _host_state(seq.env))
         state, rec = _hybrid_schedule(torch, f"{label}_seq", seq, state, locked(seq))
         plain = _hybrid_config(False).build(dev)
         if type(plain) is not Trainer:
@@ -3748,6 +3773,7 @@ def _hybrid1_leg(torch, dev, label="hybrid1"):
             return state, []
 
         state, rec = _hybrid_schedule(torch, f"{label}_pipelined", ov, state, pipelined)
+        _check_versions(f"{label}_pipelined", ex, n, 2)
         stats = ex.stats()
         numbers = [float(w) for w in logged[-1].split()[3:] if w[:1] in "-0123456789"]
         if not logged or not all(math.isfinite(x) for x in numbers):
@@ -3764,13 +3790,144 @@ def _hybrid1_leg(torch, dev, label="hybrid1"):
         out["pipelined"] = rec
         del ov, ex, state, box
     torch.cuda.empty_cache()
+
+    # (d) the pipeline over the host-pool trainer on a mesh: --spmd D
+    # --pipeline 1's path at D = 1, twice from one state.
+    rec, launches[f"{label}_pipelined_mesh"] = _hybrid1_pipelined_mesh(
+        torch, dev, label, *start)
+    del start
+    out["pipelined_mesh"] = rec
     out.update(config="walker_r2d2", env="HostStandInEnv", seconds=time.perf_counter() - t_leg,
                overlap_over_seq=(out["overlap"]["wall_ms_per_train_phase"]
                                  / out["seq"]["wall_ms_per_train_phase"]),
                pipelined_over_seq=(out["pipelined"]["wall_ms_per_train_phase"]
-                                   / out["seq"]["wall_ms_per_train_phase"]))
+                                   / out["seq"]["wall_ms_per_train_phase"]),
+               pipelined_mesh_over_seq=(out["pipelined_mesh"]["wall_ms_per_train_phase"]
+                                        / out["seq"]["wall_ms_per_train_phase"]))
     print(json.dumps({label: out}), flush=True)
     return launches
+
+
+HYBRID_MESH_DEPTH = 2  # (d)'s staging-queue depth
+
+
+def _check_versions(label, ex, n, depth):
+    """Each of the section's ``n`` collect phases acted with the params
+    after ``max(0, k - depth - 1)`` drains, and no refresh waited."""
+    want = [max(0, k - depth - 1) for k in range(n)]
+    if ex.param_versions != want or ex.version_waits:
+        raise AssertionError(f"{label}: param versions {ex.param_versions} "
+                             f"(waits {ex.version_waits}), expected {want}")
+
+
+def _clone_state(torch, node):
+    """``node`` with every tensor cloned and every ``Draws`` copied at its
+    generator's state: a twin run's own copy of a trainer state."""
+    import dataclasses
+
+    from r2d2dpg_torch.training.draws import Draws
+
+    if isinstance(node, torch.Tensor):
+        return node.clone()
+    if isinstance(node, Draws):
+        twin = Draws(node.seed, node.device)
+        twin.generator.set_state(node.generator.get_state())
+        return twin
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        return dataclasses.replace(node, **{
+            f.name: _clone_state(torch, getattr(node, f.name))
+            for f in dataclasses.fields(node)})
+    if isinstance(node, dict):
+        return {k: _clone_state(torch, v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_clone_state(torch, v) for v in node)
+    return node
+
+
+def _host_state(env):
+    """A copy of ``HostStandInEnv``'s host-side state (obs, step counts,
+    the lanes' start-state generators)."""
+    return copy.deepcopy({k: env.__dict__[k] for k in ("_obs", "_t", "_rngs")})
+
+
+def _hybrid1_pipelined_mesh(torch, dev, label, start, host):
+    """(d) ``PipelineExecutor(queue_depth=2)`` over ``HostSPMDTrainer`` built
+    with ``build_spmd`` on a process group of one over NCCL (the path of
+    ``--spmd D --pipeline 1`` with a DM-Control config, at D = 1), walker
+    width on the stand-in: 10 train phases twice from ``start``, (a)'s
+    state after warm-up and fill (same seed), with the stand-in's host
+    state ``host`` restored each time.
+    Each run: one scatter launch per learner step, ``train.step`` 4 and
+    ``env_steps`` 20 x 64 a phase, every metric finite, phase k acting
+    with the params after ``max(0, k - 3)`` drains, no refresh waiting,
+    no ``torch.distributed`` collective on the collector thread (and some
+    on the learner's); the two runs' params and priorities bitwise equal.
+    Returns the record and the launches of both runs."""
+    from r2d2dpg_torch.parallel import HostSPMDTrainer, make_mesh
+    from r2d2dpg_torch.testing import count_collectives
+    from r2d2dpg_torch.training.pipeline import PipelineConfig, PipelineExecutor
+    from r2d2dpg_torch.tree import tree_leaves
+
+    n, depth = HYBRID_TRAIN_PHASES, HYBRID_MESH_DEPTH
+    name = f"{label}_pipelined_mesh"
+    with _group_of_one():
+        t = _hybrid_config(False).build_spmd(make_mesh(1, dev), dev)
+        if (not isinstance(t, HostSPMDTrainer)
+                or torch.distributed.get_backend() != HYBRID_BACKEND):
+            raise AssertionError(f"{name}: {type(t).__name__} on "
+                                 f"{torch.distributed.get_backend()}")
+        ex = PipelineExecutor(t, PipelineConfig(enabled=True, queue_depth=depth))
+        calls = {}
+
+        def pipelined(state):
+            logged = []
+            with count_collectives() as counted:
+                state = ex.run(state.phase_idx + n, state=state, log_every=n,
+                               metrics_fn=lambda phase, scalars: logged.append(scalars))
+            calls.update(counted)
+            return state, [{k: torch.tensor(v) for k, v in sc.items()} for sc in logged]
+
+        runs, ends = [], []
+        for twin in range(2):
+            t.env.__dict__.update(copy.deepcopy(host))
+            calls.clear()
+            state, rec = _hybrid_schedule(torch, f"{name}_{twin}", t,
+                                          _clone_state(torch, start), pipelined)
+            _check_versions(f"{name}_{twin}", ex, n, depth)
+            if calls.get("pipeline-collector", 0) or not calls.get("MainThread", 0):
+                raise AssertionError(f"{name}_{twin}: collectives by thread {calls}")
+            stats = ex.stats()
+            rec.update(param_versions=list(ex.param_versions),
+                       version_waits=ex.version_waits,
+                       collectives_by_thread=dict(calls),
+                       overlap_fraction=stats["overlap_fraction"],
+                       learner_wait_ms=[stats["learner_wait_p50_ms"],
+                                        stats["learner_wait_p99_ms"]],
+                       collect_wait_ms=[stats["collect_wait_p50_ms"],
+                                        stats["collect_wait_p99_ms"]],
+                       executor_stats=stats)
+            runs.append(rec)
+            ends.append(state)
+        pairs = list(zip(tree_leaves(ends[0].train), tree_leaves(ends[1].train), strict=True))
+        bitwise = (all(torch.equal(a, b) for a, b in pairs)
+                   and torch.equal(ends[0].arena.priority, ends[1].arena.priority))
+        if not bitwise:
+            diff = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+            raise AssertionError(f"{name}: the twin runs differ (params by {diff})")
+        box = {"state": ends[1]}
+
+        def two():
+            box["state"] = ex.run(box["state"].phase_idx + 2, state=box["state"],
+                                  log_every=0)
+
+        device_ms = _device_profile(two, 1)[0]
+        rec = dict(runs[1], twins_bitwise=bitwise, twin_wall_ms_per_train_phase=[
+            r["wall_ms_per_train_phase"] for r in runs], card=_card_line()[0])
+        _device_share(rec, None if device_ms is None else device_ms / 2)
+        del t, ex, ends, box
+    torch.cuda.empty_cache()
+    print(json.dumps({name: rec}), flush=True)
+    return rec, sum(r["scatter_launches"] for r in runs)
 
 
 def _mujoco_probe():

@@ -2,12 +2,16 @@
 """Run ``chip_smoke.py``'s host-pool trainer leg alone, then its fleet legs
 with the drain-stall trace.
 
-    python3 probes/hybrid_legs.py [--fleet N] [--autoscale-threads default,1,1,default]
+    python3 probes/hybrid_legs.py [--pendulum-pipelined] [--fleet N]
+        [--autoscale-threads default,1,1,default]
 
 Run from the root of a checkout on a machine with a CUDA card.  Builds the
 port's kernels, then runs ``hybrid1`` exactly as ``chip_smoke.py`` runs it
 (``HostSPMDTrainer`` at walker_r2d2's width on the host stand-in env,
-sequential over NCCL, overlapped, pipelined; any failed check raises).
+sequential over NCCL, overlapped, pipelined, and pipelined over a mesh of
+one twice from one state; any failed check raises).  With
+``--pendulum-pipelined`` it then runs ``chip_smoke.py``'s pipelined
+pendulum_r2d2 leg (``train.main --pipeline 1 --phases 40``).
 With ``--fleet N`` it then runs the ``fleet_f32`` leg and N times the
 ``fleet_autoscale`` leg, each printing its ``<label>_drain_stalls`` record
 (where every drain-learn iteration of 0.5 s or more spent its time, and
@@ -47,6 +51,8 @@ def main() -> int:
                    help="comma-separated actor intra-op thread counts, one "
                    "fleet_autoscale run each")
     p.add_argument("--skip-hybrid", action="store_true")
+    p.add_argument("--pendulum-pipelined", action="store_true",
+                   help="then chip_smoke.py's pipelined pendulum_r2d2 leg")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("hybrid_legs: no CUDA card available", file=sys.stderr)
@@ -60,6 +66,8 @@ def main() -> int:
     launches, seconds, failed = {}, {}, {}
     legs = [] if args.skip_hybrid else [("hybrid1", lambda: cs._hybrid1_leg(torch, dev),
                                           False)]
+    if args.pendulum_pipelined:
+        legs.append(("pipelined", lambda: cs._pipelined_phase(torch, dev), False))
 
     # torch's own default intra-op thread count in this process, before any
     # child is given another.

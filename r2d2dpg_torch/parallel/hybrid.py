@@ -34,7 +34,8 @@ The schedules are JAX's:
 - ``_stride_loop``: per step act, fetch the actions, the optional
   ``on_step(t)`` hook, ``host_step``, the results back in; then one absorb
   of the phase.  The pipelined executor's collector thread runs it on its
-  own modules (``training/pipeline.py``).
+  own modules (``training/pipeline.py``), with this rank's episode sums
+  kept local: the collector calls no collective at any world size.
 - ``_host_collect(learn=True)`` (``overlap_learner``): the phase's learner
   steps are dispatched one at a time after step ``t``'s actions reached the
   host and before its physics, spread so that update ``sub`` goes at the
@@ -160,8 +161,7 @@ class HostSPMDTrainer(MeshState, Trainer):
         return sigmas[self.mesh.block(g.num_envs)]
 
     def _psum(self, x: torch.Tensor) -> torch.Tensor:
-        # At one rank the sum is the identity; skipping it keeps the
-        # pipelined collector thread free of collectives.
+        # At one rank the sum is the identity, and skipping it costs no call.
         return x if self.num_devices == 1 else self.mesh.psum_(x)
 
     def _pmean(self, metrics: Metrics) -> Metrics:
@@ -204,7 +204,10 @@ class HostSPMDTrainer(MeshState, Trainer):
         fetch, the optional ``on_step(t)`` hook, the host step and the
         results' one copy back; then one absorb of the phase.  ``state`` is
         a ``TrainerState`` or the pipelined collector's ``CollectorState``;
-        only the env-side fields and the draws are read."""
+        only the env-side fields and the draws are read.  The collector
+        passes its own ``nets``; it then absorbs this rank's episode sums
+        unsummed and calls no collective."""
+        local = nets is not None
         if nets is None:
             nets = (self.agent.actor, self.agent.critic)
         draws = self._lane_draws(state.draws)
@@ -231,7 +234,7 @@ class HostSPMDTrainer(MeshState, Trainer):
             obs, reset = ts.obs, ts.reset
         with annotate("hybrid/absorb"):
             return self._absorb(state, records, env_state, obs, reset, a_carry,
-                                c_carry, noise_st)
+                                c_carry, noise_st, local=local)
 
     def _host_collect(
         self, state: TrainerState, learn: bool = False

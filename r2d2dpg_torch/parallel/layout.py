@@ -62,11 +62,20 @@ def _map(node: Any, path: Path, fn: Callable[[Any, Path], Any]) -> Any:
     return node
 
 
+_CHECKSUM_PERIOD = 65521  # the position weights are 1 + position % this
+
+
 def _checksum(x: torch.Tensor) -> torch.Tensor:
-    """Two int64 sums over ``x``'s bytes (plain and position-weighted)."""
-    b = x.detach().contiguous().reshape(-1).view(torch.uint8).to(torch.int64)
-    w = torch.arange(b.numel(), device=b.device) % 65521 + 1
-    return torch.stack([b.sum(), (b * w).sum()])
+    """Two int64 sums over ``x``'s bytes: plain, and weighted by ``1 +
+    position % 65521``.  The bytes are summed by column of rows of 65521
+    (no widened copy: a replicated arena is a GB), then weighted."""
+    b = x.detach().contiguous().reshape(-1).view(torch.uint8)
+    full = b.numel() - b.numel() % _CHECKSUM_PERIOD
+    w = torch.arange(1, _CHECKSUM_PERIOD + 1, dtype=torch.int64, device=b.device)
+    cols = b[:full].view(-1, _CHECKSUM_PERIOD).sum(dim=0, dtype=torch.int64)
+    tail = b[full:].to(torch.int64)
+    return torch.stack([cols.sum() + tail.sum(),
+                        (cols * w).sum() + (tail * w[:tail.numel()]).sum()])
 
 
 class MeshState:

@@ -6,9 +6,15 @@ inside one warp and across warps of the kernel's block, so the CPU tests
 kernel to the same patterns.  ``HostStandInEnv`` is a host-stepped env
 with walker-walk's spec and fixed numpy dynamics, which drives the
 host-pool trainer (``parallel/hybrid.py``) where there is no MuJoCo.
+``count_collectives`` counts the ``torch.distributed`` collectives each
+thread calls, which shows that the pipelined collector calls none.
 """
 
 from __future__ import annotations
+
+import collections
+import contextlib
+import threading
 
 import numpy as np
 
@@ -133,3 +139,35 @@ class HostStandInEnv:
 def stand_in_factory(seed: int = 0):
     """An ``ExperimentConfig.env_factory`` (``(device) -> env``) of the stand-in."""
     return lambda device: HostStandInEnv(seed, device)
+
+
+# Every ``torch.distributed`` collective the port calls (``parallel/mesh.py``,
+# ``obs/registry.py``).
+COLLECTIVES = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+               "reduce_scatter_tensor", "gather", "barrier")
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """While the block runs, count the collectives by the calling thread's
+    name: yields a ``Counter`` of ``{thread name: calls}``."""
+    import torch.distributed as dist
+
+    counts: collections.Counter = collections.Counter()
+    lock = threading.Lock()
+    saved = {name: getattr(dist, name) for name in COLLECTIVES}
+
+    def counting(fn):
+        def call(*args, **kwargs):
+            with lock:
+                counts[threading.current_thread().name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(dist, name, counting(fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)

@@ -26,10 +26,6 @@ rows differ from the JAX table on purpose in these places:
 - ``pipeline-x-phase-subsystems`` is narrowed to ``--profile-phases``: the
   port's pipeline runs ``--resume`` and ``--eval-every``.  Its message
   names only that flag.
-- ``multiprocess-not-yet-ported`` is the port's own: a world of more than
-  one process refuses ``--pipeline``.  The pipelined executor's collector
-  and learner threads would both call collectives on the one process
-  group, which needs an order across ranks that is not ported.
 
 ``Refusal.processes`` is the process count a row's ``argv`` needs to fire
 (the multi-process rows are pinned through ``validate`` with it).
@@ -500,20 +496,6 @@ REFUSALS: Tuple[Refusal, ...] = (
         ),
         match="not wired on multi-process",
         argv=("--obs-fleet", "1", "--pipeline", "1", "--spmd", "2"),
-        processes=2,
-    ),
-    # ------------------------------------------------- the port's own row
-    Refusal(
-        key="multiprocess-not-yet-ported",
-        when=lambda a, np: bool(np > 1 and a.pipeline),
-        reason=(
-            "--pipeline 1 is not ported to multi-process runs yet: its "
-            "collector and learner threads would both call collectives on "
-            "one process group, which needs a cross-rank order that is not "
-            "ported; run it at world size 1"
-        ),
-        match="not ported to multi-process",
-        argv=("--spmd", "2", "--pipeline", "1"),
         processes=2,
     ),
 )

@@ -61,7 +61,11 @@ streams on a card.  It saves the final checkpoint only (a periodic
 ``--checkpoint-every`` says so and falls back), runs no in-run evals, and
 prints one ``pipeline:`` stats line at the end.  ``--trace-sample RATE``
 records that share of its staged batches' hops (collect, enqueue,
-arena_add, learn) into ``<logdir>/trace.json``.
+arena_add, learn) into ``<logdir>/trace.json``.  With a DM-Control config
+under ``--spmd D`` it runs over the host-pool trainer in a world of D
+ranks: every rank runs the executor (its collector calls no collective),
+rank 0 prints, logs and writes the trace and the final checkpoint (the
+global state), and every rank meets at a barrier after that save.
 
 ``--actors N`` makes this process the learner of an actor fleet
 (``fleet/``): an ingest server feeds a staging queue, a supervisor owns N
@@ -538,10 +542,11 @@ def _poison_actor_params(train):
 
 
 def _abort_on_divergence(e, flight, flight_path, ckpt) -> None:
-    """Watchdog trip: dump the flight ring, name the last checkpoint on
-    disk, exit with code 2."""
+    """Watchdog trip: dump the flight ring (rank 0's), name the last
+    checkpoint on disk, exit with code 2.  On a mesh every rank trips at
+    the same phase (the metrics are mesh means) and exits 2."""
     flight.record("abort", reason=str(e), step=e.step)
-    dumped = flight.dump(flight_path)
+    dumped = flight.dump(flight_path) if distributed.is_primary() else "rank 0's"
     if ckpt is not None and ckpt.latest_step is not None:
         # The watchdog reads learner outputs once per log cadence, so a
         # save inside the last cadence may already carry the divergence.
@@ -557,8 +562,8 @@ def _abort_on_divergence(e, flight, flight_path, ckpt) -> None:
     raise SystemExit(2)
 
 
-def _make_executor_metrics_fn(logger, watchdog, num_phases):
-    """The pipelined executor's log hook: print the phase-locked loop's
+def _make_executor_metrics_fn(logger, watchdog, num_phases, say=print):
+    """The pipelined executor's log hook: ``say`` the phase-locked loop's
     line, fold rates into the CSV row, and give the watchdog the raw
     (pre-rates) scalars."""
 
@@ -567,11 +572,11 @@ def _make_executor_metrics_fn(logger, watchdog, num_phases):
         watch = dict(scalars)
         learn = {k: v for k, v in scalars.items() if k not in (
             "episode_return_mean", "episodes", "env_steps", "learner_steps")}
-        print(f"phase {phase}/{num_phases} "
-              f"env_steps {int(scalars['env_steps'])} "
-              f"return {scalars['episode_return_mean']:.1f} "
-              f"({int(scalars['episodes'])} eps) "
-              + " ".join(f"{k} {v:.3g}" for k, v in learn.items()), flush=True)
+        say(f"phase {phase}/{num_phases} "
+            f"env_steps {int(scalars['env_steps'])} "
+            f"return {scalars['episode_return_mean']:.1f} "
+            f"({int(scalars['episodes'])} eps) "
+            + " ".join(f"{k} {v:.3g}" for k, v in learn.items()), flush=True)
         if logger is not None:
             scalars.update(logger.rates(
                 env_steps=scalars.get("env_steps", 0.0),
@@ -583,10 +588,10 @@ def _make_executor_metrics_fn(logger, watchdog, num_phases):
     return metrics_fn
 
 
-def _fold_executor_stats(prefix: str, stats: dict) -> None:
+def _fold_executor_stats(prefix: str, stats: dict, say=print) -> None:
     """Print an executor's end-of-run stats line."""
     if stats:
-        print(f"{prefix}: " + " ".join(
+        say(f"{prefix}: " + " ".join(
             f"{k} {v:.4g}" for k, v in sorted(stats.items())), flush=True)
 
 
@@ -594,19 +599,24 @@ def _run_pipelined(trainer, state, stop_at, logger, ckpt, args, watchdog,
                    flight, flight_path) -> TrainerState:
     """Drive the run through the pipelined executor (``--pipeline 1``): it
     owns the warm-up -> fill -> train schedule and the log cadence; the
-    final checkpoint is saved when a checkpoint dir is set."""
+    final checkpoint is saved when a checkpoint dir is set.
+
+    On a mesh every rank runs it; rank 0 alone prints, and writes the final
+    checkpoint (the global state), after which every rank meets at a
+    barrier, so a ``--resume`` that follows reads one step on every rank."""
+    say = print if distributed.is_primary() else (lambda *a, **k: None)
     executor = PipelineExecutor(trainer, PipelineConfig(
         enabled=True, queue_depth=args.pipeline_depth,
         trace_sample=args.trace_sample))
     if ckpt is not None and ckpt.save_every > 0:
         # The state is split across two threads mid-run, so periodic saves
         # are not composed with the executor: degrade LOUDLY to -1.
-        print("pipeline: periodic checkpoints not supported with --pipeline 1; "
-              "saving the final checkpoint only (--checkpoint-every -1 "
-              "semantics)", flush=True)
+        say("pipeline: periodic checkpoints not supported with --pipeline 1; "
+            "saving the final checkpoint only (--checkpoint-every -1 "
+            "semantics)", flush=True)
     if args.eval_every:
-        print("pipeline: in-run evals (--eval-every) do not run under "
-              "--pipeline 1", flush=True)
+        say("pipeline: in-run evals (--eval-every) do not run under "
+            "--pipeline 1", flush=True)
     hook = None
     if args.nan_inject_phase is not None:
         k_inject = args.nan_inject_phase
@@ -617,11 +627,14 @@ def _run_pipelined(trainer, state, stop_at, logger, ckpt, args, watchdog,
     try:
         state = executor.run(
             stop_at, state=state, log_every=args.log_every,
-            metrics_fn=_make_executor_metrics_fn(logger, watchdog, stop_at),
+            metrics_fn=_make_executor_metrics_fn(logger, watchdog, stop_at, say),
             minutes=args.minutes, learner_hook=hook)
-        _fold_executor_stats("pipeline", executor.stats())
+        _fold_executor_stats("pipeline", executor.stats(), say)
         if ckpt is not None and ckpt.save_every:
-            ckpt.save_final(state.phase_idx, state)
+            ckpt.save_final(state.phase_idx, state, trainer)
+            mesh = getattr(trainer, "mesh", None)
+            if mesh is not None:
+                mesh.barrier()
     except DivergenceError as e:
         _abort_on_divergence(e, flight, flight_path, ckpt)
     finally:
@@ -953,11 +966,13 @@ def _arm_telemetry(args, flight, primary=True):
     device_mon = obs.get_device_monitor().install()
     device_mon.configure(peak_flops=args.device_peak_flops)
     if args.profile_window is not None:
+        # Every rank captures its own window (files named by pid); rank 0 says so.
         pw_phase, pw_steps = device_mon.arm_profile(
             args.profile_window, os.path.join(args.logdir, "profile_window"))
-        print(f"obs: profiler capture armed for phases "
-              f"{pw_phase}..{pw_phase + pw_steps - 1} -> "
-              f"{args.logdir}/profile_window", flush=True)
+        if primary:
+            print(f"obs: profiler capture armed for phases "
+                  f"{pw_phase}..{pw_phase + pw_steps - 1} -> "
+                  f"{args.logdir}/profile_window", flush=True)
     flight_path = args.flight_path or (
         os.path.join(args.logdir, "flight.jsonl") if args.logdir else "flight.jsonl")
     if (args.logdir or args.flight_path) and primary:

@@ -24,11 +24,17 @@ Contracts, as in the JAX package:
   data-to-update ratio is the phase-locked one.  ``PipelineConfig(
   enabled=False)`` runs train phases through ``Trainer.train_phase`` on the
   calling thread, bitwise equal to ``Trainer.run`` at a fixed seed.
-- **Staleness**: the collector acts with the newest published learner
-  params, refreshed every ``max(param_sync_every, 1)`` collect phases; the
-  queue bound (``queue_depth``) caps how far collection runs ahead, so the
-  behaviour params are at most ``param_sync_every + queue_depth + 1``
-  phases old.
+- **Staleness, one version per phase**: at each refresh phase ``k`` of a
+  section (``k`` from 0, ``k % max(param_sync_every, 1) == 0``) the
+  collector takes the params after ``max(0, k - queue_depth - 1)`` drains
+  of the section and keeps them until the next refresh; each phase's
+  version is recorded (``param_versions``).  The queue bound makes that
+  version out before it is asked for: the collector has put item ``k - 1``,
+  so the learner has taken item ``k - queue_depth - 1`` and published every
+  drain before it.  When the learner is the slower side (the queue full)
+  it is the newest version, which is what JAX's executor takes.  The
+  behaviour params are at most ``param_sync_every + queue_depth`` phases
+  old.
 - **Backpressure**: ``put`` blocks the collector when the learner falls
   ``queue_depth`` phases behind, ``get`` blocks the learner when collection
   is the bottleneck.  Both waits feed registry histograms; ``stats()``
@@ -61,22 +67,37 @@ What eager torch needs that JAX's donation and program order gave:
   generator seeded with ``(s + 0x9E3779B97F4A7C15 * (p + 1)) % 2**63``,
   where ``s`` is the state's generator's ``initial_seed()`` and ``p`` the
   state's phase index.  The state's own stream is not advanced.
-  ``merge_state`` keeps the collector's draws.  A pipelined run is a
-  different, equally valid trajectory from the phase-locked one; the
-  determinism claims attach to ``enabled=False``.
+  ``merge_state`` keeps the collector's draws.  With the version rule
+  above, which params act in which phase is a function of the phase index,
+  not of the threads' timing, so a pipelined run is a function of its seed:
+  bitwise from the same seed, and the same on every rank of a mesh.  It is
+  a different, equally valid trajectory from the phase-locked one, which
+  ``enabled=False`` reproduces bitwise.
 - **Counters.**  ``env_steps`` and ``phase_idx`` are Python ints, so they
   pass through the queue as they are; the drained accumulators are
   replaced with fresh zero tensors, as in JAX.
 - **Collector errors** are re-raised on the calling thread after the join.
 
 Host-driven collection (``HostSPMDTrainer``, ``parallel/hybrid.py``) runs
-at world size 1: the collector thread's ``trainer._collect`` is then the
+at any world size: the collector thread's ``trainer._collect`` is the
 hybrid's host stride loop (``_stride_loop``) on the collector's modules and
-stream, and calls no collective.  At world size > 1 the executor refuses:
-the learner thread's collectives (gradients, the gathered adds and
-priorities) and the collector's would share one process group from two
-threads, which needs an order across ranks that is not ported.
-Shard-map trainers are refused.
+stream.  The two threads share one process group, so the collector calls
+no collective at any world size: it absorbs this rank's episode sums
+unsummed, and the learner thread sums them over the mesh at its log fetch
+(and what is left when the section ends).  Every collective of a section is
+then the learner thread's (the gathered adds, the gradients, the gathered
+priorities, the metrics mean, the log sum, the stop), in one order on every
+rank.
+
+**One stop for every rank.**  Under ``minutes`` each check is
+``trainer._agree(clock >= deadline)``, rank 0's clock on every rank: once
+per warm-up, fill and locked phase, and once per drain on the learner
+thread.  On a stop every rank drops the items still queued, so every rank
+drains the same phases; the state returned is the collector's after the
+last drained phase, its draws rewound there (a host pool has stepped on,
+as it has on a resume).  Without ``minutes`` nothing is added.
+
+Shard-map trainers are refused, with JAX's message.
 """
 
 from __future__ import annotations
@@ -262,6 +283,14 @@ def _on(stream) -> contextlib.AbstractContextManager:
     return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
 
 
+def _expiry(trainer: Trainer, deadline: Optional[float]) -> Callable[[], bool]:
+    """The stop check of a run: rank 0's ``clock >= deadline`` on every
+    rank (one ``_agree``), or always False without a deadline."""
+    if deadline is None:
+        return lambda: False
+    return lambda: trainer._agree(time.monotonic() >= deadline)
+
+
 def _hand_over(tree, consumer) -> Optional["torch.cuda.Event"]:
     """Hand ``tree``'s tensors from this thread's current stream to
     ``consumer``: each is marked in use there (``record_stream``), and the
@@ -284,45 +313,59 @@ def _take(event) -> None:
 
 
 class _ParamBox:
-    """Latest learner-published behaviour params, swapped under a lock,
-    with the event that makes them ready on the collector's stream."""
+    """The learner's published behaviour params by version (drains done in
+    the section), the newest ``keep`` of them, each ``(actor, critic,
+    event)`` with the event that makes it ready on the collector's stream."""
 
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._params = (None, None, None)
+    def __init__(self, keep: int):
+        self._cond = threading.Condition()
+        self._ring: Dict[int, tuple] = {}
+        self._keep = keep
 
-    def publish(self, actor, critic, event) -> None:
-        with self._lock:
-            self._params = (actor, critic, event)
+    def publish(self, version: int, actor, critic, event) -> None:
+        with self._cond:
+            self._ring[version] = (actor, critic, event)
+            for old in [v for v in self._ring if v <= version - self._keep]:
+                del self._ring[old]
+            self._cond.notify_all()
 
-    def snapshot(self):
-        with self._lock:
-            return self._params
+    def take(self, version: int, stop: threading.Event) -> Tuple[Optional[tuple], bool]:
+        """``(snapshot, waited)`` of ``version``, waiting while it is not
+        out yet; the snapshot is None when ``stop`` is set first."""
+        waited = False
+        with self._cond:
+            while version not in self._ring:
+                if self._ring and min(self._ring) > version:
+                    raise RuntimeError(
+                        f"param version {version} left the ring "
+                        f"({sorted(self._ring)})")
+                if stop.is_set():
+                    return None, waited
+                waited = True
+                self._cond.wait(0.2)
+            return self._ring[version], waited
 
 
 class PipelineExecutor:
     """Drives a trainer's phase schedule with collect and learn overlapped.
 
-    Works with the base ``Trainer`` and, at world size 1, with the
-    host-driven ``HostSPMDTrainer``.  Shard-map trainers (``axis`` set) are
-    refused.  Warm-up and
+    Works with the base ``Trainer`` and with the host-driven
+    ``HostSPMDTrainer`` at any world size.  Shard-map trainers (``axis``
+    set) are refused.  Warm-up and
     replay-fill phases run phase-locked on the calling thread: the learner
     has nothing to do until replay holds ``min_replay`` sequences.
+
+    After a pipelined section ``param_versions`` holds the version each
+    collect phase acted with and ``version_waits`` how many refreshes had to
+    wait for theirs (the version rule says none).
     """
 
     def __init__(self, trainer: Trainer, config: PipelineConfig = PipelineConfig()):
         if getattr(trainer, "axis", None) is not None:
             raise ValueError(
                 "PipelineExecutor needs a host-visible collect/learn "
-                "boundary; shard_map trainers fuse whole phases — use the "
-                "base Trainer"
-            )
-        if hasattr(trainer, "_host_collect") and trainer.mesh.size > 1:
-            raise ValueError(
-                "PipelineExecutor: host-driven collection runs at world size "
-                f"1 only (got {trainer.mesh.size}): two threads calling "
-                "collectives on one process group need a cross-rank order, "
-                "which is not ported"
+                "boundary; shard_map trainers (SPMDTrainer) fuse whole "
+                "phases — use the base Trainer or HostSPMDTrainer"
             )
         if config.queue_depth < 1:
             raise ValueError("queue_depth must be >= 1")
@@ -349,8 +392,8 @@ class PipelineExecutor:
             staged = StagedSequences(seq=emit(cstate.window))
         return cstate, staged
 
-    def _publish(self, box, train, phase=-1, record=True, consumer=None):
-        """Publish the learner's behaviour params to the collector.
+    def _publish(self, box, version, train, phase=-1, record=True, consumer=None):
+        """Publish the learner's behaviour params after ``version`` drains.
 
         Every drain publishes, even when the collector reads only every
         ``param_sync_every``-th phase, so publication adds no age to the
@@ -359,7 +402,7 @@ class PipelineExecutor:
         log cadence)."""
         actor = train.actor_params
         critic = self.trainer.agent.behavior_critic_params(train)
-        box.publish(actor, critic, _hand_over((actor, critic), consumer))
+        box.publish(version, actor, critic, _hand_over((actor, critic), consumer))
         if record:
             flight_event("param_publish", phase=phase)
         return actor
@@ -384,6 +427,8 @@ class PipelineExecutor:
         self.learner_wait.reset()
         self.collect_wait.reset()
         self._stats: Dict[str, float] = {}
+        self.param_versions: list = []
+        self.version_waits = 0
 
     def stats(self) -> Dict[str, float]:
         """Instrumentation of the most recent pipelined section.
@@ -411,12 +456,14 @@ class PipelineExecutor:
 
         ``metrics_fn(phase, scalars)``, when given, receives the log
         scalars instead of ``log_fn`` a formatted line.  ``minutes`` bounds
-        the wall clock: no phase starts once it is spent.
+        the wall clock: no phase starts once it is spent, by rank 0's clock
+        (module docstring, "One stop for every rank").
         ``learner_hook(n, train)`` runs on the learner after its n-th train
         phase and returns the train state to go on with (fault drills)."""
         t = self.trainer
         state = t.init() if state is None else state
         deadline = time.monotonic() + minutes * 60 if minutes is not None else None
+        expired = _expiry(t, deadline)
         warm, fill = t.window_fill_phases, t.replay_fill_phases
         locked_until = min(num_phases, warm + fill)
 
@@ -433,8 +480,10 @@ class PipelineExecutor:
             )
 
         phase = state.phase_idx
+        stopped = False
         while phase < locked_until:
-            if deadline is not None and time.monotonic() >= deadline:
+            if expired():
+                stopped = True
                 break
             if phase < warm:
                 with annotate("pipeline/warmup_phase"):
@@ -447,9 +496,9 @@ class PipelineExecutor:
                 state, ep = t.pop_episode_metrics(state)
                 emit_log(phase, ep, {})
 
-        if phase < num_phases and (deadline is None or time.monotonic() < deadline):
+        if phase < num_phases and not stopped and not expired():
             run = self._run_pipelined if self.config.enabled else self._run_locked
-            state = run(state, phase, num_phases, log_every, emit_log, deadline,
+            state = run(state, phase, num_phases, log_every, emit_log, expired,
                         learner_hook)
         return state
 
@@ -466,10 +515,10 @@ class PipelineExecutor:
             ))
 
         run = self._run_pipelined if self.config.enabled else self._run_locked
-        return run(state, 0, n, log_every, emit_log, None, None)
+        return run(state, 0, n, log_every, emit_log, _expiry(self.trainer, None), None)
 
     def _run_locked(
-        self, state, phase, num_phases, log_every, emit_log, deadline, learner_hook
+        self, state, phase, num_phases, log_every, emit_log, expired, learner_hook
     ) -> TrainerState:
         """The phase-locked control schedule: ``Trainer.train_phase`` with
         ``Trainer.run``'s cadence (the bitwise anchor)."""
@@ -477,7 +526,7 @@ class PipelineExecutor:
         last_metrics: Dict[str, torch.Tensor] = {}
         done = 0
         while phase < num_phases:
-            if deadline is not None and time.monotonic() >= deadline:
+            if expired():
                 break
             with annotate("trainer/train_phase"):
                 state, last_metrics = t.train_phase(state)
@@ -493,7 +542,7 @@ class PipelineExecutor:
         return state
 
     def _run_pipelined(
-        self, state, phase0, num_phases, log_every, emit_log, deadline, learner_hook
+        self, state, phase0, num_phases, log_every, emit_log, expired, learner_hook
     ) -> TrainerState:
         t = self.trainer
         cfg = self.config
@@ -511,38 +560,54 @@ class PipelineExecutor:
         else:
             learner_stream = collector_stream = caller = None
         cstate, lstate = split_state(state)
-        box = _ParamBox()
+        if getattr(getattr(t, "mesh", None), "rank", 0):
+            # The accumulators come in summed over the mesh, and the
+            # collector's are its rank's own: rank 0 carries the sums that
+            # came in, the other ranks start from zero.
+            with _on(collector_stream):
+                zero = torch.zeros((), device=t.device)
+                cstate = dataclasses.replace(
+                    cstate, completed_return_sum=zero, completed_count=zero.clone())
+        box = _ParamBox(keep=cfg.queue_depth + 2)
         with _on(learner_stream):
-            self._publish(box, lstate.train, phase0, consumer=collector_stream)
+            self._publish(box, 0, lstate.train, phase0, consumer=collector_stream)
         q: queue.Queue = queue.Queue(maxsize=cfg.queue_depth)
         # Live depth at scrape time; rebound to 0 when the section ends.
         self._obs_queue_depth.set_fn(q.qsize)
         stop = threading.Event()
         collector_err: list = []
-        result: Dict[str, Any] = {}
         sync_every = max(t.config.param_sync_every, 1)
+        versions = self.param_versions
 
         def collector() -> None:
             cs = cstate
             mon.label_thread("pipeline_collect")
             try:
                 with _on(collector_stream):
-                    behavior, critic, event = box.snapshot()
-                    _take(event)
                     for k in range(n_train):
                         if stop.is_set():
                             break
-                        if deadline is not None and time.monotonic() >= deadline:
-                            break
-                        if k and k % sync_every == 0:
-                            behavior, critic, event = box.snapshot()
+                        gphase = phase0 + k + 1
+                        if k % sync_every == 0:
+                            # The version rule (module docstring).
+                            version = max(0, k - cfg.queue_depth - 1)
+                            t_wait = time.monotonic()
+                            snap, waited = box.take(version, stop)
+                            if snap is None:
+                                break
+                            if waited:
+                                self.version_waits += 1
+                                flight_event(
+                                    "param_wait", phase=gphase, version=version,
+                                    seconds=round(time.monotonic() - t_wait, 3))
+                            behavior, critic, event = snap
                             _take(event)
+                        versions.append(version)
                         tr = obs_trace.maybe_start(cfg.trace_sample)
                         with annotate("pipeline/collect"):
                             cs, staged = self._collect_phase_pipelined(
                                 cs, behavior, critic
                             )
-                        gphase = phase0 + k + 1
                         ep_refs = None
                         if log_every and gphase % log_every == 0:
                             # The collector owns the episode accumulators:
@@ -571,7 +636,9 @@ class PipelineExecutor:
                                 "collect", tr.t_collect_start, tr.t_collect_end,
                                 tr.trace_id,
                             )
-                        item = (gphase, staged, ep_refs, tr, event)
+                        gen = getattr(cs.draws, "generator", None)
+                        item = (gphase, staged, ep_refs, tr, event, cs,
+                                None if gen is None else gen.get_state())
                         t_wait = time.monotonic()
                         while not stop.is_set():
                             try:
@@ -589,13 +656,15 @@ class PipelineExecutor:
             except BaseException as e:  # re-raised on the calling thread
                 collector_err.append(e)
             finally:
-                result["cstate"] = cs
                 q.put(None)
 
         thread = threading.Thread(target=collector, name="pipeline-collector", daemon=True)
         t0 = time.monotonic()
         thread.start()
         ls = lstate
+        # The collector's state after the last drained phase, and its draws'.
+        gen = getattr(cstate.draws, "generator", None)
+        kept = (cstate, None if gen is None else gen.get_state())
         behavior_final = None
         drained = 0
         try:
@@ -610,9 +679,10 @@ class PipelineExecutor:
                             "queue_stall", side="learner",
                             phase=phase0 + drained + 1, seconds=round(waited, 3),
                         )
-                    if item is None:
-                        break
-                    gphase, staged, ep_refs, tr, event = item
+                    if item is None or expired():
+                        break  # a stop: every rank drops what is queued
+                    gphase, staged, ep_refs, tr, event, *after = item
+                    kept = tuple(after)
                     _take(event)
                     t_dequeue = time.time()
                     mon.on_phase(drained + 1)
@@ -644,18 +714,20 @@ class PipelineExecutor:
                         obs_trace.record_hop(
                             "learn", t_dispatch_end, time.time(), tr.trace_id)
                     behavior_final = self._publish(
-                        box, ls.train, gphase, record=ep_refs is not None,
-                        consumer=collector_stream,
+                        box, drained + 1, ls.train, gphase,
+                        record=ep_refs is not None, consumer=collector_stream,
                     )
                     drained += 1
                     if drained == 1:
                         mon.mark_steady()
                     if ep_refs is not None:
-                        # ONE fetch per log cadence: episode stats, the
-                        # arena's priority sum and the phase's learn metrics.
+                        # ONE fetch per log cadence: the episode sums over
+                        # the mesh (this thread's one sum), the arena's
+                        # priority sum and the phase's learn metrics.
                         with mon.expected("log_fetch"):
                             env_steps, ret_sum, count = ep_refs
                             names = list(metrics)
+                            ret_sum, count = t._psum(torch.stack([ret_sum, count]))
                             fetched = torch.stack(
                                 [ret_sum, count, ls.arena.priority.sum()]
                                 + [metrics[k].float() for k in names]
@@ -690,8 +762,7 @@ class PipelineExecutor:
             if caller is not None:
                 caller.wait_stream(learner_stream)
                 caller.wait_stream(collector_stream)
-            _hand_over((dataclasses.replace(result.get("cstate", cstate), draws=None),
-                        ls.train), caller)
+            _hand_over((dataclasses.replace(kept[0], draws=None), ls.train), caller)
         if collector_err:
             raise collector_err[0]
         if learner_stream is not None:
@@ -712,4 +783,12 @@ class PipelineExecutor:
             "overlap_fraction": min(max(1.0 - lw_total / wall, 0.0), 1.0),
             **mon.run_stats(),
         }
-        return merge_state(state, result["cstate"], ls, behavior_final)
+        cs, draw_state = kept
+        if draw_state is not None:
+            cs.draws.generator.set_state(draw_state)
+        # What the collector absorbed since the last log, over the mesh.
+        ret_sum, count = t._psum(torch.stack(
+            [cs.completed_return_sum, cs.completed_count]))
+        cs = dataclasses.replace(cs, completed_return_sum=ret_sum,
+                                 completed_count=count)
+        return merge_state(state, cs, ls, behavior_final)

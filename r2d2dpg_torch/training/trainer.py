@@ -380,14 +380,21 @@ class Trainer:
             )
             obs, reset = ts.obs, ts.reset
         return self._absorb(state, records, env_state, obs, reset, a_carry,
-                            c_carry, noise_st)
+                            c_carry, noise_st, local=nets is not None)
 
     def _absorb(
-        self, state, records, env_state, obs, reset, a_carry, c_carry, noise_st
+        self, state, records, env_state, obs, reset, a_carry, c_carry, noise_st,
+        local: bool = False,
     ):
         """Fold one phase's ``stride`` step records into the state: the
         episode bookkeeping, the window shift and the counters.  A step's
-        done flag is the next step's reset flag (``reset`` after the last)."""
+        done flag is the next step's reset flag (``reset`` after the last).
+
+        The finished-episode sums are summed over the mesh (``_psum``),
+        unless ``local``: the pipelined collector keeps this rank's own sums
+        and calls no collective (the learner thread sums them at its log
+        fetch, ``training/pipeline.py``)."""
+        psum = (lambda x: x) if local else self._psum
         ep_ret = state.episode_return
         comp_sum, comp_cnt = [], []
         dones = [r.reset for r in records[1:]] + [reset]
@@ -409,9 +416,9 @@ class Trainer:
             env_steps=state.env_steps + cfg.stride * self.global_envs,
             episode_return=ep_ret,
             completed_return_sum=state.completed_return_sum
-            + self._psum(torch.stack(comp_sum).sum()),
+            + psum(torch.stack(comp_sum).sum()),
             completed_count=state.completed_count
-            + self._psum(torch.stack(comp_cnt).sum().to(torch.float32)),
+            + psum(torch.stack(comp_cnt).sum().to(torch.float32)),
             window=shift_in(state.window, stack_steps(records)),
             phase_idx=state.phase_idx + 1,
         )

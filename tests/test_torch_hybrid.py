@@ -37,7 +37,9 @@ walker-walk pool at action repeat 2):
   ``build_spmd`` and ``build_dp_learner``'s for ``overlap_learner``).
 - The pipelined executor over the host-pool trainer at world size 1: the
   off anchor bitwise ``Trainer.run``, counters, moved priorities, finite
-  metrics, the collector on its own modules; refused at world size 2.
+  metrics, the collector on its own modules, each phase's param version
+  ``max(0, k - d - 1)``; taken at world size 2 (D = 2 and 4 run in
+  ``tests/test_torch_hybrid_pipeline.py``).
 """
 
 import dataclasses
@@ -476,9 +478,9 @@ def test_pipeline_over_the_hybrid_at_world_size_1():
     stats = ex.stats()
     assert stats["train_phases"] == 3 and 0.0 <= stats["overlap_fraction"] <= 1.0
     assert ex.trainer._obs_host_step.count >= n * tc.stride
-    # At a world of 2 the collector's and the learner's collectives would
-    # share one process group from two threads.
+    assert ex.param_versions == [0, 0, 0] and ex.version_waits == 0
+    # At a world of 2 the collector calls no collective, so the executor
+    # takes the trainer (tests/test_torch_hybrid_pipeline.py runs it).
     two = HostSPMDTrainer(t.env, cfg.build_agent(t.env), cfg.trainer,
                           Mesh(size=2, rank=0, device=torch.device("cpu")))
-    with pytest.raises(ValueError, match="world size 1 only"):
-        PipelineExecutor(two)
+    assert PipelineExecutor(two).trainer is two

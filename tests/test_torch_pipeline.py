@@ -387,15 +387,21 @@ def test_collector_error_surfaces_on_the_caller():
 
 
 def test_executor_refuses_shard_map_and_host_driven_trainers():
-    with pytest.raises(ValueError, match="shard_map"):
+    """Shard-map trainers are refused with JAX's message, word for word;
+    a host-driven trainer is taken at any world size (its collector calls
+    no collective: tests/test_torch_hybrid_pipeline.py runs D = 2 and 4)."""
+    with pytest.raises(ValueError, match="shard_map") as got:
         PipelineExecutor(types.SimpleNamespace(axis="dp"))
-    # Host-driven collection runs at world size 1 (test_torch_hybrid.py);
-    # at a world of 2 its two threads would share one process group.
-    with pytest.raises(ValueError, match="host-driven"):
-        PipelineExecutor(types.SimpleNamespace(axis=None, _host_collect=None,
-                                               mesh=types.SimpleNamespace(size=2)))
+    with pytest.raises(ValueError) as want:
+        JPipelineExecutor(types.SimpleNamespace(axis="dp"))
+    assert str(got.value) == str(want.value)
+    assert "(SPMDTrainer)" in str(got.value) and "or HostSPMDTrainer" in str(got.value)
+    t = PENDULUM_TINY.build("cpu")
+    host_driven = types.SimpleNamespace(axis=None, _host_collect=None, agent=t.agent,
+                                        mesh=types.SimpleNamespace(size=2))
+    assert PipelineExecutor(host_driven).trainer is host_driven
     with pytest.raises(ValueError, match="queue_depth"):
-        PipelineExecutor(PENDULUM_TINY.build("cpu"), PipelineConfig(queue_depth=0))
+        PipelineExecutor(t, PipelineConfig(queue_depth=0))
 
 
 # ---------------------------------------------------------------------- CLI

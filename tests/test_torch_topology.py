@@ -4,8 +4,9 @@
   real train CLI at one process; through ``validate`` at the row's
   ``processes``) with the JAX row's message, exactly.  The exceptions are
   pinned on their own: ``pipeline-x-phase-subsystems`` (narrowed to
-  ``--profile-phases``), ``pipeline-x-nan-inject`` (no port row) and the
-  port-only ``multiprocess-not-yet-ported``.
+  ``--profile-phases``) and ``pipeline-x-nan-inject`` (no port row).  The
+  port has no row of its own: ``--pipeline 1`` runs in a world of D
+  processes, and ``describe()`` gives JAX's stamp there.
 - ``resolve`` and ``describe()`` equal JAX's, letter for letter, on a grid
   of flag sets; the value checks give JAX's messages.
 - The world-size rule: ``--spmd D`` / ``--learner-dp D`` need D processes.
@@ -23,7 +24,6 @@ from r2d2dpg_torch import topology, train
 
 J_ROWS = {r.key: r for r in jtopology.REFUSALS}
 NARROWED = {"pipeline-x-phase-subsystems"}
-PORT_ONLY = {"multiprocess-not-yet-ported"}
 NOT_IN_PORT = {"pipeline-x-nan-inject"}
 
 
@@ -48,9 +48,7 @@ def test_refusal_table_pins_every_row(rule):
         assert not rule.when(_port_args(*rule.argv), 1)
     assert str(e.value) == rule.reason
     assert rule.match in rule.reason
-    if rule.key in PORT_ONLY:
-        assert rule.key not in J_ROWS
-    elif rule.key not in NARROWED:
+    if rule.key not in NARROWED:
         assert rule.reason == J_ROWS[rule.key].reason
         assert rule.match == J_ROWS[rule.key].match
 
@@ -58,7 +56,7 @@ def test_refusal_table_pins_every_row(rule):
 def test_table_differs_from_jax_only_where_named():
     port = {r.key for r in topology.REFUSALS}
     assert set(J_ROWS) - port == NOT_IN_PORT
-    assert port - set(J_ROWS) == PORT_ONLY
+    assert port - set(J_ROWS) == set()  # no row of the port's own
     # Same order as the JAX table for the shared rows.
     shared = [k for k in J_ROWS if k in port]
     assert [r.key for r in topology.REFUSALS if r.key in J_ROWS] == shared
@@ -80,14 +78,34 @@ def test_narrowed_and_dropped_rows():
 
 
 def test_multiprocess_row_names_each_flag_left_out():
-    """The port-only row refuses ``--pipeline`` at a world of 2 and nothing
-    else: the fleet, checkpoints, resume and evals run there."""
-    row = topology.REFUSALS[-1]
-    assert row.key == "multiprocess-not-yet-ported"
-    assert "cross-rank order" in row.reason and "--pipeline 1" in row.reason
-    with pytest.raises(SystemExit, match="not ported to multi-process"):
-        topology.validate(_port_args("--spmd", "2", "--pipeline", "1"), process_count=2)
-    assert not row.when(_port_args("--pipeline", "1"), 1)
+    """No row refuses a world of 2 processes on its own: ``--spmd 2
+    --pipeline 1`` (walker_r2d2, with the lifecycle flags) resolves to
+    JAX's stamp at ``process_count=2``, the fleet, checkpoints, resume and
+    evals run there, and the rows that still meet ``--pipeline`` at D = 2
+    are JAX's, with JAX's messages."""
+    assert not any(r.processes > 1 and r.key not in J_ROWS for r in topology.REFUSALS)
+    for config in ("walker_r2d2", "pendulum_tiny"):
+        for argv in ((), ("--minutes", "1"),
+                     ("--checkpoint-dir", "d", "--trace-sample", "0.5")):
+            argv = ("--config", config, "--spmd", "2", "--pipeline", "1", *argv)
+            got = topology.validate(train.parse_args(list(argv)), process_count=2)
+            want = jtopology.validate(jtrain.parse_args(list(argv)), process_count=2)
+            assert got.describe() == want.describe()
+            assert got.schedule == "pipelined_overlap" and got.learn == "spmd_mesh"
+    # The port's own pipeline pairings (JAX refuses them at any world size).
+    for argv in (("--nan-inject-phase", "1"), ("--checkpoint-dir", "d", "--resume"),
+                 ("--eval-every", "5")):
+        got = topology.validate(_port_args("--spmd", "2", "--pipeline", "1", *argv),
+                                process_count=2)
+        assert got.schedule == "pipelined_overlap"
+    for argv in (("--learner-dp", "2", "--pipeline", "1"),
+                 ("--actors", "2", "--learner-dp", "2", "--pipeline", "1"),
+                 ("--obs-fleet", "1", "--pipeline", "1", "--spmd", "2")):
+        with pytest.raises(SystemExit) as got:
+            topology.validate(_port_args(*argv), process_count=2)
+        with pytest.raises(SystemExit) as want:
+            jtopology.validate(_jax_args(*argv), process_count=2)
+        assert str(got.value) == str(want.value)
     # (--actors pairs with --learner-dp: --spmd has a JAX row of its own.)
     for mesh, argv in ((("--learner-dp", "2"), ("--actors", "2")),
                        (("--learner-dp", "2"), ("--actors", "2", "--replay-shards", "2")),
