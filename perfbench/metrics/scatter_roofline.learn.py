@@ -1,0 +1,7 @@
+"""The priority scatter's share of its memory roofline over the traced learner steps, in %."""
+
+from perfbench import readers
+
+
+def read(ctx):
+    return readers.scatter_roofline(ctx)
