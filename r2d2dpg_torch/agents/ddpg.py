@@ -36,6 +36,12 @@ the critic and actor gradients over the agent's ``mesh``
 (``parallel/mesh.py``) before the clip and Adam, where the JAX step calls
 ``lax.pmean``.  Each net's gradients travel as one flattened buffer, so a
 step costs two collectives.
+
+``learner_step``'s parts are sibling spans (``utils/profiling.py``):
+``learner/burn_in``, ``learner/targets``, ``learner/critic_forward``,
+``learner/critic_backward``, ``learner/actor_forward``,
+``learner/actor_backward``, ``learner/optimize`` (clip, both Adams, both
+Polyaks) and ``learner/priorities`` (priorities and the metrics).
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ from r2d2dpg_torch.ops import (
 )
 from r2d2dpg_torch.replay.arena import SequenceBatch
 from r2d2dpg_torch.tree import tree_map
+from r2d2dpg_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -411,19 +418,21 @@ class R2D2DPG:
         cfg = self.config
         U = cfg.unroll
         twin = cfg.twin_critic
-        ca_on, ca_tg, cc_on, cc_tg = self._burn_in(state, batch)
-        obs_w, act_w, reset_w = self._window(batch)
-        eps_w = None
-        if cfg.target_policy_sigma > 0:
-            if normal is None or normal.shape != act_w.shape:
-                raise ValueError(
-                    "AgentConfig.target_policy_sigma > 0 requires "
-                    f"learner_step(..., normal=<standard normal {tuple(act_w.shape)}>)"
+        with annotate("learner/burn_in"):
+            ca_on, ca_tg, cc_on, cc_tg = self._burn_in(state, batch)
+        with annotate("learner/targets"):
+            obs_w, act_w, reset_w = self._window(batch)
+            eps_w = None
+            if cfg.target_policy_sigma > 0:
+                if normal is None or normal.shape != act_w.shape:
+                    raise ValueError(
+                        "AgentConfig.target_policy_sigma > 0 requires "
+                        f"learner_step(..., normal=<standard normal {tuple(act_w.shape)}>)"
+                    )
+                eps_w = (cfg.target_policy_sigma * normal).clamp(
+                    -cfg.target_policy_clip, cfg.target_policy_clip
                 )
-            eps_w = (cfg.target_policy_sigma * normal).clamp(
-                -cfg.target_policy_clip, cfg.target_policy_clip
-            )
-        y = self._targets(state, batch, ca_tg, cc_tg, obs_w, reset_w, eps_w)  # [B, U]
+            y = self._targets(state, batch, ca_tg, cc_tg, obs_w, reset_w, eps_w)  # [B, U]
         # Online unrolls need only the U training steps.
         obs_u, act_u, reset_u = obs_w[:U], act_w[:U], reset_w[:U]
 
@@ -431,78 +440,85 @@ class R2D2DPG:
             # --- critic update (IS-weighted).  Twin mode trains both members
             # against the same min-bootstrapped y, losses SUMMED (TD3's
             # L1 + L2: each member gets the gradient it would get alone).
-            cp = _leaf_params(state.critic_params)
-            q_tm, _ = self._unroll_critic(cp, cc_on, obs_u, act_u, reset_u)
-            if twin:
-                q2 = q_tm.permute(1, 2, 0)  # [U, 2, B] -> [2, B, U]
-                td2 = td_errors(q2, y)
-                per_step = huber(td2) if cfg.use_huber else 0.5 * td2**2
-                critic_loss = (is_weights[:, None] * per_step.sum(0)).mean()
-                q_spread = (q2[0] - q2[1]).abs().mean()
-                q, td = q2[0], td2[0]
-            else:
-                q = time_major(q_tm)  # [B, U]
-                td = td_errors(q, y)
-                per_step = huber(td) if cfg.use_huber else 0.5 * td**2
-                critic_loss = (is_weights[:, None] * per_step).mean()
-            critic_grads = dict(
-                zip(cp, torch.autograd.grad(critic_loss, list(cp.values())))
-            )
+            with annotate("learner/critic_forward"):
+                cp = _leaf_params(state.critic_params)
+                q_tm, _ = self._unroll_critic(cp, cc_on, obs_u, act_u, reset_u)
+                if twin:
+                    q2 = q_tm.permute(1, 2, 0)  # [U, 2, B] -> [2, B, U]
+                    td2 = td_errors(q2, y)
+                    per_step = huber(td2) if cfg.use_huber else 0.5 * td2**2
+                    critic_loss = (is_weights[:, None] * per_step.sum(0)).mean()
+                    q_spread = (q2[0] - q2[1]).abs().mean()
+                    q, td = q2[0], td2[0]
+                else:
+                    q = time_major(q_tm)  # [B, U]
+                    td = td_errors(q, y)
+                    per_step = huber(td) if cfg.use_huber else 0.5 * td**2
+                    critic_loss = (is_weights[:, None] * per_step).mean()
+            with annotate("learner/critic_backward"):
+                critic_grads = dict(
+                    zip(cp, torch.autograd.grad(critic_loss, list(cp.values())))
+                )
 
             # --- actor update: -Q(s, mu(s)) through the frozen online critic
             # (member 0 in twin mode, the TD3 convention).
-            ap = _leaf_params(state.actor_params)
-            _, q_pi_tm, _ = self._unroll_pi_q(
-                ap,
-                self.behavior_critic_params(state),
-                ca_on,
-                _member(cc_on, 0) if twin else cc_on,
-                obs_u,
-                reset_u,
-            )
-            actor_loss = -q_pi_tm.mean()
-            actor_grads = dict(
-                zip(ap, torch.autograd.grad(actor_loss, list(ap.values())))
-            )
+            with annotate("learner/actor_forward"):
+                ap = _leaf_params(state.actor_params)
+                _, q_pi_tm, _ = self._unroll_pi_q(
+                    ap,
+                    self.behavior_critic_params(state),
+                    ca_on,
+                    _member(cc_on, 0) if twin else cc_on,
+                    obs_u,
+                    reset_u,
+                )
+                actor_loss = -q_pi_tm.mean()
+            with annotate("learner/actor_backward"):
+                actor_grads = dict(
+                    zip(ap, torch.autograd.grad(actor_loss, list(ap.values())))
+                )
 
         with torch.no_grad():
             if cfg.axis_name is not None:
                 # Gradient sync over the mesh, before the clip and Adam.
                 critic_grads = self._pmean_grads(critic_grads)
                 actor_grads = self._pmean_grads(actor_grads)
-            critic_params, critic_opt_state = self._optimize(
-                state.critic_params, critic_grads, state.critic_opt_state, cfg.critic_lr
-            )
-            actor_params, actor_opt_state = self._optimize(
-                state.actor_params, actor_grads, state.actor_opt_state, cfg.actor_lr
-            )
-            new_state = TrainState(
-                actor_params=actor_params,
-                critic_params=critic_params,
-                target_actor_params=polyak_update(
-                    actor_params, state.target_actor_params, cfg.tau
-                ),
-                target_critic_params=polyak_update(
-                    critic_params, state.target_critic_params, cfg.tau
-                ),
-                actor_opt_state=actor_opt_state,
-                critic_opt_state=critic_opt_state,
-                step=state.step + 1,
-            )
-            td = td.detach()
-            q = q.detach()
-            priorities = sequence_priority(td, eta=cfg.eta)
-            metrics = {
-                "critic_loss": critic_loss.detach(),
-                "actor_loss": actor_loss.detach(),
-                "q_mean": q.mean(),
-                "td_abs_mean": td.abs().mean(),
-                "target_mean": y.mean(),
-                "grad_norm": global_norm(actor_grads, critic_grads),
-                "param_norm": global_norm(actor_params, critic_params),
-            }
-            if twin:
-                metrics["q_spread"] = q_spread.detach()  # |Q1 - Q2|
+            with annotate("learner/optimize"):
+                critic_params, critic_opt_state = self._optimize(
+                    state.critic_params, critic_grads, state.critic_opt_state,
+                    cfg.critic_lr,
+                )
+                actor_params, actor_opt_state = self._optimize(
+                    state.actor_params, actor_grads, state.actor_opt_state, cfg.actor_lr
+                )
+                new_state = TrainState(
+                    actor_params=actor_params,
+                    critic_params=critic_params,
+                    target_actor_params=polyak_update(
+                        actor_params, state.target_actor_params, cfg.tau
+                    ),
+                    target_critic_params=polyak_update(
+                        critic_params, state.target_critic_params, cfg.tau
+                    ),
+                    actor_opt_state=actor_opt_state,
+                    critic_opt_state=critic_opt_state,
+                    step=state.step + 1,
+                )
+            with annotate("learner/priorities"):
+                td = td.detach()
+                q = q.detach()
+                priorities = sequence_priority(td, eta=cfg.eta)
+                metrics = {
+                    "critic_loss": critic_loss.detach(),
+                    "actor_loss": actor_loss.detach(),
+                    "q_mean": q.mean(),
+                    "td_abs_mean": td.abs().mean(),
+                    "target_mean": y.mean(),
+                    "grad_norm": global_norm(actor_grads, critic_grads),
+                    "param_norm": global_norm(actor_params, critic_params),
+                }
+                if twin:
+                    metrics["q_spread"] = q_spread.detach()  # |Q1 - Q2|
         return new_state, priorities, metrics
 
     def _optimize(self, params, grads, opt_state, lr):

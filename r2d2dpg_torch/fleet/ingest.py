@@ -1440,8 +1440,7 @@ class FleetLearner:
                     # real drain site (host-known B, no fetch).
                     note_width(n_seqs)
                 mon.on_phase(drained + 1)
-                with t.arena.staged_writer(), annotate("fleet/drain"), \
-                        mon.program("fleet_drain"):
+                with t.arena.staged_writer(), annotate("fleet/drain"):
                     if n_seqs not in drain_flops:
                         # The MFU numerator: each drain width runs once
                         # under the FLOP counter (results unchanged).
@@ -1525,16 +1524,15 @@ class FleetLearner:
                 if log_every and drained % log_every == 0:
                     # ONE fetch per log cadence: the learn metrics and the
                     # arena's priority sum.
-                    with mon.expected("log_fetch"):
-                        names = list(last_metrics)
-                        # The dp learner's per-shard gauges ride this
-                        # fetch (Trainer._log_extra_refs).
-                        psum, extra = _log_refs(t, lstate.arena)
-                        fetched = torch.cat(
-                            [torch.stack(
-                                [psum] + [last_metrics[k].float() for k in names])]
-                            + [x.reshape(-1).to(torch.float32) for x in extra]
-                        ).tolist()
+                    names = list(last_metrics)
+                    # The dp learner's per-shard gauges ride this
+                    # fetch (Trainer._log_extra_refs).
+                    psum, extra = _log_refs(t, lstate.arena)
+                    fetched = torch.cat(
+                        [torch.stack(
+                            [psum] + [last_metrics[k].float() for k in names])]
+                        + [x.reshape(-1).to(torch.float32) for x in extra]
+                    ).tolist()
                     if extra:
                         tail, off = [], 1 + len(names)
                         for x in extra:

@@ -938,7 +938,7 @@ class SamplerLearner:
                                      size=occ, nbytes=buf.numel())
                         control.send_payload(buf)
                 put_s.add(time.monotonic() - t_put)
-                with mon.program("sampler_learn"), annotate("sampler/learn"):
+                with annotate("sampler/learn"):
                     if drained == 0:
                         # The MFU numerator: the first pull-learn runs
                         # under the FLOP counter (results unchanged).
@@ -988,10 +988,9 @@ class SamplerLearner:
                     if log_every and drained % log_every == 0:
                         flight_event("param_publish", version=version)
                 if log_every and drained % log_every == 0:
-                    with mon.expected("log_fetch"):
-                        names = list(last_metrics)
-                        fetched = torch.stack(
-                            [last_metrics[k].float() for k in names]).tolist()
+                    names = list(last_metrics)
+                    fetched = torch.stack(
+                        [last_metrics[k].float() for k in names]).tolist()
                     scalars = {
                         "episode_return_mean": ep_ret_sum / max(ep_count, 1.0),
                         "episodes": ep_count,

@@ -17,7 +17,20 @@ Port of ``r2d2dpg_tpu/obs/``, with the JAX package's module names:
 - ``device``: the device plane (memory gauges, the MFU numerator by
   ``FlopCounterMode``, the ``--profile-window`` capture by
   ``torch.profiler``);
-- ``quality``: the experience-quality plane.
+- ``quality``: the experience-quality plane;
+- ``enable_spans(on)``: the switch of the program's spans
+  (``utils/profiling.py::annotate``; off by default).  The train and
+  serve CLIs turn it on with ``--obs-port`` (``stop_exporter`` turns it
+  off again).  Each span then lands in the flight recorder's span ring
+  (``obs.flight merge --trace-out`` fuses the dumps; ``parent`` and the
+  unit's ``trace_id`` in each event's args) and in the histogram
+  ``r2d2dpg_span_seconds{span=<name>}``; the serving batcher adds each
+  request's queue wait to ``r2d2dpg_serve_queue_wait_seconds``.  The
+  spans: ``trainer/{collect,emit_add,learn}``,
+  ``learner/{is_weights,burn_in,targets,critic_forward,critic_backward,``
+  ``actor_forward,actor_backward,optimize,priorities,quality}``,
+  ``replay/{sample,add,write_back}`` and
+  ``serve/{next_batch,admit,policy_step,answer}``.
 
 The multi-process ``allgather_into_mirror`` comes with the multi-device
 slice.
@@ -58,6 +71,7 @@ from r2d2dpg_torch.obs.registry import (
     render_prometheus,
 )
 from r2d2dpg_torch.obs import trace  # noqa: F401 - obs.trace.* is the span API
+from r2d2dpg_torch.utils.profiling import enable_spans
 from r2d2dpg_torch.obs.watchdog import (
     DivergenceError,
     DivergenceWatchdog,
@@ -83,6 +97,7 @@ __all__ = [
     "chrome_trace",
     "current_exporter",
     "device",
+    "enable_spans",
     "flight_event",
     "get_device_monitor",
     "get_flight_recorder",

@@ -8,9 +8,6 @@ pull loop):
   ``note_learn`` / ``end_run``: a loop opens a run window, marks the phase
   after which its work is warm, reports each train or drain phase it
   starts and finishes, and closes the window in its ``finally``;
-- ``program(label)`` / ``label_thread(label)`` / ``expected(reason)``:
-  per-thread labels for what the thread is dispatching, and declared
-  windows (the log fetch, fault injection) where new work is legitimate;
 - ``publish()`` (on the log cadence, from ``Trainer._obs_publish``) reads
   ``torch.cuda.memory_allocated`` / ``max_memory_allocated`` and the
   card's memory size into ``r2d2dpg_device_hbm_bytes_{in_use,peak,limit}
@@ -72,37 +69,6 @@ METRIC_NAMES = (
     "r2d2dpg_device_mfu",
     "r2d2dpg_device_peak_flops",
 )
-
-_tls = threading.local()
-
-
-class _Label:
-    """Set a thread-local attribute for the length of a ``with`` block."""
-
-    def __init__(self, attr: str, value):
-        self._attr, self._value = attr, value
-
-    def __enter__(self):
-        self._prev = getattr(_tls, self._attr, None)
-        setattr(_tls, self._attr, self._value)
-        return self
-
-    def __exit__(self, *exc):
-        setattr(_tls, self._attr, self._prev)
-        return False
-
-
-class _Expected:
-    """A declared window on this thread (nests)."""
-
-    def __enter__(self):
-        _tls.expected = getattr(_tls, "expected", 0) + 1
-        return self
-
-    def __exit__(self, *exc):
-        _tls.expected = max(getattr(_tls, "expected", 1) - 1, 0)
-        return False
-
 
 def _cuda_devices():
     """Indices of the cards this process has touched (none on the CPU)."""
@@ -254,25 +220,6 @@ class DeviceMonitor:
         elif phase >= p0 + n:
             self._stop_profile(phase=phase)
 
-    # ----------------------------------------------------- labels / windows
-    def program(self, label: str) -> _Label:
-        """Label what this thread dispatches while the block is open."""
-        return _Label("program", str(label))
-
-    def label_thread(self, label: str) -> None:
-        """Sticky per-thread default label (the pipeline's collector)."""
-        _tls.program = str(label)
-
-    def expected(self, reason: str) -> _Expected:
-        """Declare a window on this thread where new work is legitimate."""
-        del reason
-        return _Expected()
-
-    @staticmethod
-    def current_program() -> Optional[str]:
-        """This thread's label (``program`` block, else ``label_thread``)."""
-        return getattr(_tls, "program", None)
-
     # ------------------------------------------------------------------ MFU
     def configure(self, peak_flops: float = 0.0) -> None:
         self._peak_flops = max(float(peak_flops), 0.0)
@@ -305,8 +252,7 @@ class DeviceMonitor:
             return
         self._learn_cost_fn = None
         try:
-            with self.expected("cost_analysis"), self.program("cost_analysis"):
-                f = fn()
+            f = fn()
         except Exception:  # noqa: BLE001 — MFU is best-effort telemetry
             f = None
         if f:

@@ -39,6 +39,7 @@ from r2d2dpg_torch.obs.registry import (
     merge_remote,
     render_prometheus,
 )
+from r2d2dpg_torch.utils.profiling import enable_spans
 
 
 class MetricsExporter:
@@ -188,12 +189,14 @@ def start_exporter(
 
 
 def stop_exporter() -> None:
-    """Tear the singleton down (tests)."""
+    """Tear the singleton down (tests), and turn span timing off, which the
+    CLIs turn on with it."""
     global _exporter
     with _lock:
         if _exporter is not None:
             _exporter.stop()
             _exporter = None
+    enable_spans(False)
 
 
 def current_exporter() -> Optional[MetricsExporter]:

@@ -20,6 +20,11 @@ its buffers IN PLACE: ``add`` copies into the preallocated buffers and
 ``[capacity]``-sized copy is made per call.  Both still return the state
 for symmetry with the JAX call sites.
 
+``add``, ``sample`` and ``update_priorities`` are the spans ``replay/add``,
+``replay/sample`` and ``replay/write_back`` (``utils/profiling.py``); a
+subclass overrides ``_add``, ``_sample`` and ``_update_priorities`` and
+keeps them.
+
 The arena publishes four registry gauges (``r2d2dpg_replay_capacity``,
 ``_occupancy``, ``_priority_sum``, ``_sequences_added``); the loops feed
 them from their log fetch through ``observe_state_scalars``.
@@ -53,6 +58,7 @@ from r2d2dpg_torch.obs.registry import get_registry
 from r2d2dpg_torch.ops.priority import PRIORITY_EPS
 from r2d2dpg_torch.ops.scatter import priority_scatter
 from r2d2dpg_torch.tree import tree_leaves, tree_map
+from r2d2dpg_torch.utils.profiling import annotate
 
 # Slot metadata sentinel for "provenance unknown" (the JAX package's
 # obs/quality.py value, copied so the port imports nothing of it).
@@ -245,6 +251,10 @@ class ReplayArena:
         ``meta`` (``[B, 2]``) is the quality stamp; ``None`` writes
         ``PROVENANCE_ABSENT`` rather than inheriting the evicted slot's.
         """
+        with annotate("replay/add"):
+            return self._add(state, batch, priorities, meta)
+
+    def _add(self, state, batch, priorities, meta) -> ArenaState:
         b = priorities.shape[0]
         device = state.priority.device
         idx = (state.cursor + torch.arange(b, device=device)) % self.capacity
@@ -351,6 +361,10 @@ class ReplayArena:
         so a test can feed the JAX package's own draws.  The caller keeps the
         arena non-empty (the trainer's warm-up schedule does).
         """
+        with annotate("replay/sample"):
+            return self._sample(state, batch_size, generator, uniforms)
+
+    def _sample(self, state, batch_size, generator, uniforms) -> SampleResult:
         device = state.priority.device
         if uniforms is None:
             uniforms = torch.rand(batch_size, generator=generator, device=device)
@@ -378,6 +392,10 @@ class ReplayArena:
         self, state: ArenaState, indices: torch.Tensor, priorities: torch.Tensor
     ) -> ArenaState:
         """Learner write-back of fresh sequence priorities, in place (the kernel)."""
+        with annotate("replay/write_back"):
+            return self._update_priorities(state, indices, priorities)
+
+    def _update_priorities(self, state, indices, priorities) -> ArenaState:
         values = priorities.clamp_min(PRIORITY_EPS).contiguous()
         priority_scatter(state.priority, indices.contiguous(), values)
         return state
@@ -422,7 +440,7 @@ class CapacityBlockArena(ReplayArena):
             ),
         )
 
-    def add(self, state, batch, priorities, meta=None) -> ArenaState:
+    def _add(self, state, batch, priorities, meta) -> ArenaState:
         """Write the fresh rows whose global slots fall in this rank's block.
 
         Every rank holds all ``B`` rows; the slots come from the host-side
@@ -463,7 +481,7 @@ class CapacityBlockArena(ReplayArena):
     def priority_max(self, state) -> torch.Tensor:
         return self.mesh.pmax_(state.priority.max())
 
-    def sample(self, state, batch_size, *, generator=None, uniforms=None):
+    def _sample(self, state, batch_size, generator, uniforms) -> SampleResult:
         """The global draw; this rank's ``B/D`` rows of the batch.
 
         ``indices`` and ``probs`` are the whole batch's ``[B]`` (the same on
@@ -522,7 +540,7 @@ class CapacityBlockArena(ReplayArena):
         it = iter(out)
         return tree_map(lambda _: next(it), rows)
 
-    def update_priorities(self, state, indices, priorities) -> ArenaState:
+    def _update_priorities(self, state, indices, priorities) -> ArenaState:
         """All-gather the ``B`` new priorities in global batch order, then
         the scatter kernel on this rank's block (no host sync)."""
         values = self.mesh.all_gather(priorities.clamp_min(PRIORITY_EPS))
@@ -546,6 +564,6 @@ class ReplicatedArena(ReplayArena):
         super().__init__(capacity, prioritized=prioritized, alpha=alpha)
         self.mesh = mesh
 
-    def update_priorities(self, state, indices, priorities) -> ArenaState:
-        return super().update_priorities(
+    def _update_priorities(self, state, indices, priorities) -> ArenaState:
+        return super()._update_priorities(
             state, indices, self.mesh.all_gather(priorities))

@@ -25,7 +25,10 @@ so the configs whose envs are ported (Pendulum) serve; the DM-Control
 configs raise until their envs are ported.  ``--obs-port P`` serves the
 process's registry over HTTP (``/metrics``, ``/metrics.json``, ``/health``,
 ``/healthz``; 0 binds an ephemeral port, printed to stderr), with the
-``/health`` engine armed for a serving process (no fleet TELEM expected).
+``/health`` engine armed for a serving process (no fleet TELEM expected),
+and turns on span timing: the worker's ``serve/*`` spans in
+``r2d2dpg_span_seconds{span=<name>}`` and each request's queue wait in
+``r2d2dpg_serve_queue_wait_seconds``.
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
@@ -82,7 +85,10 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--obs-port", type=int, default=None, metavar="PORT",
         help="serve the telemetry registry over HTTP: /metrics (Prometheus "
         "text, incl. the r2d2dpg_serving_* health gauges) + /metrics.json; "
-        "0 binds an ephemeral port (printed to stderr)")
+        "0 binds an ephemeral port (printed to stderr).  Also times the "
+        "worker's spans (serve/next_batch, admit, policy_step, answer) into "
+        "r2d2dpg_span_seconds{span=...} and each request's queue wait into "
+        "r2d2dpg_serve_queue_wait_seconds")
     p.add_argument(
         "--obs-host", default="0.0.0.0",
         help="interface the --obs-port exporter binds (127.0.0.1 = "
@@ -212,6 +218,7 @@ def main(argv=None):
             args.flight_path or os.path.join(args.logdir, "flight.jsonl"))
     if args.obs_port is not None:
         exporter = obs.start_exporter(args.obs_port, host=args.obs_host)
+        obs.enable_spans(True)
         # A serving process has no actor fleet: /health without the
         # fleet-telemetry expectation, so the serve_* rules judge it alone.
         exporter.arm_health(

@@ -16,6 +16,10 @@ full queue fails IMMEDIATELY; the caller turns that into a ``SHED_QUEUE``
 response code, not an exception, so overload degrades to fast explicit
 rejections instead of unbounded queueing (the client can back off).
 
+Queue wait: with span timing on (``utils/profiling.py``) each request's
+wait from ``submit`` to the hand-over of its batch goes into the registry
+histogram ``r2d2dpg_serve_queue_wait_seconds``.
+
 Ordering: at most one request per session rides in a batch (two steps of
 one session in one batch would gather the same carry and race the
 write-back).  Extras are held over (FIFO per session) for the next batch.
@@ -32,6 +36,9 @@ from typing import Deque, List, Optional
 import numpy as np
 
 from r2d2dpg_torch.utils.codes import OK
+from r2d2dpg_torch.utils.profiling import spans_enabled
+
+QUEUE_WAIT_METRIC = "r2d2dpg_serve_queue_wait_seconds"
 
 
 @dataclasses.dataclass
@@ -156,7 +163,20 @@ class MicroBatcher:
                     seen.add(req.session_id)
                     batch.append(req)
             self._holdover = kept + self._holdover  # leftovers stay FIFO
+        if batch and spans_enabled():
+            self._observe_waits(batch)
         return batch
+
+    def _observe_waits(self, batch: List[Request]) -> None:
+        """Each request's queue wait, as its batch is handed over, into
+        ``r2d2dpg_serve_queue_wait_seconds`` (with span timing on)."""
+        from r2d2dpg_torch.obs.registry import get_registry
+
+        hist = get_registry().histogram(
+            QUEUE_WAIT_METRIC, "enqueue -> hand-over to the worker, per request")
+        now = self._clock()
+        for req in batch:
+            hist.observe(now - req.enqueued_at)
 
     def drain(self) -> List[Request]:
         """Close and return everything still queued (for SHUTDOWN replies)."""

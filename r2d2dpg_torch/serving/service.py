@@ -43,6 +43,11 @@ exceptions.  A failed batch is answered with ``INTERNAL_ERROR``, the slabs
 are rebuilt, every session is dropped and the error shows in health; if
 the rebuild fails too (a CUDA error that poisons the context), the worker
 stops and every later request gets ``SHUTDOWN``.
+
+The worker's spans (``utils/profiling.py``; id: the worker's loop count):
+``serve/next_batch`` (the batcher's wait and flush), ``serve/admit``
+(screening, session slots), ``serve/policy_step`` (with its fetch of the
+actions) and ``serve/answer`` (finishing the requests, the stats).
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ from r2d2dpg_torch.serving.sessions import (
 )
 from r2d2dpg_torch.utils.codes import OK, SHED_QUEUE, SHED_SESSIONS, SHUTDOWN
 from r2d2dpg_torch.utils.metrics import MetricLogger, PercentileWindow
+from r2d2dpg_torch.utils.profiling import annotate
 
 BAD_REQUEST = "bad_request"
 INTERNAL_ERROR = "internal_error"
@@ -258,7 +264,7 @@ class PolicyService:
         self._shed_sessions = 0
         self._last_worker_error: Optional[str] = None
         # Worker-only: set by the first served batch when no obs_shape was
-        # configured (see the screening in _run_batch).
+        # configured (see the screening in _admit).
         self._inferred_obs_shape: Optional[Tuple[int, ...]] = None
         self.worker_label = str(worker_label) if worker_label is not None else None
         # A routed worker's flight events carry its label.
@@ -393,7 +399,9 @@ class PolicyService:
 
     # ------------------------------------------------------------ the worker
     def _serve_loop(self) -> None:
+        cycle = 0  # the id of the worker's spans of one batch
         while not self._stop.is_set():
+            cycle += 1
             # Housekeeping (reload poll, TTL sweep, health log) never touches
             # the slabs, so its failure is noted and skipped without
             # dropping session state; only a failed batch forces the rebuild.
@@ -403,9 +411,10 @@ class PolicyService:
                 self._note_worker_error(e)
             batch = None
             try:
-                batch = self.batcher.next_batch()
+                with annotate("serve/next_batch", cycle):
+                    batch = self.batcher.next_batch()
                 if batch:
-                    self._run_batch(batch)
+                    self._run_batch(batch, cycle)
             except Exception as e:  # noqa: BLE001 - the worker must outlive it
                 self._recover_from_worker_error(e, batch)
         for req in self.batcher.drain():
@@ -470,7 +479,21 @@ class PolicyService:
             self._last_log_t = self._clock()
             self._logger.log(self._batches, self.health().as_scalars())
 
-    def _run_batch(self, batch) -> None:
+    def _run_batch(self, batch, cycle: int) -> None:
+        with annotate("serve/admit", cycle):
+            admitted, slots, resets = self._admit(batch)
+        if not admitted:
+            return
+        with annotate("serve/policy_step", cycle):
+            t0 = self._clock()
+            action = self.policy_step(slots, resets, [r.obs for r in admitted])
+            step_s = self._clock() - t0
+        with annotate("serve/answer", cycle):
+            self._answer(admitted, action, step_s)
+
+    def _admit(self, batch):
+        """Screen shapes and acquire each request's session slot; returns the
+        admitted requests, their slots and their reset flags."""
         # Screen shapes BEFORE stacking: without a configured obs_shape one
         # ragged observation must fail as that client's bad request, not
         # cost every session its carry.  The first request ever served
@@ -504,12 +527,11 @@ class PolicyService:
             # A new slot may hold a dead session's carry: reset=1 zeroes it
             # inside the step, as at an episode boundary in training.
             resets.append(1.0 if (is_new or req.reset) else 0.0)
-        if not admitted:
-            return
+        return admitted, slots, resets
+
+    def _answer(self, admitted, action, step_s: float) -> None:
+        """Finish the admitted requests with their actions; the stats."""
         n = len(admitted)
-        t0 = self._clock()
-        action = self.policy_step(slots, resets, [r.obs for r in admitted])
-        step_s = self._clock() - t0
         for i, req in enumerate(admitted):
             req.finish(OK, action[i], self._params_step, clock=self._clock)
         with self._stats_lock:

@@ -129,7 +129,10 @@ ephemeral port, printed on an ``obs:`` line and written to
 ``<logdir>/obs_port.txt``), with the ``/health`` engine armed with the
 run's thresholds (``--health-wait-p99``, ``--health-stale-after``,
 ``--quality-max-lag``) and its spawn targets; the CSV then carries the
-registry's scalars as extra columns.  ``--device-peak-flops F`` is the
+registry's scalars as extra columns.  It also turns on the program's span
+timing (``obs.enable_spans``): ``r2d2dpg_span_seconds{span=<name>}`` for
+``trainer/*``, ``learner/*`` and ``replay/*``, and each span in the flight
+ring's ``trace.json`` dump.  ``--device-peak-flops F`` is the
 denominator of ``r2d2dpg_device_mfu`` (0 = unknown: the gauge stays 0).
 ``--profile-window P:N`` captures train/drain phases P..P+N-1 of whichever
 loop runs with ``torch.profiler`` into ``<logdir>/profile_window/``
@@ -448,7 +451,10 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--obs-port", type=int, default=None, metavar="PORT",
         help="serve the telemetry registry over HTTP: /metrics (Prometheus "
         "text) + /metrics.json (JSON snapshot); 0 binds an ephemeral port "
-        "(resolved port printed and written to <logdir>/obs_port.txt)")
+        "(resolved port printed and written to <logdir>/obs_port.txt).  "
+        "Also times the program's spans (trainer/*, learner/*, replay/*): "
+        "r2d2dpg_span_seconds{span=...} on /metrics, and the flight span "
+        "ring (obs.flight merge --trace-out)"),
     p.add_argument(
         "--obs-host", default="0.0.0.0",
         help="interface the --obs-port exporter binds (127.0.0.1 = "
@@ -983,6 +989,7 @@ def _arm_telemetry(args, flight, primary=True):
     if args.obs_port is not None and primary:
         registry = obs.get_registry()
         exporter = obs.start_exporter(args.obs_port, registry, args.obs_host)
+        obs.enable_spans(True)
         # Armed with this run's thresholds and spawn targets; the server is
         # already answering, and its lazy default must not win the race.
         exporter.arm_health(obs.HealthEngine(

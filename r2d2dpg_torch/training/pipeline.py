@@ -120,7 +120,7 @@ from r2d2dpg_torch.training.assembler import emit
 from r2d2dpg_torch.training.draws import Draws
 from r2d2dpg_torch.training.trainer import Trainer, TrainerState
 from r2d2dpg_torch.tree import tree_leaves
-from r2d2dpg_torch.utils.profiling import annotate, scope
+from r2d2dpg_torch.utils.profiling import annotate
 
 # A single queue wait this long lands in the flight recorder as a
 # ``queue_stall`` event (the histograms keep the full distribution).
@@ -191,7 +191,7 @@ def drain_staged(
     ``learn=False`` absorbs without updating.  The learner draws from
     ``lstate.draws``, the stream the trainer's ``_fold_axis`` gave it."""
     t = trainer
-    with scope("pipeline_add"):
+    with annotate("pipeline_add"):
         prios = staged.priorities
         if prios is None:
             prios = t._initial_priorities(lstate.train, lstate.arena, staged.seq)
@@ -203,7 +203,7 @@ def drain_staged(
         )
     if not learn:
         return dataclasses.replace(lstate, arena=arena), {}
-    with scope("pipeline_learn"):
+    with annotate("pipeline_learn"):
         train, arena, metrics = t._learn_many(
             lstate.train, arena, lstate.draws, prefetch=prefetch
         )
@@ -383,12 +383,12 @@ class PipelineExecutor:
         """One collect phase on the collector thread: stride env steps on
         the collector's modules (the host stride loop for a host-driven
         trainer), window shift, emit."""
-        with scope("pipeline_collect"):
+        with annotate("pipeline_collect"):
             cstate = self.trainer._collect(
                 cstate, behavior=behavior, critic_params=critic_params,
                 nets=self.collector_nets,
             )
-        with scope("pipeline_emit"):
+        with annotate("pipeline_emit"):
             staged = StagedSequences(seq=emit(cstate.window))
         return cstate, staged
 
@@ -581,7 +581,6 @@ class PipelineExecutor:
 
         def collector() -> None:
             cs = cstate
-            mon.label_thread("pipeline_collect")
             try:
                 with _on(collector_stream):
                     for k in range(n_train):
@@ -686,7 +685,7 @@ class PipelineExecutor:
                     _take(event)
                     t_dequeue = time.time()
                     mon.on_phase(drained + 1)
-                    with annotate("pipeline/learn"), mon.program("pipeline_drain"):
+                    with annotate("pipeline/learn"):
                         if drained == 0:
                             # The MFU numerator: the first drain runs under
                             # the FLOP counter (results unchanged).
@@ -724,14 +723,13 @@ class PipelineExecutor:
                         # ONE fetch per log cadence: the episode sums over
                         # the mesh (this thread's one sum), the arena's
                         # priority sum and the phase's learn metrics.
-                        with mon.expected("log_fetch"):
-                            env_steps, ret_sum, count = ep_refs
-                            names = list(metrics)
-                            ret_sum, count = t._psum(torch.stack([ret_sum, count]))
-                            fetched = torch.stack(
-                                [ret_sum, count, ls.arena.priority.sum()]
-                                + [metrics[k].float() for k in names]
-                            ).tolist()
+                        env_steps, ret_sum, count = ep_refs
+                        names = list(metrics)
+                        ret_sum, count = t._psum(torch.stack([ret_sum, count]))
+                        fetched = torch.stack(
+                            [ret_sum, count, ls.arena.priority.sum()]
+                            + [metrics[k].float() for k in names]
+                        ).tolist()
                         ret_sum, count, psum = fetched[:3]
                         ep = {
                             "episode_return_mean": ret_sum / max(count, 1.0),

@@ -27,6 +27,9 @@ priority write-back (its draw order is in ``training/draws.py``).
 ``Trainer.run`` opens the device monitor's run window (``obs/device.py``)
 and the log cadence publishes the trainer's, the arena's and the quality
 plane's gauges from its one host fetch (``_obs_publish``).
+``train_phase`` opens the spans ``trainer/collect``, ``trainer/emit_add``
+and ``trainer/learn`` (id: the phase index), and ``_update_step`` the
+learner's (id: the trainer's update count; ``utils/profiling.py``).
 
 Distribution hooks, each the identity here, where the JAX trainer has
 them (``parallel/spmd.py`` and ``parallel/dp_learner.py`` override them):
@@ -74,7 +77,7 @@ from r2d2dpg_torch.training.assembler import (
     stack_steps,
 )
 from r2d2dpg_torch.training.draws import Draws
-from r2d2dpg_torch.utils.profiling import annotate
+from r2d2dpg_torch.utils.profiling import annotate, span_id
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -162,6 +165,8 @@ class Trainer:
         )
         self.global_envs = config.num_envs
         self.sigmas = self._local_sigmas()
+        # Learner updates this trainer has run: the id of each update's spans.
+        self._updates = 0
         # Telemetry: registration is idempotent, so every Trainer of the
         # process shares one instrument per name.
         self._device = get_device_monitor().install()
@@ -455,29 +460,34 @@ class Trainer:
         ``normal`` is the target-policy smoothing draw (``None`` when off).
         """
         cfg = self.config
-        if cfg.prioritized:
-            beta = anneal_beta(train.step, beta0=cfg.beta0, steps=cfg.beta_steps)
-            w = importance_weights(res.probs, self.arena.size(arena), beta=beta)
-        else:
-            w = torch.ones(cfg.batch_size, device=self.device)
-        batch, w_local, normal = self._reshard_batch(res.batch, w, normal)
-        train, prios, metrics = self.agent.learner_step(train, batch, w_local, normal)
-        if cfg.prioritized:
-            arena = self.arena.update_priorities(arena, res.indices, prios)
-        # Experience-quality metrics: ESS fraction of the IS weights, share of
-        # weights at the normalized ceiling, mean replay age in learner steps.
-        inv = 1.0 / res.probs.clamp_min(1e-12)
-        metrics = dict(metrics)
-        metrics["quality_ess_frac"] = inv.sum() ** 2 / (
-            res.probs.shape[0] * inv.square().sum()
-        )
-        metrics["quality_is_saturation"] = (w >= 1.0 - 1e-9).float().mean()
-        entry = res.entry if res.entry is not None else arena.meta[res.indices, 1]
-        armed = entry >= 0
-        age = torch.where(armed, (train.step - entry).clamp_min(0), 0)
-        metrics["quality_replay_age"] = (
-            age.sum().float() / armed.sum().clamp_min(1).float()
-        )
+        self._updates += 1
+        with span_id(self._updates):
+            with annotate("learner/is_weights"):
+                if cfg.prioritized:
+                    beta = anneal_beta(train.step, beta0=cfg.beta0, steps=cfg.beta_steps)
+                    w = importance_weights(res.probs, self.arena.size(arena), beta=beta)
+                else:
+                    w = torch.ones(cfg.batch_size, device=self.device)
+                batch, w_local, normal = self._reshard_batch(res.batch, w, normal)
+            train, prios, metrics = self.agent.learner_step(train, batch, w_local, normal)
+            if cfg.prioritized:
+                arena = self.arena.update_priorities(arena, res.indices, prios)
+            with annotate("learner/quality"):
+                # Experience-quality metrics: ESS fraction of the IS weights,
+                # share of weights at the normalized ceiling, mean replay age
+                # in learner steps.
+                inv = 1.0 / res.probs.clamp_min(1e-12)
+                metrics = dict(metrics)
+                metrics["quality_ess_frac"] = inv.sum() ** 2 / (
+                    res.probs.shape[0] * inv.square().sum()
+                )
+                metrics["quality_is_saturation"] = (w >= 1.0 - 1e-9).float().mean()
+                entry = res.entry if res.entry is not None else arena.meta[res.indices, 1]
+                armed = entry >= 0
+                age = torch.where(armed, (train.step - entry).clamp_min(0), 0)
+                metrics["quality_replay_age"] = (
+                    age.sum().float() / armed.sum().clamp_min(1).float()
+                )
         return train, arena, metrics
 
     def _sample(self, arena, draws):
@@ -544,9 +554,13 @@ class Trainer:
             state = dataclasses.replace(
                 state, behavior_params=self._behavior_params(state)
             )
-        state = self._collect(state)
-        state = self._emit_and_add(state)
-        return self._learn(state)
+        phase = state.phase_idx
+        with annotate("trainer/collect", phase):
+            state = self._collect(state)
+        with annotate("trainer/emit_add", phase):
+            state = self._emit_and_add(state)
+        with annotate("trainer/learn", phase):
+            return self._learn(state)
 
     # ------------------------------------------------------------ schedule
     @property
@@ -658,7 +672,7 @@ class Trainer:
                         state = self.fill_phase(state)
                 else:
                     mon.on_phase(train_done + 1)
-                    with annotate("trainer/train_phase"), mon.program("train_phase"):
+                    with annotate("trainer/train_phase"):
                         if train_done == 0:
                             # The MFU numerator: the first train phase runs
                             # under the FLOP counter (results unchanged).
@@ -673,14 +687,13 @@ class Trainer:
                         mon.mark_steady()
                 scalars = None
                 if log_every and (phase + 1) % log_every == 0:
-                    with mon.expected("log_fetch"):
-                        state, scalars = self.pop_episode_metrics(state)
-                        names = list(last_metrics)
-                        values = (
-                            torch.stack([last_metrics[k] for k in names]).tolist()
-                            if names
-                            else []
-                        )
+                    state, scalars = self.pop_episode_metrics(state)
+                    names = list(last_metrics)
+                    values = (
+                        torch.stack([last_metrics[k] for k in names]).tolist()
+                        if names
+                        else []
+                    )
                     learn = dict(zip(names, values))
                     # pop_episode_metrics published the device plane.
                     self._obs_publish(

@@ -18,7 +18,6 @@ it says otherwise.
 import json
 import math
 import os
-import threading
 
 import jax
 import numpy as np
@@ -43,7 +42,7 @@ from r2d2dpg_torch.obs import (
 )
 from r2d2dpg_torch.obs import quality, trace
 from r2d2dpg_torch.utils.metrics import PercentileWindow
-from r2d2dpg_torch.utils.profiling import annotate, scope, timed
+from r2d2dpg_torch.utils.profiling import annotate, enable_spans, timed
 
 ROWS = [
     {"critic_loss": 1.0, "grad_norm": 3.0, "param_norm": 10.0},
@@ -206,13 +205,19 @@ def test_pop_episode_metrics_publishes_the_jax_gauges():
 
 
 def test_profiling_ranges_show_in_the_profiler_and_timed_adds():
+    # Span timing off: a profiler session still sees every range, and the
+    # span ring records none of them.
+    enable_spans(False)
+    ring = get_flight_recorder()
+    ring.clear_spans()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         with annotate("pipeline/learn"):
             torch.ones(4).sum()
-        with scope("pipeline_add"):
+        with annotate("pipeline_add"):
             torch.ones(4).sum()
     keys = {e.key for e in prof.key_averages()}
     assert {"pipeline/learn", "pipeline_add"} <= keys
+    assert ring.spans() == []
     win = PercentileWindow()
     with timed(win):
         pass
@@ -229,14 +234,10 @@ def test_device_monitor_run_window_on_the_cpu():
     assert not mon.steady
     for n in (1, 2, 3):
         mon.on_phase(n)
-        with mon.program("train_phase"):
-            assert mon.current_program() == "train_phase"
         mon.note_learn()
         if n == 1:
             mon.mark_steady()
     assert mon.steady
-    with mon.expected("log_fetch"), mon.expected("nested"):
-        pass
     stats = mon.run_stats()
     mon.end_run()
     assert not mon.steady
@@ -247,9 +248,3 @@ def test_device_monitor_run_window_on_the_cpu():
     assert reg.snapshot()["r2d2dpg_device_hbm_bytes_in_use"]["samples"] == []
     mon.begin_run()
     assert mon.run_stats()["learn_phases"] == 0.0
-    seen = []
-    th = threading.Thread(target=lambda: (mon.label_thread("pipeline_collect"),
-                                          seen.append(mon.current_program())))
-    th.start()
-    th.join(30)
-    assert seen == ["pipeline_collect"] and mon.current_program() is None
