@@ -82,7 +82,7 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    phase-locked train phases timed in the same process and device-busy
    time of 3 pipelined ones;
 13. the actor fleet: ``train.main --config pendulum_r2d2 --actors 3
-   --phases 60`` with the learner on the card and 3 supervised actor
+   --phases 240`` with the learner on the card and 3 supervised actor
    subprocesses on the CPU (``--device cpu``, no card visible), one actor
    killed after 20 learner steps (exactly one restart required), counts
    set to 0 just before and read just after (one launch per learner
@@ -95,7 +95,7 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    on the CPU, through the f32 wire codec) on the card and on the CPU,
    params within 1e-4, and device-busy time of a drain-learn phase;
    before that drain check, the chaos drills on the central drain
-   (``fleet_chaos``): ``--actors 3 --phases 80 --seed 3 --fleet-heartbeat
+   (``fleet_chaos``): ``--actors 3 --phases 240 --seed 3 --fleet-heartbeat
    2.5 --chaos-spec kill_actor@p5,corrupt_frame@p8,stall_actor@p12:7s,
    kill_ingest_conn@p18 --obs-fleet 1``,
    each fault injected once (one ``chaos_inject`` line in the dumps that
@@ -109,7 +109,7 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    ``corrupt_frame`` (1 each) read off the learner's final scrape through
    the TELEM mirror;
 13b. the autoscaled fleet (``fleet_autoscale``): ``train.main --actors 2
-   --phases 170 --obs-fleet 1 --obs-port 0 --autoscale 1 --autoscale-every
+   --phases 300 --obs-fleet 1 --obs-port 0 --autoscale 1 --autoscale-every
    0.5 --autoscale-fire 2 --autoscale-cooldown 12 --health-stale-after 6
    --fleet-heartbeat 2.5 --chaos-spec kill_actor@p5,stall_actor@p70:20s``,
    the supervisor in policy mode: the kill followed by ``actor_crash``, a
@@ -128,14 +128,14 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    it prints each fault's seconds to its action and to the first SEQS;
 14. in-network sampling: ``train.main --config pendulum_r2d2 --actors 3
    --replay-shards 2 --phases 60`` (the in-learner loopback shards), then
-   the same with ``--shard-procs 2 --phases 150 --chaos-spec
+   the same with ``--shard-procs 2 --phases 600 --chaos-spec
    kill_shard@p20 --obs-fleet 1`` (two supervised shard processes on the CPU; the chaos
    engine kills the targeted one after 20 learner steps, the longer run
    leaving room for its restart: one ``chaos_inject``, exactly one
    ``shard_dead``, one restart and one ``shard_rejoin`` under epoch 2
    required, every pull while it is down drawn from the survivor), then
    the direct data plane under chaos (``direct_chaos``: ``--shard-procs 2
-   --shard-direct 1 --phases 60 --chaos-spec partition_data_plane@p30,
+   --shard-direct 1 --phases 200 --chaos-spec partition_data_plane@p30,
    stall_shard@p40:2s,partition_shard@p20,stall_sampler@p30:1s,
    kill_sampler_conn@p40``: every actor dials its shard, the learner
    forwards 0 bytes until the partition, which falls back and re-dials
@@ -840,7 +840,8 @@ def _card_vs_cpu(torch, dev, name, pixels=False, knobs=(), dtype="float32", step
     nets = dict(hidden=H, pixels=pixels, dtype=getattr(torch, dtype))
     agent = R2D2DPG(ActorNet(obs_shape, 1, **nets), CriticNet(obs_shape, 1, **nets), cfg)
     # The same learner with Adam swapped for the identity on the gradient:
-    # its new optimizer states are the first step's raw gradients.
+    # its new optimizer states are the first step's raw gradients (the
+    # eager body: a graphed step would need Adam's states back).
     capture = R2D2DPG(agent.actor, agent.critic, cfg)
     capture._optimize = lambda params, g, opt_state, lr: (params, g)
     out, grads, seconds = {}, {}, {}
@@ -849,7 +850,7 @@ def _card_vs_cpu(torch, dev, name, pixels=False, knobs=(), dtype="float32", step
         train = agent.init(torch.Generator().manual_seed(0), d)
         b = tree_map(lambda x: x.to(d), batch)
         first = None if normals[0] is None else normals[0].to(d)
-        g = capture.learner_step(train, b, w.to(d), first)[0]
+        g = capture._learner_step_eager(train, b, w.to(d), first)[0]
         grads[str(d)] = {"actor_params": g.actor_opt_state,
                          "critic_params": g.critic_opt_state}
         for normal in normals:
@@ -1888,7 +1889,11 @@ def _serving_phase(torch, dev, sessions=64, steps=64):
         shutil.rmtree(ckdir, ignore_errors=True)
 
 
-FLEET_TRAIN_PHASES = 60  # drain-learn phases per fleet leg
+# Drain-learn phases per fleet leg: the run must outlast the killed actor's
+# restart (the supervisor's poll, 0.5 s of backoff, the spawn), which 60
+# did only just once the learner step replayed as a CUDA graph (60 phases
+# in 2.0 s on an H100 host).
+FLEET_TRAIN_PHASES = 240
 FLEET_ACTORS = 3
 FLEET_KILL_AT = 20  # learner steps before one actor is killed
 FLEET_CARD_VS_CPU_ATOL = 1e-4  # params, as the card-vs-CPU learner check
@@ -2226,8 +2231,9 @@ def _fleet_card_vs_cpu(torch, dev, learn_phases=5, min_replay=32):
 # Drain-learn phases of the chaos leg: the run must outlast the stalled
 # actor's reconnect (the 7 s stall, then ~0.6 s), which 40 phases did not
 # always do once the actors ran one intra-op thread each and the learner
-# drained faster.
-FLEET_CHAOS_PHASES = 80
+# drained faster, nor 80 once the learner step replayed as a CUDA graph
+# (~12 drain phases a second).
+FLEET_CHAOS_PHASES = 240
 FLEET_CHAOS_HEARTBEAT_S = 2.5
 FLEET_CHAOS_STALL_S = 7
 FLEET_CHAOS_SEED = 3
@@ -2236,10 +2242,10 @@ FLEET_CHAOS_SPEC = (f"kill_actor@p5,corrupt_frame@p8,stall_actor@p12:"
 
 
 def _fleet_chaos_leg(torch, dev, label="fleet_chaos"):
-    """``train.main --actors 3 --phases 80 --fleet-heartbeat 2.5
+    """``train.main --actors 3 --phases 240 --fleet-heartbeat 2.5
     --chaos-spec kill_actor@p5,corrupt_frame@p8,stall_actor@p12:7s,
     kill_ingest_conn@p18 --obs-fleet 1`` at pendulum_r2d2, learner on the
-    card: all 80 phases run, each fault is injected once and followed by
+    card: all 240 phases run, each fault is injected once and followed by
     its recovery in the merged flight dumps, env steps never go down, one
     compute process on the card, one scatter launch per learner step; the
     learner's final scrape reads the actor-side drill counts
@@ -2372,10 +2378,15 @@ def _fleet_chaos_leg(torch, dev, label="fleet_chaos"):
 # evaluations 0.5 s apart) plus that cooldown.  A replacement re-arms
 # its actor-side drills: the stalled actor's successor would stall again
 # at its own 70th batch, so the run ends by phases (each drains one
-# batch), about 50 after that successor's first SEQS whatever the host's
-# rates, before it gets there.
+# batch), about 50 after that successor's first SEQS, before it gets
+# there.  Since the learner step replays as a CUDA graph the learner waits
+# on the actors: on an H100 host the successor's first SEQS came near
+# phase 240 and its 70th batch ~130 phases later (170 phases ended before
+# the stall was even detected).  The first fleet run of a process pays
+# ~9 s of imports in its first drain and misses the window; chip_smoke.py
+# and probes/chaos_legs.py run this leg after another fleet leg.
 FLEET_AUTOSCALE_ACTORS = 2
-FLEET_AUTOSCALE_PHASES = 170
+FLEET_AUTOSCALE_PHASES = 300
 FLEET_AUTOSCALE_STALE_S = 6
 FLEET_AUTOSCALE_COOLDOWN_S = 12
 FLEET_AUTOSCALE_SPEC = "kill_actor@p5,stall_actor@p70:20s"
@@ -2409,7 +2420,7 @@ def _first_seqs_after(seqs, actor, t):
 
 
 def _fleet_autoscale_leg(torch, dev, label="fleet_autoscale"):
-    """``train.main --actors 2 --phases 170 --obs-fleet 1 --autoscale 1``
+    """``train.main --actors 2 --phases 300 --obs-fleet 1 --autoscale 1``
     under ``kill_actor@p5,stall_actor@p70:20s`` at pendulum_r2d2, learner
     on the card, actors in policy mode: the kill is replaced by an
     ``actors_down`` decision (``spawn_actor``), the stall by a
@@ -2953,8 +2964,10 @@ PULL_RATES = {}  # each sampler leg's pull-learn phases/s, by label
 SAMPLER_TRAIN_PHASES = 60  # pull-learn phases of the loopback leg
 # The shard-procs leg runs longer: the killed shard process restarts on a
 # host whose cores the free-running actors keep busy, and its restart
-# (``import torch`` included) took over 20 s there, past 60 phases.
-SAMPLER_PROCS_TRAIN_PHASES = 150
+# (``import torch`` included) took over 20 s there, past 60 phases, and
+# past 150 once the learner step replayed as a CUDA graph (~15 pull
+# phases a second).
+SAMPLER_PROCS_TRAIN_PHASES = 600
 SAMPLER_SHARDS = 2
 SAMPLER_KILL_AT = 20  # learner steps before a shard process is killed
 SAMPLER_KILL_SPEC = f"kill_shard@p{SAMPLER_KILL_AT}"
@@ -2968,8 +2981,10 @@ SAMPLER_CARD_VS_CPU_RTOL = 1e-4  # of each tensor's largest |value|
 # batches, shard process 1's absorbed SEQS frames; seed 0), which these
 # never-backpressured actors advance faster than the pull clock: at 30
 # batches and 40 frames both land early in training, after every data leg
-# has been dialed.
-DIRECT_CHAOS_PHASES = 60
+# has been dialed.  The run has to outlast the learner-side faults'
+# recoveries too: 20 phases after kill_sampler_conn@p40 did not, once the
+# learner step replayed as a CUDA graph.
+DIRECT_CHAOS_PHASES = 200
 DIRECT_CHAOS_SPEC = ("partition_data_plane@p30,stall_shard@p40:2s,partition_shard@p20,"
                      "stall_sampler@p30:1s,kill_sampler_conn@p40")
 DIRECT_CHAOS_FLAGS = ("--shard-procs", str(SAMPLER_SHARDS), "--shard-direct", "1",

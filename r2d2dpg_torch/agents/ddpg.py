@@ -37,11 +37,16 @@ the critic and actor gradients over the agent's ``mesh``
 ``lax.pmean``.  Each net's gradients travel as one flattened buffer, so a
 step costs two collectives.
 
-``learner_step``'s parts are sibling spans (``utils/profiling.py``):
+On a card and off a mesh ``learner_step`` replays its eager body,
+``_learner_step_eager``, as one CUDA graph per input signature
+(``agents/graph.py``); on the CPU and on a mesh it runs the body itself.
+
+The eager body's parts are sibling spans (``utils/profiling.py``):
 ``learner/burn_in``, ``learner/targets``, ``learner/critic_forward``,
 ``learner/critic_backward``, ``learner/actor_forward``,
 ``learner/actor_backward``, ``learner/optimize`` (clip, both Adams, both
-Polyaks) and ``learner/priorities`` (priorities and the metrics).
+Polyaks) and ``learner/priorities`` (priorities and the metrics); a replay
+is one span, ``learner/graph_replay``.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from r2d2dpg_torch.agents.graph import LearnerGraphs
 from r2d2dpg_torch.device import DeviceLike
 from r2d2dpg_torch.models.actor_critic import (
     ActorNet,
@@ -143,26 +149,53 @@ def adam_init(params: Params) -> AdamState:
     )
 
 
+ADAM_B1, ADAM_B2 = 0.9, 0.999
+
+
+def adam_bias_corrections(
+    count: int, b1: float = ADAM_B1, b2: float = ADAM_B2
+) -> Tuple[float, float]:
+    """``1 - b1**count`` and ``1 - b2**count`` in float32, as optax computes them."""
+    bc1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(count))
+    bc2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(count))
+    return bc1, bc2
+
+
+def adam_bias_reciprocals(count: int) -> Tuple[float, float]:
+    """The float32 reciprocals of ``adam_bias_corrections(count)``: what a
+    CUDA division by a host scalar multiplies by (``x / s`` is ``x *
+    (1.0f / s)`` there), so ``x * r`` on the card equals ``x / s`` bitwise."""
+    return tuple(float(np.float32(1.0) / np.float32(bc))
+                 for bc in adam_bias_corrections(count))
+
+
 def adam_step(
     params: Params,
     grads: Params,
     state: AdamState,
     *,
     lr: float,
-    b1: float = 0.9,
-    b2: float = 0.999,
+    b1: float = ADAM_B1,
+    b2: float = ADAM_B2,
     eps: float = 1e-8,
+    inv_bias: Optional[torch.Tensor] = None,
 ) -> Tuple[Params, AdamState]:
-    """``optax.adam`` + ``apply_updates``: returns (new params, new state)."""
+    """``optax.adam`` + ``apply_updates``: returns (new params, new state).
+
+    ``inv_bias``, a device tensor ``[2]``, replaces the bias corrections of
+    this step by their reciprocals (``adam_bias_reciprocals``): a CUDA
+    graph cannot take the host scalars, which change every step.
+    """
     count = state.count + 1
-    # Bias corrections in float32, as optax computes ``1 - decay**count``.
-    bc1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(count))
-    bc2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(count))
+    bc1, bc2 = adam_bias_corrections(count, b1, b2)
     mu, nu, new = {}, {}, {}
     for k, g in grads.items():
         mu[k] = (1 - b1) * g + b1 * state.mu[k]
         nu[k] = (1 - b2) * (g * g) + b2 * state.nu[k]
-        update = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + eps)
+        if inv_bias is None:
+            update = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + eps)
+        else:
+            update = (mu[k] * inv_bias[0]) / (torch.sqrt(nu[k] * inv_bias[1]) + eps)
         new[k] = params[k] + (-lr) * update
     return new, AdamState(count=count, mu=mu, nu=nu)
 
@@ -208,6 +241,7 @@ class R2D2DPG:
         # The group ``config.axis_name`` averages gradients over; a
         # data-parallel trainer binds it (``bind_mesh``).
         self.mesh = None
+        self._graphs = LearnerGraphs()
 
     def bind_mesh(self, mesh, axis_name: Optional[str] = None) -> "R2D2DPG":
         """A copy of this agent (same modules) that averages its gradients
@@ -414,6 +448,24 @@ class R2D2DPG:
         smoothing; required iff ``config.target_policy_sigma > 0``.
 
         Returns (new_state, new_priorities ``[B]``, metrics of 0-dim tensors).
+        On a card and off a mesh the step replays as one CUDA graph
+        (``agents/graph.py``), and returns fresh copies of the graph's
+        outputs; elsewhere it runs ``_learner_step_eager``.
+        """
+        return self._graphs.step(self, state, batch, is_weights, normal)
+
+    def _learner_step_eager(
+        self,
+        state: TrainState,
+        batch: SequenceBatch,
+        is_weights: torch.Tensor,
+        normal: Optional[torch.Tensor] = None,
+        inv_bias: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ) -> Tuple[TrainState, torch.Tensor, Dict[str, torch.Tensor]]:
+        """``learner_step`` op by op: the body the CUDA graph captures.
+
+        ``inv_bias`` (critic, actor), each a device tensor ``[2]``, hands
+        Adam this step's bias corrections as tensors (``adam_step``).
         """
         cfg = self.config
         U = cfg.unroll
@@ -484,12 +536,15 @@ class R2D2DPG:
                 critic_grads = self._pmean_grads(critic_grads)
                 actor_grads = self._pmean_grads(actor_grads)
             with annotate("learner/optimize"):
+                kw_c, kw_a = ({}, {}) if inv_bias is None else (
+                    {"inv_bias": inv_bias[0]}, {"inv_bias": inv_bias[1]})
                 critic_params, critic_opt_state = self._optimize(
                     state.critic_params, critic_grads, state.critic_opt_state,
-                    cfg.critic_lr,
+                    cfg.critic_lr, **kw_c,
                 )
                 actor_params, actor_opt_state = self._optimize(
-                    state.actor_params, actor_grads, state.actor_opt_state, cfg.actor_lr
+                    state.actor_params, actor_grads, state.actor_opt_state,
+                    cfg.actor_lr, **kw_a,
                 )
                 new_state = TrainState(
                     actor_params=actor_params,
@@ -521,10 +576,10 @@ class R2D2DPG:
                     metrics["q_spread"] = q_spread.detach()  # |Q1 - Q2|
         return new_state, priorities, metrics
 
-    def _optimize(self, params, grads, opt_state, lr):
+    def _optimize(self, params, grads, opt_state, lr, inv_bias=None):
         if self.config.grad_clip is not None:
             grads = clip_by_global_norm(grads, self.config.grad_clip)
-        return adam_step(params, grads, opt_state, lr=lr)
+        return adam_step(params, grads, opt_state, lr=lr, inv_bias=inv_bias)
 
     # ------------------------------------------------------- initial priority
     @torch.no_grad()

@@ -28,7 +28,10 @@ Port of ``r2d2dpg_tpu/obs/``, with the JAX package's module names:
   request's queue wait to ``r2d2dpg_serve_queue_wait_seconds``.  The
   spans: ``trainer/{collect,emit_add,learn}``,
   ``learner/{is_weights,burn_in,targets,critic_forward,critic_backward,``
-  ``actor_forward,actor_backward,optimize,priorities,quality}``,
+  ``actor_forward,actor_backward,optimize,priorities,quality,``
+  ``graph_replay}`` (a step replayed as a CUDA graph shows
+  ``graph_replay`` in place of the eager step's parts, and counts into
+  ``r2d2dpg_learner_graph_total{event,reason}``, ``agents/graph.py``),
   ``replay/{sample,add,write_back}`` and
   ``serve/{next_batch,admit,policy_step,answer}``.
 

@@ -54,3 +54,29 @@ def tree_leaves(tree: Any) -> list:
     if isinstance(tree, (tuple, list)):
         return [x for v in tree for x in tree_leaves(v)]
     raise TypeError(f"tree_leaves: unsupported node {type(tree).__name__}")
+
+
+def tree_with_leaves(tree: Any, leaves: list) -> Any:
+    """``tree`` with its tensors replaced, in ``tree_leaves`` order, by
+    ``leaves``; the rest (counters, ``None``) is kept."""
+    it = iter(leaves)
+
+    def go(node):
+        if node is None or isinstance(node, (int, float, str)):
+            return node
+        if isinstance(node, torch.Tensor):
+            return next(it)
+        if dataclasses.is_dataclass(node):
+            return dataclasses.replace(
+                node, **{f.name: go(getattr(node, f.name))
+                         for f in dataclasses.fields(node)})
+        if isinstance(node, dict):
+            return {k: go(v) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(go(v) for v in node)
+        raise TypeError(f"tree_with_leaves: unsupported node {type(node).__name__}")
+
+    out = go(tree)
+    if next(it, None) is not None:
+        raise ValueError("tree_with_leaves: more leaves than the tree holds")
+    return out

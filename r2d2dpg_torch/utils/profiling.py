@@ -40,7 +40,10 @@ does not have:
   ``learner/burn_in``, ``learner/targets``, ``learner/critic_forward``,
   ``learner/critic_backward``, ``learner/actor_forward``,
   ``learner/actor_backward``, ``learner/optimize`` and
-  ``learner/priorities`` (id: the trainer's update count); ``replay/sample``,
+  ``learner/priorities`` (id: the trainer's update count) where the step
+  runs eagerly, ``learner/graph_replay`` (the copy in, the graph's launch
+  and the copy out) where it replays as a CUDA graph
+  (``agents/graph.py``); ``replay/sample``,
   ``replay/add`` and ``replay/write_back`` in ``ReplayArena``; and in the
   serving worker ``serve/next_batch``, ``serve/admit``,
   ``serve/policy_step`` and ``serve/answer`` (id: the worker's batch
