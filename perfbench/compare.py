@@ -35,7 +35,12 @@ def _leaf_gaps(prog: Dict[str, float], ref: Dict[str, float], keep=None) -> List
 
 def training_checks(prog: Dict, ref: Dict) -> Dict[str, float]:
     """``{number: value}`` for a training cell: each step's two losses (see
-    ``_loss_gaps``), the worst leaf's first gradient, the median leaf's
+    ``_loss_gaps``), the first step's alone (``first_loss_gap``, which the
+    forward pass decides before any update: where the backward pass is not
+    repeatable, as cuDNN's convolutions are not, Adam's first update turns
+    its rounding into whole ``lr`` moves of near-nought elements, and the
+    later steps' losses swing from run to run with it), the worst leaf's
+    first gradient, the median leaf's
     change over the compared steps, the priorities after the first step
     (against their float64 recomputation, so that a sound program reads its
     own rounding and not how far its order of sums differs from the
@@ -48,7 +53,9 @@ def training_checks(prog: Dict, ref: Dict) -> Dict[str, float]:
     leaf, as the first convolution of the pixel torso, that swings the
     worst leaf's gap from seed to seed (``wide_checks`` keeps it)."""
     out: Dict[str, float] = {}
-    out["loss_gap"] = max(_loss_gaps(prog["losses"], ref["losses"]))
+    gaps = _loss_gaps(prog["losses"], ref["losses"])
+    out["loss_gap"] = max(max(g) for g in gaps)
+    out["first_loss_gap"] = max(gaps[0])
     out["grad_gap"] = max(max(_leaf_gaps(prog["moment"][net], ref["moment"][net]))
                           for net in ref["moment"])
     out["change_gap"] = statistics.median(_change_gaps(prog, ref))
@@ -61,16 +68,14 @@ def training_checks(prog: Dict, ref: Dict) -> Dict[str, float]:
     return out
 
 
-def _loss_gaps(prog: List, ref: List) -> List[float]:
-    """Each step's gap of each loss, ``|p - r|``, against the reference's
+def _loss_gaps(prog: List, ref: List) -> List[List[float]]:
+    """Each step's gaps of its losses, ``|p - r|``, against the reference's
     value or the median of that loss over the compared steps, whichever is
     larger: the actor loss ``-mean Q`` crosses zero, where its relative gap
     would stand for nothing but rounding over a near-zero value."""
-    gaps: List[float] = []
-    for j in range(len(ref[0])):
-        scale = statistics.median(abs(r[j]) for r in ref)
-        gaps += [abs(p[j] - r[j]) / max(abs(r[j]), scale, 1e-12) for p, r in zip(prog, ref)]
-    return gaps
+    scales = [statistics.median(abs(r[j]) for r in ref) for j in range(len(ref[0]))]
+    return [[abs(pj - rj) / max(abs(rj), sj, 1e-12) for pj, rj, sj in zip(p, r, scales)]
+            for p, r in zip(prog, ref)]
 
 
 def _change_gaps(prog: Dict, ref: Dict) -> List[float]:
@@ -104,9 +109,15 @@ def change_norms(after: Dict[str, Dict[str, torch.Tensor]],
 
 
 def verdict(values: Dict[str, float], limits: Dict[str, float]) -> List[Dict]:
-    """One entry per number: its value, its limit and whether it holds."""
-    return [{"name": k, "value": values[k], "limit": limits[k], "ok": values[k] <= limits[k]}
-            for k in sorted(values)]
+    """One entry per number that the cell's limits name: its value, its
+    limit and whether it holds.  A named number the run did not give does
+    not hold (value ``None``); a number with no limit is not judged."""
+    out = []
+    for k in sorted(limits):
+        v = values.get(k)
+        out.append({"name": k, "value": v, "limit": limits[k],
+                    "ok": v is not None and v <= limits[k]})
+    return out
 
 
 def serving_checks(served, reference, mask) -> Dict[str, float]:

@@ -13,6 +13,9 @@ Prints one JSON line per reading:
 - ``half_batch`` (training cells): the reference with half of each batch
   left out, the mean over the rest;
 - ``index_altered`` (training cells): one sampled index moved;
+- ``exchange_left_out`` (a learn loop on several chips, ``world`` in its
+  mix): the reference on rank 0's rows alone, as rank 0 updates when the
+  gradients' pmean is left out;
 - ``action_altered`` (the serving cell): one served action moved by 1e-2.
 
 The benchmark's own runs never run this.  A limit lies above the largest
@@ -32,31 +35,33 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from perfbench import compare, harness, inputs  # noqa: E402
-from perfbench.reference import rollout, runs  # noqa: E402
+from perfbench import compare, harness, inputs, models  # noqa: E402
 
 
 def training_readings(cell, seed, device):
-    conf, traffic = cell.config, cell.traffic
-    if traffic["kind"] == "learn":
+    conf, traffic, model = cell.config, cell.traffic, models.entry(cell.config)
+    if traffic["kind"] != "train":  # a learn loop, on one chip or on several
         def ref(**kw):
-            return runs.learn(conf, traffic, seed, device, kw.pop("idx", None), **kw)
+            return model.learn(conf, traffic, seed, device, kw.pop("idx", None), **kw)
     else:
         env_seed = inputs.subseed(seed, "env")
 
         def ref(**kw):
-            return runs.train(conf, seed, env_seed, device, kw.pop("idx", None),
-                              traffic["check_units"], **kw)
+            return model.train(conf, seed, env_seed, device, kw.pop("idx", None),
+                               traffic["check_units"], **kw)
     base = ref()
     moved = [i.clone() for i in base["indices"]]
     moved[0][0] = (moved[0][0] + conf["trainer"]["capacity"] // 2) % conf["trainer"]["capacity"]
     control = ref(precision="tf32")
     out = {}
+    faults = [("half_batch", conf["trainer"]["batch_size"] // 2)]
+    if traffic.get("world", 1) > 1:
+        faults.append(("exchange_left_out", conf["trainer"]["batch_size"] // traffic["world"]))
     # The control is judged as the program is: the reference follows its
     # indices where its own draw bears them out.
     for name, got, judge in (
             ("control", control, ref(idx=control["indices"])),
-            ("half_batch", ref(rows=conf["trainer"]["batch_size"] // 2), base),
+            *((fault, ref(rows=rows), base) for fault, rows in faults),
             ("index_altered", ref(idx=moved), None)):
         if judge is None:  # the moved index is the program's: its own run judges it
             got, judge = base, got
@@ -68,9 +73,10 @@ def serving_readings(window, seed, conf, device):
     st = window.readings["streams"]
     obs, reset, served = st["obs"], st["reset"], st["action"]
     mask = np.arange(obs.shape[1])[None, :] < st["count"][:, None]
-    params = inputs.make_weights(runs.shapes(conf), seed, device)["actor"]
-    want = rollout.actions(params, obs, reset, "float32", device)
-    tf32 = rollout.actions(params, obs, reset, "tf32", device)
+    model = models.entry(conf)
+    params = inputs.make_weights(model.shapes(conf), seed, device)["actor"]
+    want = model.actions(params, obs, reset, "float32", device)
+    tf32 = model.actions(params, obs, reset, "tf32", device)
     moved = served.copy()
     lane, step = map(int, next(zip(*mask.nonzero())))
     moved[lane, step, 0] += 1e-2

@@ -17,10 +17,9 @@ import time
 
 import torch
 
-from perfbench import compare, flops, inputs, trace
+from perfbench import compare, inputs, models, trace
 from perfbench.drivers import program
 from perfbench.harness import Run, Window, peak_bytes, sync
-from perfbench.reference import runs as reference
 
 
 def run(run: Run) -> Window:
@@ -28,20 +27,20 @@ def run(run: Run) -> Window:
 
     cell, dev = run.cell, program.device(run.device)
     conf, traffic = cell.config, cell.traffic
-    env, tr, agent_conf = conf["env"], conf["trainer"], conf["agent"]
-    seq_len = agent_conf["burnin"] + agent_conf["unroll"] + agent_conf["n_step"]
+    env, tr, model = conf["env"], conf["trainer"], models.entry(conf)
+    carries = model.carries(conf)
     run.mark("imports")
     cfg = program.experiment(conf, inputs.subseed(run.seed, "env"))
     env_obj = cfg.env_factory(dev)
     agent = cfg.build_agent(env_obj)
     trainer = Trainer(env_obj, agent, cfg.trainer, dev)
-    example = inputs.alloc_arena(1, seq_len, env["obs_shape"], env["obs_dtype"],
-                                 env["action_dim"], conf["nets"]["hidden"], dev)
+    example = inputs.alloc_arena(1, model.seq_len(conf), env["obs_shape"], env["obs_dtype"],
+                                 env["action_dim"], carries, dev)
     arena = trainer.arena.init_state(program.sequence_batch(example))
     inputs.fill_arena(program.arena_leaves(arena), arena.priority, run.seed,
-                      env["episode_length"], traffic["priority_range"])
+                      env["episode_length"], traffic["priority_range"], carries)
     arena.cursor, arena.total_added = 0, tr["capacity"]
-    weights = inputs.make_weights(reference.shapes(conf), run.seed, dev)
+    weights = inputs.make_weights(model.shapes(conf), run.seed, dev)
     train = program.train_state(agent, weights)
     draws = inputs.Draws(run.seed, "learner", dev)
     sync(dev)
@@ -89,7 +88,7 @@ def run(run: Run) -> Window:
         attempted=n, failed=0, setup_s=t0 - run.started,
         end_to_end={"learner_steps_per_s": n / window_s}, checks={},
         memory_peak_bytes=peak,
-        readings={"units": n, "window_s": window_s, "unit_flops": flops.learn_unit(conf),
+        readings={"units": n, "window_s": window_s, "unit_flops": model.learn_unit(conf),
                   "dtype": conf["nets"]["compute_dtype"]})
     if run.trace:
         def traced():
@@ -107,7 +106,7 @@ def run(run: Run) -> Window:
     del trainer, agent, env_obj, arena, train, draws, res, m, finite, seen
     gc.collect()
     torch.cuda.empty_cache()
-    ref = reference.learn(conf, traffic, run.seed, dev, indices)
+    ref = model.learn(conf, traffic, run.seed, dev, indices)
     window.checks = compare.training_checks(prog, ref)
     window.readings["wide"] = compare.wide_checks(prog, ref)
     return window

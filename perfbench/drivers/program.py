@@ -28,19 +28,20 @@ def device(dev) -> torch.device:
 
 def experiment(conf: Dict, env_seed: int) -> ExperimentConfig:
     """The program's config that ``conf`` names, its env replaced by the
-    benchmark's stand-in; raises where its numbers differ from ``conf``."""
+    benchmark's stand-in; raises where its numbers differ from ``conf``, or
+    where the program's config lacks a key of the file: every key of
+    ``nets`` is the config's attribute of that name (but ``core``, which
+    names the benchmark's model entry), every key of ``agent`` and
+    ``trainer`` that of its agent and trainer config."""
     cfg = get_config(conf["program_config"])
-    nets = conf["nets"]
-    want = {
-        "hidden": (cfg.hidden, nets["hidden"]),
-        "use_lstm": (cfg.use_lstm, nets["use_lstm"]),
-        "pixels": (cfg.pixels, nets["pixels"]),
-        "compute_dtype": (cfg.compute_dtype, nets["compute_dtype"]),
-    }
-    for k, v in conf["agent"].items():
-        want[f"agent.{k}"] = (getattr(cfg.agent, k), v)
-    for k, v in conf["trainer"].items():
-        want[f"trainer.{k}"] = (getattr(cfg.trainer, k), v)
+    want = {}
+    for group, obj in (("nets", cfg), ("agent", cfg.agent), ("trainer", cfg.trainer)):
+        for k, v in conf[group].items():
+            if group == "nets" and k == "core":
+                continue
+            if not hasattr(obj, k):
+                raise ValueError(f"{conf['name']}: the program's config has no {group}.{k}")
+            want[f"{group}.{k}"] = (getattr(obj, k), v)
     bad = {k: got for k, (got, v) in want.items() if got != v}
     if bad:
         raise ValueError(f"{conf['name']}: the program's config differs from the file: {bad}")
@@ -48,6 +49,15 @@ def experiment(conf: Dict, env_seed: int) -> ExperimentConfig:
     return dataclasses.replace(cfg, env_factory=lambda device: StandInEnv(
         env_seed, device, obs_shape=tuple(env["obs_shape"]), obs_dtype=env["obs_dtype"],
         action_dim=env["action_dim"], episode_length=env["episode_length"]))
+
+
+def dp_learner(cfg: ExperimentConfig, world: int, dev: torch.device):
+    """The data-parallel learner a user starts with ``--learner-dp <world>``
+    (``DPLearnerTrainer`` over this rank's block of the arena), on the mesh
+    of the process group this process has joined."""
+    from r2d2dpg_torch.parallel import make_mesh
+
+    return cfg.build_dp_learner(make_mesh(world, dev), collect_local=False)
 
 
 def train_state(agent, weights: Dict[str, Dict[str, torch.Tensor]]) -> TrainState:

@@ -17,10 +17,8 @@ import types
 import numpy as np
 import torch
 
-from perfbench import compare, inputs, trace
+from perfbench import compare, inputs, models, trace
 from perfbench.harness import Run, Window, peak_bytes, sync
-from perfbench.reference import rollout
-from perfbench.reference import runs as reference
 from perfbench.traffic.client import Client, nearest_rank
 from perfbench.traffic.standin import StandIn
 
@@ -33,12 +31,12 @@ def run(run: Run) -> Window:
 
     cell, dev = run.cell, program.device(run.device)
     conf, mix = cell.config, cell.traffic
-    env = conf["env"]
+    env, model = conf["env"], models.entry(conf)
     run.mark("imports")
     cfg = program.experiment(conf, inputs.subseed(run.seed, "env"))
     spec = EnvSpec("perfbench-serve", tuple(env["obs_shape"]), env["action_dim"])
     actor = cfg.build_agent(types.SimpleNamespace(spec=spec)).actor
-    weights = inputs.make_weights(reference.shapes(conf), run.seed, dev)
+    weights = inputs.make_weights(model.shapes(conf), run.seed, dev)
     service = PolicyService(
         actor, weights["actor"], obs_shape=tuple(env["obs_shape"]),
         max_sessions=mix["max_sessions"], max_batch=max(mix["bucket_sizes"]),
@@ -86,9 +84,9 @@ def run(run: Run) -> Window:
     del service, actor, weights, client
     gc.collect()
     torch.cuda.empty_cache()
-    params = inputs.make_weights(reference.shapes(conf), run.seed, dev)["actor"]
+    params = inputs.make_weights(model.shapes(conf), run.seed, dev)["actor"]
     mask = np.arange(streams["obs"].shape[1])[None, :] < streams["count"][:, None]
-    want = rollout.actions(params, streams["obs"], streams["reset"], "float32", dev)
+    want = model.actions(params, streams["obs"], streams["reset"], "float32", dev)
     window.readings["streams"] = streams
     window.checks = compare.serving_checks(streams["action"], want, mask)
     return window

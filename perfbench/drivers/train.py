@@ -17,7 +17,7 @@ import time
 
 import torch
 
-from perfbench import compare, flops, inputs, trace
+from perfbench import compare, inputs, models, trace
 from perfbench.drivers import program
 from perfbench.harness import Run, Window, peak_bytes, sync
 from perfbench.reference import runs as reference
@@ -26,13 +26,13 @@ from perfbench.reference import runs as reference
 def run(run: Run) -> Window:
     cell, dev = run.cell, program.device(run.device)
     conf, traffic = cell.config, cell.traffic
-    tr = conf["trainer"]
+    tr, model = conf["trainer"], models.entry(conf)
     env_seed = inputs.subseed(run.seed, "env")
     run.mark("imports")
     trainer = program.experiment(conf, env_seed).build(dev)
     draws = inputs.Draws(run.seed, "trainer", dev)
     state = trainer.init(draws)
-    weights = inputs.make_weights(reference.shapes(conf), run.seed, dev)
+    weights = inputs.make_weights(model.shapes(conf), run.seed, dev)
     train = program.train_state(trainer.agent, weights)
     state = dataclasses.replace(
         state, train=train,
@@ -95,7 +95,7 @@ def run(run: Run) -> Window:
         attempted=n, failed=0, setup_s=t0 - run.started,
         end_to_end={"train_env_steps_per_s": n * per_phase / window_s}, checks={},
         memory_peak_bytes=peak_bytes(dev),
-        readings={"units": n, "window_s": window_s, "unit_flops": flops.train_unit(conf),
+        readings={"units": n, "window_s": window_s, "unit_flops": model.train_unit(conf),
                   "dtype": conf["nets"]["compute_dtype"]})
     if run.trace:
         def traced():
@@ -119,7 +119,7 @@ def run(run: Run) -> Window:
     del trainer, state, train, draws, finite, seen, leaves, sample
     gc.collect()
     torch.cuda.empty_cache()
-    ref = reference.train(conf, run.seed, env_seed, dev, indices, traffic["check_units"])
+    ref = model.train(conf, run.seed, env_seed, dev, indices, traffic["check_units"])
     window.checks = compare.training_checks(prog, ref)
     window.readings["wide"] = compare.wide_checks(prog, ref)
     return window

@@ -1,4 +1,5 @@
-"""Analytic FLOPs of the recipe's work, from a configuration's shapes alone.
+"""Analytic FLOPs of the recipe's work with the LSTM core (the ``lstm`` model
+entry's count), from a configuration's shapes alone.
 
 Counts ``2 x`` the multiply-adds of every matmul and convolution that the
 algorithm needs, and nothing else: elementwise work (gates, activations,
@@ -120,11 +121,3 @@ def train_phase(s: Shapes, agent: Dict, trainer: Dict) -> int:
             + initial_priority(s, e, b, u, n)
             + trainer["learner_steps"] * learner_step(s, trainer["batch_size"], b, u, n))
 
-
-def learn_unit(conf: Dict) -> int:
-    a, t = conf["agent"], conf["trainer"]
-    return learner_step(shapes_of(conf), t["batch_size"], a["burnin"], a["unroll"], a["n_step"])
-
-
-def train_unit(conf: Dict) -> int:
-    return train_phase(shapes_of(conf), conf["agent"], conf["trainer"])

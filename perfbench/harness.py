@@ -236,7 +236,12 @@ def main(argv: Optional[List[str]] = None, started: Optional[float] = None) -> i
     run = Run(cell=cell, seed=args.seed, seconds=args.seconds, trace=bool(args.trace),
               device=torch.device("cuda", 0), started=started)
     card_line(sys.stderr)
-    window = run_driver(run)
+    return finish(run, run_driver(run))
+
+
+def finish(run: Run, window: Window) -> int:
+    """Print the run's result, or nothing where a forbidden module was
+    loaded in this process; the exit code."""
     out = result(run, window)
     bad = forbidden_modules()
     if bad:
@@ -247,6 +252,21 @@ def main(argv: Optional[List[str]] = None, started: Optional[float] = None) -> i
         print(f"check {name} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def fault_exit(run: Run, reason: str) -> None:
+    """End a run on several chips that cannot finish (a rank failed, missed
+    a time limit or loaded a forbidden module) with its failed result:
+    ``rank_faults`` 1 and nothing measured; exit code 0, or 3 without a
+    result where this process loaded a forbidden module."""
+    print(f"perfbench: {reason}", file=sys.stderr, flush=True)
+    window = Window(attempted=0, failed=1, setup_s=time.perf_counter() - run.started,
+                    end_to_end={}, checks={"rank_faults": 1.0},
+                    memory_peak_bytes=peak_bytes(run.device))
+    code = finish(dataclasses.replace(run, trace=False), window)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
 
 
 def card_line(stream) -> None:

@@ -58,8 +58,9 @@ def make_weights(shapes: Dict[str, Dict[str, tuple]], seed: int, device
 
 
 def alloc_arena(capacity: int, seq_len: int, obs_shape, obs_dtype: str, action_dim: int,
-                hidden: int, device) -> Dict:
-    """Zeroed arena leaves in the layout ``fill_arena`` writes."""
+                carries: Dict[str, List], device) -> Dict:
+    """Zeroed arena leaves in the layout ``fill_arena`` writes; ``carries`` is
+    the model entry's ``{net: [(draw, per-row shape), ...]}``."""
     def z(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
@@ -69,19 +70,27 @@ def alloc_arena(capacity: int, seq_len: int, obs_shape, obs_dtype: str, action_d
         "reward": z(capacity, seq_len),
         "discount": z(capacity, seq_len),
         "reset": z(capacity, seq_len),
-        "carry_actor": (z(capacity, hidden), z(capacity, hidden)),
-        "carry_critic": (z(capacity, hidden), z(capacity, hidden)),
+        "carry_actor": tuple(z(capacity, *shape) for _, shape in carries["actor"]),
+        "carry_critic": tuple(z(capacity, *shape) for _, shape in carries["critic"]),
     }
 
 
+# The draws a stored carry leaf can take, by the name a model entry gives.
+CARRY_DRAWS = {
+    "normal": lambda x, g: x.normal_(0.0, 0.5, generator=g),
+    "uniform": lambda x, g: x.uniform_(-0.5, 0.5, generator=g),
+}
+
+
 def fill_arena(arena: Dict, priority: torch.Tensor, seed: int, episode_length: int,
-               priority_range: Sequence[float]) -> None:
+               priority_range: Sequence[float], carries: Dict[str, List]) -> None:
     """Fill a full arena in place: observations N(0, 1) (uint8 frames
     uniform over 0..255), actions U(-1, 1), rewards N(0, 1), discounts 1;
     the share ``seq_len / episode_length`` of the sequences, those that
-    cross an episode boundary, get one reset at a uniform position; stored
-    carries ``c ~ N(0, 0.25)``, ``h ~ U(-0.5, 0.5)``; priorities uniform
-    in ``priority_range``."""
+    cross an episode boundary, get one reset at a uniform position; each
+    stored carry leaf the draw that ``carries`` names for it (``CARRY_DRAWS``:
+    ``N(0, 0.25)`` or ``U(-0.5, 0.5)``), the actor's leaves first;
+    priorities uniform in ``priority_range``."""
     g = generator(seed, "arena", priority.device)
     obs = arena["obs"]
     if obs.dtype == torch.uint8:
@@ -97,10 +106,9 @@ def fill_arena(arena: Dict, priority: torch.Tensor, seed: int, episode_length: i
     crosses = torch.rand(cap, generator=g, device=reset.device) < seq_len / episode_length
     pos = torch.randint(0, seq_len, (cap,), generator=g, device=reset.device)
     reset[torch.arange(cap, device=reset.device), pos] = crosses.float()
-    for key in ("carry_actor", "carry_critic"):
-        c, h = arena[key]
-        c.normal_(0.0, 0.5, generator=g)
-        h.uniform_(-0.5, 0.5, generator=g)
+    for net in ("actor", "critic"):
+        for (draw, _), leaf in zip(carries[net], arena[f"carry_{net}"], strict=True):
+            CARRY_DRAWS[draw](leaf, g)
     priority.uniform_(*priority_range, generator=g)
 
 

@@ -79,3 +79,13 @@ def busy_ms(ctx: Dict) -> Optional[float]:
     """Device-busy ms a unit."""
     v = per_unit(ctx, "busy_s")
     return None if v is None else 1e3 * v
+
+
+def kernel_ms(ctx: Dict, match: str) -> Optional[float]:
+    """Device ms a unit in the kernels whose name holds ``match``; None
+    where the trace has none."""
+    t = ctx.get("trace")
+    if not t or not t["units"]:
+        return None
+    n, seconds = kernel_times(t, match)
+    return 1e3 * seconds / t["units"] if n else None

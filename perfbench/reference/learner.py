@@ -8,6 +8,9 @@ loss ``-mean Q(s, mu(s))`` through the online critic as it was before this
 update; per net, clip by global norm (scale by ``c / g`` when ``g >= c``)
 and Adam (``eps`` outside the root, bias corrections in float32); Polyak
 targets; the sequence priority ``eta max|td| + (1 - eta) mean|td| + 1e-6``.
+The one-step nets are the model entry's ``NETS`` (``LearnerState.nets``;
+the LSTM's of ``nets.py`` by default), so that any core whose carry the
+arena stores per sequence runs the same update.
 
 Sampling is proportional to ``p ** alpha`` by inverse CDF over the
 uniforms the benchmark drew; IS weights are ``(N P(i)) ** -beta`` over
@@ -17,12 +20,13 @@ their batch maximum, with beta annealed linearly from ``beta0`` to 1.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from perfbench.reference.nets import Params, Precision, actor_step, critic_step
+from perfbench.reference import nets as lstm_nets
+from perfbench.reference.nets import Params, Precision
 
 PRIORITY_EPS = 1e-6
 
@@ -43,14 +47,15 @@ class LearnerState:
     adam_actor: Adam
     adam_critic: Adam
     step: int = 0
+    nets: Any = lstm_nets  # the model entry's NETS: actor_step, critic_step
 
 
-def fresh_state(actor: Params, critic: Params) -> LearnerState:
+def fresh_state(actor: Params, critic: Params, nets: Any = lstm_nets) -> LearnerState:
     zeros = lambda p: {k: torch.zeros_like(v) for k, v in p.items()}  # noqa: E731
     copy = lambda p: {k: v.clone() for k, v in p.items()}  # noqa: E731
     return LearnerState(copy(actor), copy(critic), copy(actor), copy(critic),
                         Adam(0, zeros(actor), zeros(actor)),
-                        Adam(0, zeros(critic), zeros(critic)))
+                        Adam(0, zeros(critic), zeros(critic)), nets=nets)
 
 
 # ------------------------------------------------------------------ replay
@@ -128,30 +133,30 @@ def huber(x):
 
 
 # ------------------------------------------------------------------ unrolls
-def unroll_actor(p, carry, obs, reset, pr):
+def unroll_actor(nets, p, carry, obs, reset, pr):
     """Actor over ``[B, T, ...]``: ``(actions [B, T, A], carry)``."""
     out = []
     for s in range(obs.shape[1]):
-        a, carry = actor_step(p, obs[:, s], carry, reset[:, s], pr)
+        a, carry = nets.actor_step(p, obs[:, s], carry, reset[:, s], pr)
         out.append(a)
     return torch.stack(out, 1), carry
 
 
-def unroll_critic(p, carry, obs, action, reset, pr):
+def unroll_critic(nets, p, carry, obs, action, reset, pr):
     """Critic over ``[B, T, ...]`` with given actions: ``(q [B, T], carry)``."""
     out = []
     for s in range(obs.shape[1]):
-        q, carry = critic_step(p, obs[:, s], action[:, s], carry, reset[:, s], pr)
+        q, carry = nets.critic_step(p, obs[:, s], action[:, s], carry, reset[:, s], pr)
         out.append(q)
     return torch.stack(out, 1), carry
 
 
-def unroll_pi_q(pa, pc, ca, cc, obs, reset, pr):
+def unroll_pi_q(nets, pa, pc, ca, cc, obs, reset, pr):
     """Actor and critic together, ``q_t = Q(o_t, mu(o_t))``: ``q [B, T]``."""
     out = []
     for s in range(obs.shape[1]):
-        a, ca = actor_step(pa, obs[:, s], ca, reset[:, s], pr)
-        q, cc = critic_step(pc, obs[:, s], a, cc, reset[:, s], pr)
+        a, ca = nets.actor_step(pa, obs[:, s], ca, reset[:, s], pr)
+        q, cc = nets.critic_step(pc, obs[:, s], a, cc, reset[:, s], pr)
         out.append(q)
     return torch.stack(out, 1), (ca, cc)
 
@@ -200,17 +205,17 @@ def burn_in(st: LearnerState, hp: HP, batch: Dict, pr: Precision):
     sl = slice(0, hp.burnin)
     obs, act, rst = batch["obs"][:, sl], batch["action"][:, sl], batch["reset"][:, sl]
     with torch.no_grad():
-        _, ca_on = unroll_actor(st.actor, ca0, obs, rst, pr)
-        _, ca_tg = unroll_actor(st.target_actor, ca0, obs, rst, pr)
-        _, cc_on = unroll_critic(st.critic, cc0, obs, act, rst, pr)
-        _, cc_tg = unroll_critic(st.target_critic, cc0, obs, act, rst, pr)
+        _, ca_on = unroll_actor(st.nets, st.actor, ca0, obs, rst, pr)
+        _, ca_tg = unroll_actor(st.nets, st.target_actor, ca0, obs, rst, pr)
+        _, cc_on = unroll_critic(st.nets, st.critic, cc0, obs, act, rst, pr)
+        _, cc_tg = unroll_critic(st.nets, st.target_critic, cc0, obs, act, rst, pr)
     return ca_on, ca_tg, cc_on, cc_tg
 
 
 def targets(st: LearnerState, hp: HP, batch: Dict, ca_tg, cc_tg, pr: Precision):
     w = slice(hp.burnin, hp.burnin + hp.unroll + hp.n_step)
     with torch.no_grad():
-        q_tg, _ = unroll_pi_q(st.target_actor, st.target_critic, ca_tg, cc_tg,
+        q_tg, _ = unroll_pi_q(st.nets, st.target_actor, st.target_critic, ca_tg, cc_tg,
                               batch["obs"][:, w], batch["reset"][:, w], pr)
         return n_step_targets(batch["reward"][:, w], batch["discount"][:, w],
                               batch["reset"][:, w], q_tg, hp.n_step, hp.gamma)
@@ -240,13 +245,13 @@ def update(st: LearnerState, hp: HP, batch: Dict, weights: torch.Tensor,
     obs, act, rst = batch["obs"][:, w], batch["action"][:, w], batch["reset"][:, w]
 
     cp = {k: v.detach().requires_grad_(True) for k, v in st.critic.items()}
-    q, _ = unroll_critic(cp, cc_on, obs, act, rst, pr)
+    q, _ = unroll_critic(st.nets, cp, cc_on, obs, act, rst, pr)
     td = y - q
     critic_loss = (weights[:, None] * huber(td)).mean()
     g_critic = dict(zip(cp, torch.autograd.grad(critic_loss, list(cp.values()))))
 
     ap = {k: v.detach().requires_grad_(True) for k, v in st.actor.items()}
-    q_pi, _ = unroll_pi_q(ap, st.critic, ca_on, cc_on, obs, rst, pr)
+    q_pi, _ = unroll_pi_q(st.nets, ap, st.critic, ca_on, cc_on, obs, rst, pr)
     actor_loss = -q_pi.mean()
     g_actor = dict(zip(ap, torch.autograd.grad(actor_loss, list(ap.values()))))
 
@@ -257,7 +262,8 @@ def update(st: LearnerState, hp: HP, batch: Dict, weights: torch.Tensor,
         actor, adam_a = _adam(st.actor, g_actor, st.adam_actor, hp.actor_lr)
         polyak = lambda new, old: {k: hp.tau * new[k] + (1 - hp.tau) * old[k] for k in old}  # noqa: E731
         new = LearnerState(actor, critic, polyak(actor, st.target_actor),
-                           polyak(critic, st.target_critic), adam_a, adam_c, st.step + 1)
+                           polyak(critic, st.target_critic), adam_a, adam_c, st.step + 1,
+                           st.nets)
         prio = priorities(td.detach(), hp.eta)
     losses = (critic_loss.item(), actor_loss.item())
     return new, prio, losses, {"actor": g_actor, "critic": g_critic}
@@ -270,7 +276,7 @@ def initial_priority(st: LearnerState, hp: HP, batch: Dict, pr: Precision) -> to
     ca_on, ca_tg, cc_on, cc_tg = burn_in(st, hp, batch, pr)
     y = targets(st, hp, batch, ca_tg, cc_tg, pr)
     w = slice(hp.burnin, hp.burnin + hp.unroll)
-    q, _ = unroll_critic(st.critic, cc_on, batch["obs"][:, w], batch["action"][:, w],
+    q, _ = unroll_critic(st.nets, st.critic, cc_on, batch["obs"][:, w], batch["action"][:, w],
                          batch["reset"][:, w], pr)
     return priorities(y - q, hp.eta)
 

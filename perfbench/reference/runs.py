@@ -23,10 +23,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from perfbench import inputs
+from perfbench import inputs, models
 from perfbench.compare import change_norms, norms
 from perfbench.reference import learner as L
-from perfbench.reference.nets import Precision, actor_step, critic_step, full_precision, param_shapes
+from perfbench.reference.nets import Precision, actor_step, critic_step, full_precision
 from perfbench.traffic.standin import StandIn
 
 
@@ -39,11 +39,6 @@ def hyper(conf: Dict) -> L.HP:
         raise NotImplementedError("the reference has no target smoothing or twin critic")
     return L.HP(a["burnin"], a["unroll"], a["n_step"], a["gamma"], a["tau"], a["eta"],
                 a["actor_lr"], a["critic_lr"], a["grad_clip"])
-
-
-def shapes(conf: Dict):
-    env, nets = conf["env"], conf["nets"]
-    return param_shapes(env["obs_shape"], env["action_dim"], nets["hidden"], nets["pixels"])
 
 
 def schedule(conf: Dict):
@@ -91,17 +86,20 @@ def _moment(st: L.LearnerState) -> Dict:
 def learn(conf: Dict, traffic: Dict, seed: int, device,
           program_idx: Optional[List[torch.Tensor]], precision: str = "float32",
           rows: Optional[int] = None) -> Dict:
-    """The learn cell's first ``check_units`` updates."""
+    """The learn cell's first ``check_units`` updates, on the nets, weights
+    and arena layout of the configuration's model entry."""
     full_precision()
     pr, hp, t, env = Precision(precision), hyper(conf), conf["trainer"], conf["env"]
-    w0 = inputs.make_weights(shapes(conf), seed, device)
-    cap = t["capacity"]
-    arena = inputs.alloc_arena(cap, hp.burnin + hp.unroll + hp.n_step, env["obs_shape"],
-                               env["obs_dtype"], env["action_dim"], conf["nets"]["hidden"], device)
+    model = models.entry(conf)
+    w0 = inputs.make_weights(model.shapes(conf), seed, device)
+    cap, carries = t["capacity"], model.carries(conf)
+    arena = inputs.alloc_arena(cap, model.seq_len(conf), env["obs_shape"], env["obs_dtype"],
+                               env["action_dim"], carries, device)
     priority = torch.zeros(cap, device=device)
-    inputs.fill_arena(arena, priority, seed, env["episode_length"], traffic["priority_range"])
+    inputs.fill_arena(arena, priority, seed, env["episode_length"], traffic["priority_range"],
+                      carries)
     exact = priority.double()
-    st = L.fresh_state(w0["actor"], w0["critic"])
+    st = L.fresh_state(w0["actor"], w0["critic"], model.NETS)
     losses, moment, misses, used = [], None, 0, []
     for k, u in enumerate(learn_draws(conf, seed, device, traffic["check_units"])):
         idx = None if program_idx is None else [program_idx[k]]
@@ -120,14 +118,14 @@ def train(conf: Dict, seed: int, env_seed: int, device,
           program_idx: Optional[List[torch.Tensor]], phases: int,
           precision: str = "float32", rows: Optional[int] = None) -> Dict:
     """The recipe's window-fill and replay-fill phases (``schedule``), then
-    ``phases`` train phases."""
+    ``phases`` train phases: the LSTM entry's nets and ``(c, h)`` carries."""
     full_precision()
     pr, hp, t, env = Precision(precision), hyper(conf), conf["trainer"], conf["env"]
     e, a_dim, hid = t["num_envs"], env["action_dim"], conf["nets"]["hidden"]
     seq_len = hp.burnin + hp.unroll + hp.n_step
     warm, fill = schedule(conf)
     draws = train_draws(conf, seed, device, warm, fill, phases)
-    w0 = inputs.make_weights(shapes(conf), seed, device)
+    w0 = inputs.make_weights(models.entry(conf).shapes(conf), seed, device)
     st = L.fresh_state(w0["actor"], w0["critic"])
     dyn = StandIn(env_seed, env["obs_shape"][0], a_dim, env["episode_length"])
     obs = torch.as_tensor(dyn.reset(inputs.pop(draws, (e,)).cpu().numpy()), device=device)

@@ -23,8 +23,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from perfbench import harness, inputs  # noqa: E402
-from perfbench.reference.runs import shapes  # noqa: E402
+from perfbench import harness, inputs, models  # noqa: E402
 from perfbench.traffic.client import Client, nearest_rank  # noqa: E402
 from perfbench.traffic.standin import StandIn  # noqa: E402
 
@@ -50,7 +49,7 @@ def main() -> int:
     cfg = program.experiment(conf, 0)
     actor = cfg.build_agent(types.SimpleNamespace(
         spec=EnvSpec("sweep", tuple(env["obs_shape"]), env["action_dim"]))).actor
-    weights = inputs.make_weights(shapes(conf), args.seed, dev)
+    weights = inputs.make_weights(models.entry(conf).shapes(conf), args.seed, dev)
     service = PolicyService(
         actor, weights["actor"], obs_shape=tuple(env["obs_shape"]),
         max_sessions=mix["max_sessions"], max_batch=max(mix["bucket_sizes"]),

@@ -9,19 +9,22 @@ import torch
 from perfbench import control, harness
 from perfbench.tests import tiny
 
-CELLS = {"learn": "walker_r2d2.learn", "train": "walker_r2d2.train"}
+KINDS = ["learn", "train", "learn_dp"]
 
 
 def _fails(reading, limits):
-    return any(reading[k] > limits[k] for k in limits)
+    return any(reading[k] > limits[k] for k in limits if k in reading)
 
 
-@pytest.mark.parametrize("kind", sorted(CELLS))
+@pytest.mark.parametrize("kind", KINDS)
 def test_control_and_faults_fail_at_toy_size(kind):
-    limits = harness.find_cell(CELLS[kind]).limits
-    readings = control.training_readings(tiny.cell(kind, tiny.config_file("pendulum_tiny")), 13,
-                                         torch.device("cpu"))
-    for name in ("control", "half_batch", "index_altered"):
+    c = tiny.cell(kind, tiny.config_file("pendulum_tiny"))
+    limits = c.limits
+    readings = control.training_readings(c, 13, torch.device("cpu"))
+    names = ["control", "half_batch", "index_altered"]
+    names += ["exchange_left_out"] if kind == "learn_dp" else []
+    assert set(names) == set(readings)
+    for name in names:
         assert _fails(readings[name], limits), (name, readings[name])
 
 

@@ -38,7 +38,7 @@ def test_no_file_imports_jax_or_the_jax_package(path):
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for path in sorted((HERE / "reference").rglob("*.py")):
+    for path in sorted([*(HERE / "reference").rglob("*.py"), *(HERE / "models").rglob("*.py")]):
         assert PROGRAM not in set(_imports(path)), path
 
 
@@ -57,13 +57,14 @@ import json, sys
 sys.path.insert(0, {root!r})
 from perfbench.tests import tiny
 from perfbench import harness
-kw = {{"rate_per_s": 400, "warmup_s": 0.1}} if {kind!r} == "serve" else {{}}
+kw = {{"serve": {{"rate_per_s": 400, "warmup_s": 0.1}},
+      "learn_dp": {{"world": 2}}}}.get({kind!r}, {{}})
 _, _, out = tiny.run(tiny.cell({kind!r}, tiny.config_file("pendulum_tiny"), **kw), seconds=0.1)
 print(json.dumps({{"correct": out["correct"], "loaded": sorted({{m.split(".")[0] for m in sys.modules}})}}))
 """
 
 
-@pytest.mark.parametrize("kind", ["learn", "train", "serve"])
+@pytest.mark.parametrize("kind", ["learn", "train", "serve", "learn_dp"])
 def test_a_dry_run_of_each_loop_loads_no_jax(kind):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", DRY_RUN.format(root=str(ROOT), kind=kind)],

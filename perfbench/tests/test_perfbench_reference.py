@@ -8,6 +8,7 @@ import torch
 
 from perfbench import inputs
 from perfbench.drivers import program
+from perfbench.models import lstm
 from perfbench.reference import learner as L
 from perfbench.reference.nets import Precision, param_shapes
 from perfbench.tests import tiny
@@ -24,8 +25,9 @@ def test_one_update_matches_the_programs_learner_step():
     a = cfg.agent
     seq, b, h = a.seq_len, 6, cfg.hidden
     w = inputs.make_weights(param_shapes((24,), 6, h, False), 7, "cpu")
-    leaves = inputs.alloc_arena(b, seq, (24,), "float32", 6, h, "cpu")
-    inputs.fill_arena(leaves, torch.zeros(b), 7, 5, (0.5, 1.5))
+    carries = lstm.carries({"nets": {"hidden": h}})
+    leaves = inputs.alloc_arena(b, seq, (24,), "float32", 6, carries, "cpu")
+    inputs.fill_arena(leaves, torch.zeros(b), 7, 5, (0.5, 1.5), carries)
     weights = torch.rand(b)
     new, prio, metrics = agent.learner_step(program.train_state(agent, w),
                                             program.sequence_batch(leaves), weights)

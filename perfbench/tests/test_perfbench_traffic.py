@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from perfbench import inputs
+from perfbench.models import lstm
 from perfbench.traffic.client import Client, nearest_rank
 from perfbench.traffic.standin import StandIn
 
@@ -78,9 +79,10 @@ def test_weights_arena_and_draws_repeat_per_seed(seed):
     assert float(w1["critic"]["head.weight"].abs().max()) <= 3e-3
 
     def arena(s):
-        leaves = inputs.alloc_arena(50, 9, (5,), "float32", 2, 4, "cpu")
+        carries = lstm.carries({"nets": {"hidden": 4}})
+        leaves = inputs.alloc_arena(50, 9, (5,), "float32", 2, carries, "cpu")
         prio = torch.zeros(50)
-        inputs.fill_arena(leaves, prio, s, 18, (0.5, 1.5))
+        inputs.fill_arena(leaves, prio, s, 18, (0.5, 1.5), carries)
         return leaves, prio
 
     (a, pa), (b, pb), (c, _) = arena(seed), arena(seed), arena(seed + 1)

@@ -48,15 +48,28 @@ def tiny_pixels():
                                     capacity=32, min_replay=8))
 
 
+# Kinds that no cell of the manifest runs yet, with the mix that stands for
+# them: the learn loop on several chips, whose cell waits on the program
+# (PERF.md, Open questions), on a learn cell's frame.
+STAND_IN = {"learn_dp": ("learn_dp4", "learn")}
+
+
 def cell(kind: str, conf: dict, limits=None, **traffic) -> harness.Cell:
-    base = json.loads((harness.HERE / "traffic" / f"{kind}.json").read_text())
-    base.update(traffic)
+    """The first cell of the manifest whose mix is of ``kind``, on ``conf``,
+    its mix's values replaced by ``traffic``'s.  A kind of ``STAND_IN`` takes
+    its mix file and the first cell of the other kind's workload, metrics and
+    limits (with ``rank_faults`` 0), its chips the mix's ``world``."""
     manifest = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
-    name = {"learn": "walker_r2d2.learn", "train": "walker_r2d2.train",
-            "serve": "walker_r2d2.serve"}[kind]
-    real = harness.find_cell(name, manifest)
-    return harness.Cell(workload=dict(real.workload), config=conf, traffic=base,
-                        limits=limits or real.limits, end_to_end=real.end_to_end,
+    cells = [harness.find_cell(w["name"], manifest) for w in manifest["workloads"]]
+    mix, frame_kind = STAND_IN.get(kind, (None, kind))
+    real = next(c for c in cells if c.traffic["kind"] == frame_kind)
+    workload, base, frame_limits = dict(real.workload), dict(real.traffic), real.limits
+    if mix is not None:
+        base = harness.load_json(harness.HERE / "traffic" / f"{mix}.json")
+        workload["chips"] = base["world"]
+        frame_limits = dict(real.limits, rank_faults=0)
+    return harness.Cell(workload=workload, config=conf, traffic=dict(base, **traffic),
+                        limits=limits or frame_limits, end_to_end=real.end_to_end,
                         per_layer=real.per_layer)
 
 
