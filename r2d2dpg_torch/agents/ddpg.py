@@ -37,6 +37,15 @@ the critic and actor gradients over the agent's ``mesh``
 ``lax.pmean``.  Each net's gradients travel as one flattened buffer, so a
 step costs two collectives.
 
+Nets whose core has a sequence form (``core="granite_hybrid"``) run each
+unroll as one call over the whole ``[T, B, ...]`` sequence
+(``_Net.apply_seq``) instead of a Python loop of steps; the actor's
+sequence runs before the critic's where Q takes the actor's actions.
+Burn-in runs wherever a core carries state.  ``replay_state`` is R2D2's
+choice of where a replayed sequence's state starts: ``"stored"`` (the
+carry the collector had, which the arena stores) or ``"zero_start"`` (the
+core's empty state, and the arena stores no carry).
+
 On a card and off a mesh ``learner_step`` replays its eager body,
 ``_learner_step_eager``, as one CUDA graph per input signature
 (``agents/graph.py``); on the CPU and on a mesh it runs the body itself.
@@ -121,6 +130,8 @@ class AgentConfig:
     twin_critic: bool = False
     target_policy_sigma: float = 0.0
     target_policy_clip: float = 0.5
+    # R2D2's "stored state" or "zero start state" for replayed sequences.
+    replay_state: str = "stored"
 
     @property
     def seq_len(self) -> int:
@@ -206,7 +217,7 @@ def _stack2(a: Params, b: Params) -> Params:
 
 
 def _stack_n(carry: Carry, n: int) -> Carry:
-    return tuple(torch.stack([x] * n) for x in carry)
+    return tree_map(lambda x: torch.stack([x] * n), carry)
 
 
 def _concat(a: Params, b: Params) -> Params:
@@ -214,11 +225,11 @@ def _concat(a: Params, b: Params) -> Params:
 
 
 def _unstack2(carry: Carry) -> Tuple[Carry, Carry]:
-    return tuple(x[0] for x in carry), tuple(x[1] for x in carry)
+    return _member(carry, 0), _member(carry, 1)
 
 
 def _split_at(carry: Carry, n: int) -> Tuple[Carry, Carry]:
-    return tuple(x[:n] for x in carry), tuple(x[n:] for x in carry)
+    return tree_map(lambda x: x[:n], carry), tree_map(lambda x: x[n:], carry)
 
 
 def _member(tree, i: int):
@@ -235,6 +246,13 @@ class R2D2DPG:
     """Agent: networks + optimizer config + the learner step."""
 
     def __init__(self, actor: ActorNet, critic: CriticNet, config: AgentConfig):
+        if config.replay_state not in ("stored", "zero_start"):
+            raise ValueError(f"unknown replay_state {config.replay_state!r}")
+        for net in (actor, critic):
+            if net.sequence_form and (config.fused_burnin or config.twin_critic):
+                raise ValueError(
+                    f"core {net.core_name!r} takes no ensemble axis: set "
+                    "fused_burnin=False and twin_critic=False")
         self.actor = actor
         self.critic = critic
         self.config = config
@@ -299,6 +317,8 @@ class R2D2DPG:
 
     # --------------------------------------------------------------- unrolls
     def _unroll_actor(self, params, carry, obs_tm, reset_tm):
+        if self.actor.sequence_form:
+            return self.actor.apply_seq(params, obs_tm, carry, reset_tm)
         return unroll(
             lambda c, o, r: self.actor.apply_params(params, o, c, r),
             carry,
@@ -307,6 +327,8 @@ class R2D2DPG:
         )
 
     def _unroll_critic(self, params, carry, obs_tm, act_tm, reset_tm):
+        if self.critic.sequence_form:
+            return self.critic.apply_seq(params, obs_tm, act_tm, carry, reset_tm)
         return unroll(
             lambda c, o, a, r: self.critic.apply_params(params, o, a, c, r),
             carry,
@@ -317,6 +339,10 @@ class R2D2DPG:
 
     def _unroll_pi_q(self, actor_params, critic_params, ca, cc, obs_tm, reset_tm):
         """Actor and critic advanced together: a_t = mu(o_t), q_t = Q(o_t, a_t)."""
+        if self.actor.sequence_form and self.critic.sequence_form:
+            a_tm, ca = self._unroll_actor(actor_params, ca, obs_tm, reset_tm)
+            q_tm, cc = self._unroll_critic(critic_params, cc, obs_tm, a_tm, reset_tm)
+            return a_tm, q_tm, (ca, cc)
 
         def step(carry, o, r):
             ca, cc = carry
@@ -347,6 +373,12 @@ class R2D2DPG:
         target critics in twin mode.
         """
         ap, cp = state.target_actor_params, state.target_critic_params
+        if self.actor.sequence_form and self.critic.sequence_form:
+            a_tm, _ = self._unroll_actor(ap, ca_tg, obs_tm, reset_tm)
+            if eps_tm is not None:
+                a_tm = (a_tm + eps_tm).clamp(-1.0, 1.0)
+            q_tm, _ = self._unroll_critic(cp, cc_tg, obs_tm, a_tm, reset_tm)
+            return q_tm
 
         def step(carry, o, r, *e):
             ca, cc = carry
@@ -367,14 +399,19 @@ class R2D2DPG:
         """Warm all four nets' carries over the burn-in prefix, no gradient.
 
         With twin critics the stored critic carry seeds BOTH members, and
-        the critic carries come back stacked ``[2, B, H]``.
+        the critic carries come back stacked ``[2, B, H]``.  Under
+        ``zero_start`` every sequence starts from the nets' empty state.
         """
         cfg = self.config
         twin = cfg.twin_critic
         nq = 2 if twin else 1
         ca0, cc0 = batch.carries["actor"], batch.carries["critic"]
+        if cfg.replay_state == "zero_start":
+            rows, dev = batch.obs.shape[0], batch.obs.device
+            ca0 = self.actor.initial_carry(rows, dev)
+            cc0 = self.critic.initial_carry(rows, dev)
         cc0e = _stack_n(cc0, nq) if twin else cc0
-        if cfg.burnin == 0 or not (self.actor.use_lstm or self.critic.use_lstm):
+        if cfg.burnin == 0 or not (self.actor.stateful or self.critic.stateful):
             return ca0, ca0, cc0e, cc0e
         obs_b = time_major(batch.obs[:, : cfg.burnin])
         act_b = time_major(batch.action[:, : cfg.burnin])
@@ -384,11 +421,11 @@ class R2D2DPG:
         if cfg.fused_burnin:
             # One unroll per net: online and target params stacked on a
             # leading axis ([2], or [4] with twin critics), final carry kept.
-            if self.actor.use_lstm:
+            if self.actor.stateful:
                 p2 = _stack2(state.actor_params, state.target_actor_params)
                 _, c2 = self._unroll_actor(p2, _stack_n(ca0, 2), obs_b, reset_b)
                 ca_on, ca_tg = _unstack2(c2)
-            if self.critic.use_lstm:
+            if self.critic.stateful:
                 on, tg = state.critic_params, state.target_critic_params
                 p_all = _concat(on, tg) if twin else _stack2(on, tg)
                 _, c_all = self._unroll_critic(
@@ -396,12 +433,12 @@ class R2D2DPG:
                 )
                 cc_on, cc_tg = _split_at(c_all, nq) if twin else _unstack2(c_all)
         else:
-            if self.actor.use_lstm:
+            if self.actor.stateful:
                 _, ca_on = self._unroll_actor(state.actor_params, ca0, obs_b, reset_b)
                 _, ca_tg = self._unroll_actor(
                     state.target_actor_params, ca0, obs_b, reset_b
                 )
-            if self.critic.use_lstm:
+            if self.critic.stateful:
                 _, cc_on = self._unroll_critic(
                     state.critic_params, cc0e, obs_b, act_b, reset_b
                 )

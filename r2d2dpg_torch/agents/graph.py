@@ -15,8 +15,13 @@ tensors, all on the caller's current stream, inside the span
   falls inside the step), ``cpu`` (an input is not on a card),
   ``instrumented`` (a ``TorchDispatchMode`` such as ``FlopCounterMode`` is
   on, which has to see the ops, or autograd's anomaly mode, which syncs
-  inside the step) and ``cache_full`` (``MAX_GRAPHS`` signatures are
-  captured already).  The registry counter
+  inside the step), ``cache_full`` (``MAX_GRAPHS`` signatures are
+  captured already) and ``state_size`` (the learner state of a new
+  signature is over ``MAX_GRAPH_STATE_BYTES``: a graph holds its static
+  inputs, its outputs and the fresh copies a replay hands back, three
+  more copies of the state, which at walker_granite's 24 GB do not fit
+  beside it on one card; so large a step launches few kernels for its
+  work).  The registry counter
   ``r2d2dpg_learner_graph_total{event, reason}`` counts each call:
   ``capture`` (the call that captured), ``replay`` or ``eager`` with its
   reason.
@@ -50,12 +55,14 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import _get_current_dispatch_mode
 
-from r2d2dpg_torch.tree import tree_leaves, tree_with_leaves
+from r2d2dpg_torch.tree import tree_leaves, tree_nbytes, tree_with_leaves
 from r2d2dpg_torch.utils.profiling import annotate
 
 GRAPH_METRIC = "r2d2dpg_learner_graph_total"
 # Signatures a learner keeps graphs for; a trainer uses one (its batch).
 MAX_GRAPHS = 4
+# The largest learner state (params, targets, Adam moments) a graph copies.
+MAX_GRAPH_STATE_BYTES = 4 << 30
 
 
 def _counter():
@@ -195,12 +202,15 @@ class LearnerGraphs:
                 graph = self._graphs.get(key)
                 if graph is not None:
                     _count("replay")
+                elif tree_nbytes(state) > MAX_GRAPH_STATE_BYTES:
+                    reason = "state_size"
                 elif len(self._graphs) < MAX_GRAPHS:
                     graph = self._graphs[key] = _StepGraph(agent, args, leaves)
                     _count("capture")
+                else:
+                    reason = "cache_full"
                 if graph is not None:
                     with annotate("learner/graph_replay"):
                         return graph.replay(state, leaves)
-            reason = "cache_full"
         _count("eager", reason)
         return agent._learner_step_eager(state, batch, is_weights, normal)

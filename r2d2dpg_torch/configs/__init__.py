@@ -7,19 +7,27 @@ constants and env arguments: ``pendulum_tiny``, ``pendulum_ddpg`` and
 (humanoid-run, action repeat 2) and ``cheetah_pixels`` (cheetah-run from
 64x64 frames, action repeat 4) on the host DM-Control pool
 (``envs/dmc_host.py``), which needs mujoco and dm_control where it runs.
+
+``walker_granite`` is ``walker_r2d2`` with the Granite-4.0-H hybrid core
+(``core="granite_hybrid"``, ``models/granite.py``): the first period of
+granite-4.0-h-micro's layers at its published widths, R2D2's zero-start
+replay, one net at a time through burn-in, and an attention context of
+one episode (the env's ``episode_length``, 500 decisions).  Its widths
+read as the config's own attributes (``cfg.mamba_d_state``), from
+``granite``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
 from r2d2dpg_torch.agents.ddpg import AgentConfig, R2D2DPG
 from r2d2dpg_torch.device import DeviceLike, resolve_device
 from r2d2dpg_torch.envs.core import Environment
-from r2d2dpg_torch.models import ActorNet, CriticNet
+from r2d2dpg_torch.models import GRANITE_4_0_H_MICRO, ActorNet, CriticNet, GraniteSpec
 from r2d2dpg_torch.training.trainer import Trainer, TrainerConfig
 
 
@@ -35,6 +43,17 @@ class ExperimentConfig:
     pixels: bool = False
     hidden: int = 256
     compute_dtype: str = "float32"
+    # The nets' core: "lstm" (LSTM or dense, by use_lstm) or
+    # "granite_hybrid" (its widths in ``granite``).
+    core: str = "lstm"
+    granite: Optional[GraniteSpec] = None
+
+    def __getattr__(self, name: str):
+        """The hybrid core's widths by their published names."""
+        spec = self.__dict__.get("granite")
+        if spec is not None and not name.startswith("_") and hasattr(spec, name):
+            return getattr(spec, name)
+        raise AttributeError(name)
 
     def build(self, device: DeviceLike = None) -> Trainer:
         """The phase-locked trainer on ``device`` (``cuda`` by default);
@@ -69,7 +88,10 @@ class ExperimentConfig:
             use_lstm=self.use_lstm,
             pixels=self.pixels,
             dtype=getattr(torch, self.compute_dtype),
+            core=self.core,
         )
+        if self.core != "lstm":  # attention's context: one episode
+            nets.update(granite=self.granite, context=env.spec.episode_length)
         agent_cfg = (
             dataclasses.replace(self.agent, axis_name=axis_name)
             if axis_name != self.agent.axis_name
@@ -235,6 +257,19 @@ WALKER_R2D2_NS5 = dataclasses.replace(
     trainer=dataclasses.replace(WALKER_R2D2.trainer, sigma_max=0.4),
 )
 
+# walker_r2d2 with granite-4.0-h-micro's first period as the core.
+WALKER_GRANITE = dataclasses.replace(
+    WALKER_R2D2,
+    name="walker_granite",
+    use_lstm=False,
+    hidden=GRANITE_4_0_H_MICRO.hidden_size,
+    core="granite_hybrid",
+    granite=GRANITE_4_0_H_MICRO,
+    agent=dataclasses.replace(
+        WALKER_R2D2.agent, fused_burnin=False, replay_state="zero_start"
+    ),
+)
+
 # 4: long sequences (seq-len 85 stored: burn-in 40 + unroll 40 + n-step 5).
 HUMANOID_R2D2 = ExperimentConfig(
     name="humanoid_r2d2",
@@ -316,6 +351,7 @@ CONFIGS: Dict[str, ExperimentConfig] = {
         PENDULUM_R2D2,
         WALKER_R2D2,
         WALKER_R2D2_NS5,
+        WALKER_GRANITE,
         HUMANOID_R2D2,
         CHEETAH_PIXELS,
         PENDULUM_TINY,

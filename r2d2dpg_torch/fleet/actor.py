@@ -89,6 +89,7 @@ from r2d2dpg_torch.fleet.transport import (
     to_host,
     unpack_obj,
 )
+from r2d2dpg_torch.models.actor_critic import require_lstm_core
 from r2d2dpg_torch.obs import flight_event, get_registry, set_flight_identity
 from r2d2dpg_torch.obs import trace as obs_trace
 from r2d2dpg_torch.ops import sigma_ladder
@@ -138,6 +139,8 @@ class FleetActorTrainer(Trainer):
             raise ValueError(
                 f"actor_index {actor_index} outside fleet of {num_actors}"
             )
+        for net in (agent.actor, agent.critic):
+            require_lstm_core(net, "the fleet's actor")
         self.actor_index = actor_index
         self.num_actors = num_actors
         super().__init__(env, agent, config, device)

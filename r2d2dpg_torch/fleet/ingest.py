@@ -105,6 +105,7 @@ from r2d2dpg_torch.fleet.transport import (
     send_frame,
     to_host,
 )
+from r2d2dpg_torch.models.actor_critic import require_lstm_core
 from r2d2dpg_torch.obs import (
     flight_event,
     get_device_monitor,
@@ -1176,6 +1177,8 @@ class FleetLearner:
                 "FleetLearner needs a host-visible drain boundary; "
                 "shard_map trainers fuse whole phases; use the base Trainer"
             )
+        for net in (trainer.agent.actor, trainer.agent.critic):
+            require_lstm_core(net, "FleetLearner")
         if config.num_actors < 1:
             raise ValueError(
                 "FleetLearner requires num_actors >= 1 (fleet=off runs "

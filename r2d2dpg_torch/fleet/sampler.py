@@ -85,6 +85,7 @@ from r2d2dpg_torch.fleet.ingest import (
     staged_template,
     unpack_buffer,
 )
+from r2d2dpg_torch.models.actor_critic import require_lstm_core
 from r2d2dpg_torch.obs import flight_event, get_device_monitor, get_registry
 from r2d2dpg_torch.obs.device import count_flops
 from r2d2dpg_torch.obs import trace as obs_trace
@@ -366,6 +367,8 @@ class SamplerLearner:
             raise ValueError(
                 "SamplerLearner needs a host-visible learn boundary; "
                 "shard_map trainers fuse whole phases; use the base Trainer")
+        for net in (trainer.agent.actor, trainer.agent.critic):
+            require_lstm_core(net, "SamplerLearner")
         if config.num_actors < 1:
             raise ValueError(
                 "SamplerLearner requires num_actors >= 1 (replay shards "

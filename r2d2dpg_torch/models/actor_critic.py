@@ -8,6 +8,11 @@ Port of ``r2d2dpg_tpu/models/actor_critic.py``:
 - The recurrent state ``(c, h)`` is carried by the caller and zeroed where
   ``reset`` is set before the cell runs.  Feedforward nets
   (``use_lstm=False``) keep the same API with an empty carry ``()``.
+- ``core="granite_hybrid"`` puts the Granite-4.0-H hybrid stack
+  (``models/granite.py``) in the LSTM's place: its carry is a tuple tree,
+  one subtree per layer, and besides the step it has a sequence form over
+  ``[T, B, ...]`` (``apply_seq``) that the learner's unrolls run.  A carry
+  leaf has the batch axis first, after an optional ensemble axis.
 
 The LSTM cell equals flax's ``OptimizedLSTMCell`` in float32: gate order
 i, f, g, o; input kernels without bias, recurrent kernels with bias; no
@@ -50,9 +55,10 @@ from r2d2dpg_torch.models.torsos import (
     symmetric_uniform,
 )
 
-# () for feedforward nets, (c, h) for LSTM.
+# () for feedforward nets, (c, h) for LSTM, a tuple tree for granite_hybrid.
 Carry = Any
 Params = Dict[str, torch.Tensor]
+CORES = ("lstm", "granite_hybrid")
 
 
 def lstm_initial_carry(
@@ -67,16 +73,33 @@ def lstm_initial_carry(
     )
 
 
-def zeros_where_reset(carry: Carry, reset: torch.Tensor) -> Carry:
+def zeros_where_reset(carry: Carry, reset: torch.Tensor, row_ranks: Any = 1) -> Carry:
     """Zero the recurrent state for batch rows where ``reset`` is truthy.
 
-    Carry leaves are ``[..., B, H]`` (a leading ensemble axis is allowed), so
-    the ``[B]`` mask is aligned on the batch axis from the right.
+    A carry leaf is ``[..., B, *row]`` (a leading ensemble axis is allowed);
+    ``row_ranks`` gives ``len(row)``: one int for a leaf or a flat tuple of
+    leaves (the LSTM's ``(c, h)`` of ``[..., B, H]``: 1), or a tuple of such
+    for a tuple of sub-carries.  The ``[B]`` mask is aligned on the batch
+    axis from the right; an integer leaf (a position) is zeroed too.
     """
-    if not carry:
+    if isinstance(row_ranks, tuple):
+        return tuple(zeros_where_reset(c, reset, r) for c, r in zip(carry, row_ranks, strict=True))
+    if not isinstance(carry, torch.Tensor) and not carry:
         return carry
-    mask = reset.bool().unsqueeze(-1)
+    mask = reset.bool().view(reset.shape + (1,) * row_ranks)
+    if isinstance(carry, torch.Tensor):
+        return torch.where(mask, 0.0, carry) if carry.is_floating_point() else carry.masked_fill(mask, 0)
     return tuple(torch.where(mask, 0.0, x) for x in carry)
+
+
+def require_lstm_core(net: nn.Module, where: str) -> None:
+    """Refuse, with a ``ValueError`` naming it, a core that ``where`` cannot
+    run: its flat ``[B, H]`` carry slabs, stored carries or ensembles
+    assume the LSTM's (or the dense core's) carry."""
+    core = getattr(net, "core_name", "lstm")
+    if core != "lstm":
+        raise ValueError(f"{where} cannot run core {core!r}: it handles the "
+                         "LSTM's flat [B, H] carry only")
 
 
 def _gates(z: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -162,7 +185,7 @@ class _Core(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        self.use_lstm = use_lstm
+        self.hidden, self.use_lstm = hidden, use_lstm
         if use_lstm and dtype == torch.float32:
             self.cell = LSTMCell(in_features, hidden)
         elif use_lstm:
@@ -176,12 +199,42 @@ class _Core(nn.Module):
             return y, carry
         return torch.relu(self.dense(x)), carry
 
+    def initial_carry(self, batch_size: int, device=None) -> Carry:
+        return lstm_initial_carry(batch_size, self.hidden, self.use_lstm, device)
+
+
+def make_core(core: str, hidden: int, use_lstm: bool, dtype: torch.dtype,
+              granite=None, context: int = 1) -> nn.Module:
+    """``_Core`` (LSTM or dense, by ``use_lstm``) for ``"lstm"``; the hybrid
+    stack of ``granite`` (a ``GraniteSpec``, the published widths when
+    None) for ``"granite_hybrid"``, float32 only."""
+    if core == "lstm":
+        return _Core(hidden, hidden, use_lstm, dtype)
+    if core != "granite_hybrid":
+        raise ValueError(f"unknown core {core!r}; have {CORES}")
+    from r2d2dpg_torch.models.granite import GRANITE_4_0_H_MICRO, GraniteHybridCore
+
+    if dtype != torch.float32:
+        raise ValueError("core 'granite_hybrid' computes in float32 only")
+    return GraniteHybridCore(hidden, granite or GRANITE_4_0_H_MICRO, context)
+
 
 class _Net(nn.Module):
     """What the actor and critic share: init into a params dict, and apply."""
 
     hidden: int
     use_lstm: bool
+    core_name: str = "lstm"
+
+    @property
+    def stateful(self) -> bool:
+        """The core carries state (burn-in has something to warm)."""
+        return self.use_lstm or self.core_name != "lstm"
+
+    @property
+    def sequence_form(self) -> bool:
+        """The core has a sequence form (``apply_seq``) besides its step."""
+        return hasattr(self.core, "sequence")
 
     def init_params(
         self, generator: Optional[torch.Generator] = None, device=None
@@ -202,8 +255,16 @@ class _Net(nn.Module):
         """Run the net on ``params`` (flax's ``module.apply(params, ...)``)."""
         return functional_call(self, params, args)
 
+    def apply_seq(self, params: Params, *args):
+        """The sequence form on ``params``: the step's arguments with a
+        leading time axis, ``-> (outputs [T, B, ...], carry after the last step)``."""
+        return functional_call(self, params, args, {"sequence": True})
+
     def initial_carry(self, batch_size: int, device=None) -> Carry:
-        return lstm_initial_carry(batch_size, self.hidden, self.use_lstm, device)
+        return self.core.initial_carry(batch_size, device)
+
+    def _core(self, x, carry, reset, sequence: bool):
+        return (self.core.sequence if sequence else self.core)(x, carry, reset)
 
 
 ObsShape = Union[int, Sequence[int]]
@@ -235,19 +296,24 @@ class ActorNet(_Net):
         pixels: bool = False,
         action_scale: float = 1.0,
         dtype: torch.dtype = torch.float32,
+        core: str = "lstm",
+        granite=None,
+        context: int = 1,
     ):
         super().__init__()
-        self.hidden, self.use_lstm = hidden, use_lstm
+        self.hidden, self.use_lstm, self.core_name = hidden, use_lstm, core
         self.action_scale = action_scale
         self.torso = _make_torso(obs_shape, pixels, hidden, dtype)
-        self.core = _Core(hidden, hidden, use_lstm, dtype)
+        self.core = make_core(core, hidden, use_lstm, dtype, granite, context)
         self.head = Dense(hidden, action_dim, symmetric_uniform(3e-3), dtype)
 
     def forward(
-        self, obs: torch.Tensor, carry: Carry, reset: torch.Tensor
+        self, obs: torch.Tensor, carry: Carry, reset: torch.Tensor,
+        sequence: bool = False,
     ) -> Tuple[torch.Tensor, Carry]:
-        """Single step: obs [B, ...], reset [B] -> (action [B, A], new carry)."""
-        y, carry = self.core(self.torso(obs), carry, reset)
+        """Single step: obs [B, ...], reset [B] -> (action [B, A], new carry);
+        with ``sequence``, obs [T, B, ...] and reset [T, B]."""
+        y, carry = self._core(self.torso(obs), carry, reset, sequence)
         action = torch.tanh(self.head(y)).to(torch.float32)
         return action * self.action_scale, carry
 
@@ -263,12 +329,15 @@ class CriticNet(_Net):
         use_lstm: bool = True,
         pixels: bool = False,
         dtype: torch.dtype = torch.float32,
+        core: str = "lstm",
+        granite=None,
+        context: int = 1,
     ):
         super().__init__()
-        self.hidden, self.use_lstm = hidden, use_lstm
+        self.hidden, self.use_lstm, self.core_name = hidden, use_lstm, core
         self.torso = _make_torso(obs_shape, pixels, hidden, dtype)
         self.mix = Dense(hidden + action_dim, hidden, fan_in_uniform(), dtype)
-        self.core = _Core(hidden, hidden, use_lstm, dtype)
+        self.core = make_core(core, hidden, use_lstm, dtype, granite, context)
         self.head = Dense(hidden, 1, symmetric_uniform(3e-3), dtype)
 
     def forward(
@@ -277,12 +346,14 @@ class CriticNet(_Net):
         action: torch.Tensor,
         carry: Carry,
         reset: torch.Tensor,
+        sequence: bool = False,
     ) -> Tuple[torch.Tensor, Carry]:
-        """Single step -> (q [B], new carry)."""
+        """Single step -> (q [B], new carry); with ``sequence``, every input
+        with a leading time axis -> (q [T, B], carry)."""
         x = self.torso(obs)
         action = action.to(x.dtype).expand(*x.shape[:-1], action.shape[-1])
         x = torch.relu(self.mix(torch.cat([x, action], dim=-1)))
-        y, carry = self.core(x, carry, reset)
+        y, carry = self._core(x, carry, reset, sequence)
         return self.head(y).to(torch.float32).squeeze(-1), carry
 
 

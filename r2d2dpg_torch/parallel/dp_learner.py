@@ -53,6 +53,7 @@ from __future__ import annotations
 
 from r2d2dpg_torch.agents.ddpg import R2D2DPG
 from r2d2dpg_torch.envs.core import Environment
+from r2d2dpg_torch.models.actor_critic import require_lstm_core
 from r2d2dpg_torch.obs.registry import get_registry
 from r2d2dpg_torch.parallel.layout import MeshState
 from r2d2dpg_torch.parallel.mesh import DP_AXIS, Mesh, sharded
@@ -82,6 +83,8 @@ class DPLearnerTrainer(MeshState, Trainer):
                 "agent with axis_name=None (got "
                 f"{agent.config.axis_name!r})"
             )
+        for net in (agent.actor, agent.critic):
+            require_lstm_core(net, "DPLearnerTrainer")
         d = mesh.shape[DP_AXIS]
         # capacity: the arena splits over it; batch_size: the learner splits
         # over it; num_envs: staged batches arrive in multiples of it.

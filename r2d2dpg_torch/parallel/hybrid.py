@@ -62,6 +62,7 @@ import torch
 from r2d2dpg_torch.agents.ddpg import R2D2DPG
 from r2d2dpg_torch.envs.core import HostUpload
 from r2d2dpg_torch.envs.dmc_host import fetch_actions
+from r2d2dpg_torch.models.actor_critic import require_lstm_core
 from r2d2dpg_torch.obs import get_registry
 from r2d2dpg_torch.ops import sigma_ladder
 from r2d2dpg_torch.parallel.layout import MeshState
@@ -106,6 +107,8 @@ class HostSPMDTrainer(MeshState, Trainer):
         config: TrainerConfig,
         mesh: Mesh,
     ):
+        for net in (agent.actor, agent.critic):
+            require_lstm_core(net, "HostSPMDTrainer")
         if not getattr(env, "batched", False) or not hasattr(env, "host_step"):
             raise ValueError(
                 "HostSPMDTrainer is for host-pool envs (DMCHostEnv); pure-JAX "

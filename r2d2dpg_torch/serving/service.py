@@ -62,7 +62,7 @@ import numpy as np
 import torch
 
 from r2d2dpg_torch.device import resolve_device
-from r2d2dpg_torch.models.actor_critic import ActorNet, policy_step_fn
+from r2d2dpg_torch.models.actor_critic import ActorNet, policy_step_fn, require_lstm_core
 from r2d2dpg_torch.obs import flight_event, get_registry
 from r2d2dpg_torch.serving.batcher import MicroBatcher, Request
 from r2d2dpg_torch.serving.health import HealthSnapshot
@@ -226,6 +226,7 @@ class PolicyService:
             raise ValueError("need initial params or a reloader")
         if max_sessions > MAX_SESSIONS:
             raise ValueError(f"max_sessions must be <= {MAX_SESSIONS}")
+        require_lstm_core(actor, "PolicyService")
         # A module of its own: ``functional_call`` swaps the module's
         # parameters during a call, so two threads must never share one
         # (routed workers are built from one actor).

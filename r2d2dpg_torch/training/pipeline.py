@@ -112,6 +112,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from r2d2dpg_torch.models.actor_critic import require_lstm_core
 from r2d2dpg_torch.obs import flight_event, get_device_monitor, get_registry
 from r2d2dpg_torch.obs.device import count_flops
 from r2d2dpg_torch.obs import trace as obs_trace
@@ -369,6 +370,8 @@ class PipelineExecutor:
             )
         if config.queue_depth < 1:
             raise ValueError("queue_depth must be >= 1")
+        for net in (trainer.agent.actor, trainer.agent.critic):
+            require_lstm_core(net, "PipelineExecutor")
         self.trainer = trainer
         self.config = config
         # The collector's own modules (module docstring: "Own modules").

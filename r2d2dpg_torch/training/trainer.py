@@ -24,6 +24,12 @@ the port steps all its lanes in one call.  ``_learn_many(prefetch=True)`` is the
 executor's double-buffered drain: batch k+1 is sampled before update k's
 priority write-back (its draw order is in ``training/draws.py``).
 
+Under the agent's ``replay_state="zero_start"`` the step records and the
+window hold no carry, so the arena stores none and the learner starts
+every replayed sequence from the nets' empty state (R2D2's zero start).
+The gauge ``r2d2dpg_core_state_bytes{net}`` gives the bytes of recurrent
+state the collection holds for each net (set at ``init``).
+
 ``Trainer.run`` opens the device monitor's run window (``obs/device.py``)
 and the log cadence publishes the trainer's, the arena's and the quality
 plane's gauges from its one host fetch (``_obs_publish``).
@@ -77,6 +83,7 @@ from r2d2dpg_torch.training.assembler import (
     stack_steps,
 )
 from r2d2dpg_torch.training.draws import Draws
+from r2d2dpg_torch.tree import tree_nbytes
 from r2d2dpg_torch.utils.profiling import annotate, span_id
 
 Metrics = Dict[str, torch.Tensor]
@@ -184,6 +191,11 @@ class Trainer:
         self._obs_episodes = reg.counter(
             "r2d2dpg_trainer_episodes_total", "episodes completed"
         )
+        self._obs_state_bytes = reg.gauge(
+            "r2d2dpg_core_state_bytes",
+            "bytes of recurrent state the collection holds, by net",
+            labelnames=("net",),
+        )
 
     def _local_sigmas(self) -> torch.Tensor:
         """This trainer's per-lane exploration sigmas: the whole ladder over
@@ -280,13 +292,15 @@ class Trainer:
         example_action = torch.zeros(e, a_dim, device=self.device)
         actor_carry = self.agent.actor.initial_carry(e, self.device)
         critic_carry = self.agent.critic.initial_carry(e, self.device)
+        for net, carry in (("actor", actor_carry), ("critic", critic_carry)):
+            self._obs_state_bytes.labels(net=net).set(float(tree_nbytes(carry)))
         record = StepRecord(
             obs=ts.obs,
             action=example_action,
             reward=ts.reward,
             discount=ts.discount,
             reset=ts.reset,
-            carries={"actor": actor_carry, "critic": critic_carry},
+            carries=self._stored_carries(actor_carry, critic_carry),
         )
         window = init_window(record, self.seq_len)
         arena_state = self.arena.init_state(emit(window))
@@ -311,6 +325,13 @@ class Trainer:
         )
 
     # --------------------------------------------------------- phase pieces
+    def _stored_carries(self, a_carry, c_carry) -> Dict[str, Any]:
+        """What a step record keeps of the nets' carries: nothing under
+        ``zero_start``."""
+        if self.agent.config.replay_state == "zero_start":
+            return {"actor": (), "critic": ()}
+        return {"actor": a_carry, "critic": c_carry}
+
     def _behavior_params(self, state: TrainerState):
         k = self.config.param_sync_every
         if k == 0 or state.phase_idx % k == 0:
@@ -367,7 +388,7 @@ class Trainer:
         noise_st = state.noise_state
         records = []
         for _ in range(cfg.stride):
-            pre_carries = {"actor": a_carry, "critic": c_carry}
+            pre_carries = self._stored_carries(a_carry, c_carry)
             action, a_carry, c_carry, noise_st = self._policy_step(
                 nets, behavior, critic_params, obs, reset, a_carry, c_carry,
                 noise_st, draws,

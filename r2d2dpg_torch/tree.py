@@ -56,6 +56,11 @@ def tree_leaves(tree: Any) -> list:
     raise TypeError(f"tree_leaves: unsupported node {type(tree).__name__}")
 
 
+def tree_nbytes(tree: Any) -> int:
+    """Bytes of the tensors of ``tree``."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
 def tree_with_leaves(tree: Any, leaves: list) -> Any:
     """``tree`` with its tensors replaced, in ``tree_leaves`` order, by
     ``leaves``; the rest (counters, ``None``) is kept."""

@@ -776,7 +776,7 @@ def test_structural_argv_equals_jax():
     from r2d2dpg_tpu.fleet.actor import structural_argv as j_structural
     from r2d2dpg_torch.configs import CONFIGS
 
-    for name in CONFIGS:
+    for name in J_CONFIGS:
         assert structural_argv(CONFIGS[name]) == j_structural(J_CONFIGS[name])
 
 
@@ -809,9 +809,10 @@ def test_actor_overrides_equal_jax():
             "--num-actors", "2", "--seed", "4", *structural_argv(get_config("walker_r2d2"))]
     port = _apply_overrides(get_config("pendulum_r2d2"), parse_args(argv))
     ref = j_apply(J_CONFIGS["pendulum_r2d2"], j_parse(argv))
-    for part in ("agent", "trainer"):
+    for part in ("agent", "trainer"):  # a field the port alone has keeps its default
         for f in dataclasses.fields(getattr(port, part)):
-            assert getattr(getattr(port, part), f.name) == getattr(getattr(ref, part), f.name)
+            want = getattr(getattr(ref, part), f.name, f.default)
+            assert getattr(getattr(port, part), f.name) == want
     assert port.compute_dtype == ref.compute_dtype
 
 
