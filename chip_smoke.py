@@ -19,6 +19,12 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
 4. one ``ReplayArena.update_priorities`` call captured in a CUDA graph and
    replayed on fresh inputs, bitwise against the plain version (a launch
    count sees the capture, not the replays, so no count is read there);
+4b. the LSTM recurrence kernel (``csrc/lstm_seq.cu``) against its plain
+   version at the learner paths' shapes (walker, cheetah, humanoid's
+   85-step window, pendulum at hidden 128 and 32, TD3's 4 members, batches
+   of 1, 33, 256, 1,024 and 4,096), forward and backward after a
+   synchronize; captured in a CUDA graph and replayed (bitwise the eager
+   launches); hidden size 64 refused; its launch count;
 5. learner legs at full published width, each sample -> learner_step ->
    update_priorities on synthetic sequences, metrics finite, the scatter's
    launch count set to 0 before and equal to the steps after; then two
@@ -219,9 +225,13 @@ Run from the root of a checkout on a machine with one CUDA card.  Phases
    time and sampled stacks (``fleet/ingest.py::_StallClock``);
 15. whether ``mujoco`` and ``dm_control`` import (informational);
 16. each phase's seconds, one JSON line per kernel summary (launches
-   summed over every path, and the scatter's mean CUPTI µs inside the
-   telemetry run's profile window), then the last line ``{"ok": true,
-   "device": {...}}``.
+   summed over every main path and by path, and the scatter's mean CUPTI
+   µs inside the telemetry run's profile window), then the last line
+   ``{"ok": true, "device": {...}}``.  Every path of 5–14 that returns
+   launch counts also counts the LSTM kernel's (``_lstm_check``): a
+   float32 LSTM learner launches it once forward a sequence unroll and
+   three times backward a learner-step body, a bf16 one never; a path that
+   misses fails the run here, after every path has run.
 
 It imports nothing of JAX and nothing of ``r2d2dpg_tpu``.  Without a card,
 or outside a checkout of the repo, it exits nonzero and prints no result.
@@ -452,6 +462,51 @@ def _scatter_phase(torch, dev):
     return max(c["max_abs_err"] for c in cases), timings[0]
 
 
+def _lstm_seq_phase(torch, dev):
+    """The LSTM recurrence kernel (``csrc/lstm_seq.cu``) against its plain
+    version at every shape of ``LSTM_SEQ_SHAPES``, forward and backward,
+    each checked after ``torch.cuda.synchronize()``; captured in a CUDA
+    graph and replayed on fresh inputs (bitwise the eager launches); a
+    shape it does not take raises.  Prints each shape's largest gaps and the
+    launch count; returns the largest gap."""
+    from r2d2dpg_torch.kernels import LSTM_SEQ
+    from r2d2dpg_torch.ops.lstm_seq import lstm_seq_fwd
+    from r2d2dpg_torch.testing import (
+        LSTM_SEQ_SHAPES,
+        lstm_seq_errors,
+        lstm_seq_faults,
+        lstm_seq_graph_replays,
+    )
+
+    before = LSTM_SEQ.launches
+    cases = []
+    for seed, (label, e, t, b, h) in enumerate(LSTM_SEQ_SHAPES):
+        errs = lstm_seq_errors(e, t, b, h, seed, dev)
+        torch.cuda.synchronize()
+        faults = lstm_seq_faults(errs)
+        if faults:
+            raise AssertionError(f"lstm_seq kernel != plain at {label}: {faults} {errs}")
+        cases.append({"shape": label, "e": e, "t": t, "b": b, "h": h,
+                      "max_gap": max(v for k, v in errs.items() if k.endswith("_gap")),
+                      "max_f64_kernel": max(v for k, v in errs.items()
+                                            if k.endswith("_f64_kernel")),
+                      "max_f64_plain": max(v for k, v in errs.items()
+                                           if k.endswith("_f64_plain"))})
+    if lstm_seq_graph_replays(dev) != [True, True]:
+        raise AssertionError("lstm_seq graph replay != eager launches")
+    z = lambda *shape: torch.zeros(shape, device=dev)  # noqa: E731
+    try:
+        lstm_seq_fwd(z(1, 4, 8, 256), z(1, 256, 64), z(1, 256), z(1, 8, 64), z(1, 8, 64),
+                     torch.zeros(4, 8, dtype=torch.bool, device=dev), False)
+    except ValueError as err:
+        refused = str(err)
+    else:
+        raise AssertionError("lstm_seq kernel took hidden size 64")
+    print(json.dumps({"lstm_seq_cases": cases, "lstm_seq_refused": refused,
+                      "lstm_seq_launches": LSTM_SEQ.launches - before}), flush=True)
+    return max(c["max_gap"] for c in cases)
+
+
 def _graph_phase(torch, dev, capacity=100_000, batch=64):
     """One ``ReplayArena.update_priorities`` call captured in a CUDA graph.
 
@@ -511,6 +566,62 @@ def _config(name, *flags):
     return _apply_overrides(get_config(name), parse_args(["--config", name, *flags]))
 
 
+# Each main path's launches of the LSTM recurrence kernel, by the labels of
+# the scatter's ``launches_by_path`` (finer where a leg runs several), and
+# the paths whose count missed what the registry's counters ask.
+LSTM_LAUNCHES = {}
+LSTM_MISSES = []
+
+
+def _float32_lstm(config) -> bool:
+    """The config's nets unroll the LSTM in float32: the kernel's route."""
+    return config.core == "lstm" and config.use_lstm and config.compute_dtype == "float32"
+
+
+def _lstm_mark():
+    """``(LSTM_SEQ launches, float32 sequence unrolls of the LSTM nets,
+    learner-step bodies run on a card)`` in this process so far.  The
+    last two from the registry: ``r2d2dpg_lstm_unroll_total{form="sequence",
+    reason="float32"}``, and ``r2d2dpg_learner_graph_total`` at two bodies
+    a capture (its warm-up and the capture), one an eager call off the CPU
+    and none a replay."""
+    from r2d2dpg_torch.agents.ddpg import UNROLL_METRIC
+    from r2d2dpg_torch.agents.graph import GRAPH_METRIC
+    from r2d2dpg_torch.kernels import LSTM_SEQ
+    from r2d2dpg_torch.obs import get_registry
+
+    def cells(name):
+        inst = get_registry().get(name)
+        return [] if inst is None else [(k, c.value) for k, c in inst._cells_snapshot()]
+
+    unrolls = sum(v for k, v in cells(UNROLL_METRIC) if k == ("sequence", "float32"))
+    bodies = sum(v * (2 if event == "capture" else 1)
+                 for (event, reason), v in cells(GRAPH_METRIC)
+                 if event == "capture" or (event == "eager" and reason != "cpu"))
+    return LSTM_SEQ.launches, unrolls, bodies
+
+
+def _lstm_since(mark):
+    """``_lstm_mark()`` less ``mark``."""
+    return tuple(b - a for a, b in zip(mark, _lstm_mark()))
+
+
+def _lstm_check(label, launched, unrolls, bodies, float32_lstm) -> int:
+    """Record a main path's LSTM_SEQ launches under ``label`` and hold them
+    to the counters over the same steps: a float32 LSTM path launches the
+    kernel once forward a sequence unroll and three times backward a
+    learner-step body (the critic loss's critic, the actor loss's actor
+    and critic), and at least once; a bf16 path never.  A miss is kept for
+    the end of the run.  Returns ``launched``."""
+    want = unrolls + 3 * bodies if float32_lstm else 0
+    LSTM_LAUNCHES[label] = launched
+    if launched != want or (float32_lstm and not launched):
+        LSTM_MISSES.append(f"{label}: {launched} lstm_seq launches, expected {want:g} "
+                           f"({unrolls:g} float32 sequence unrolls, {bodies:g} "
+                           "learner-step bodies)")
+    return launched
+
+
 def _learner_leg(torch, dev, label, config, steps=45, warmup=5, fill=None,
                  capacity=None, chunk=2048):
     """sample -> learner_step -> update_priorities at ``config``'s published shapes.
@@ -518,7 +629,8 @@ def _learner_leg(torch, dev, label, config, steps=45, warmup=5, fill=None,
     Synthetic sequences fill ``fill`` slots (all of them by default) of an
     arena of the config's capacity; the batch, sequence length, widths and
     knobs are the config's.  The scatter's launch count is set to 0 just
-    before the timed loop and must equal its steps just after.
+    before the timed loop and must equal its steps just after; the LSTM
+    kernel's is held to the counters over the same steps (``_lstm_check``).
     """
     import types
 
@@ -589,6 +701,7 @@ def _learner_leg(torch, dev, label, config, steps=45, warmup=5, fill=None,
     torch.cuda.synchronize()
     t_steps = time.perf_counter()
     PRIORITY_SCATTER.launches = 0
+    lstm0 = _lstm_mark()
     finite = []
     for i in range(steps):
         if i == warmup:  # time the steps after the first few (allocator, cuBLAS)
@@ -600,6 +713,7 @@ def _learner_leg(torch, dev, label, config, steps=45, warmup=5, fill=None,
     dt = time.perf_counter() - t0
     steps_seconds = time.perf_counter() - t_steps
     launches = PRIORITY_SCATTER.launches
+    lstm = _lstm_check(label, *_lstm_since(lstm0), _float32_lstm(config))
     if not bool(torch.stack(finite).all()):
         raise AssertionError(f"non-finite learner metrics in the {label} leg")
     if launches != steps:
@@ -615,6 +729,7 @@ def _learner_leg(torch, dev, label, config, steps=45, warmup=5, fill=None,
         "steps": steps, "timed_steps": steps - warmup, "seconds": dt,
         "steps_per_s": (steps - warmup) / dt,
         "scatter_launches": launches,
+        "lstm_seq_launches": lstm,
         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
         "last_metrics": {k: float(v) for k, v in metrics.items()},
     }
@@ -753,13 +868,14 @@ def _learner_dp1_leg(torch, dev, steps=45, warmup=5, fill=4096, chunk=2048):
     order += [name for _ in range(blocks // 2) for name in ("plain", "dp", "dp", "plain")
               for _ in range(per_block)]
     seconds, launches = {"plain": 0.0, "dp": 0.0}, 0
+    lstm = (0, 0, 0)  # _lstm_since over the dp learner's blocks
     steppers = {name: stepper(name) for name in trainers}
     torch.cuda.synchronize()
     k = 0
     while k < len(order):
         name = order[k]
         n = warmup if k < 2 * warmup else per_block
-        before = PRIORITY_SCATTER.launches
+        before, lstm0 = PRIORITY_SCATTER.launches, _lstm_mark()
         t0 = time.perf_counter()
         for _ in range(n):
             steppers[name]()
@@ -768,6 +884,7 @@ def _learner_dp1_leg(torch, dev, steps=45, warmup=5, fill=4096, chunk=2048):
             seconds[name] += time.perf_counter() - t0
         if name == "dp":
             launches += PRIORITY_SCATTER.launches - before
+            lstm = tuple(a + b for a, b in zip(lstm, _lstm_since(lstm0)))
         k += n
     rec = {}
     for name in ("plain", "dp"):
@@ -793,6 +910,7 @@ def _learner_dp1_leg(torch, dev, steps=45, warmup=5, fill=4096, chunk=2048):
            "backend": torch.distributed.get_backend(),
            "steps": steps, "timed_steps": steps - warmup,
            "setup_seconds": setup_seconds, "scatter_launches": launches,
+           "lstm_seq_launches": _lstm_check("learner_dp1", *lstm, _float32_lstm(config)),
            "params_bitwise": params_bitwise, "priorities_bitwise": prio_bitwise,
            **rec}
     print(json.dumps({"learner_dp1": out}), flush=True)
@@ -979,6 +1097,7 @@ def _trainer_phase(torch, dev, label="pendulum_r2d2_trainer", flags=(), after_ru
     with _entry_priorities(torch, dev, config.trainer.capacity) as entered:
         for k in kernels.ALL_KERNELS:
             k.launches = 0
+        lstm0 = _lstm_mark()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             state = train_main([
@@ -988,6 +1107,7 @@ def _trainer_phase(torch, dev, label="pendulum_r2d2_trainer", flags=(), after_ru
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
+        _lstm_check(label, *_lstm_since(lstm0), _float32_lstm(config))
     lines = buf.getvalue().splitlines()
     expected = train_phases * config.trainer.learner_steps
     if launches["priority_scatter"] != expected:
@@ -1086,6 +1206,7 @@ def _mesh_cli_legs(torch, dev, plain):
         try:
             for k in kernels.ALL_KERNELS:
                 k.launches = 0
+            lstm0 = _lstm_mark()
             t0 = time.perf_counter()
             with _group_of_one(), contextlib.redirect_stdout(buf):
                 state = train_main([
@@ -1095,6 +1216,7 @@ def _mesh_cli_legs(torch, dev, plain):
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
+            _lstm_check(label, *_lstm_since(lstm0), _float32_lstm(config))
             lines = buf.getvalue().splitlines()
             stamp = _stamp_checked(label, flags, lines, logdir)
         finally:
@@ -1241,6 +1363,7 @@ def _telemetry_phase(torch, dev):
     try:
         for k in kernels.ALL_KERNELS:
             k.launches = 0
+        lstm0 = _lstm_mark()
         t0 = time.perf_counter()
         with _Scraper(logdir, ("/metrics", "/metrics.json", "/health", "/healthz"),
                       SCRAPE_EVERY_S) as scraper, contextlib.redirect_stdout(buf):
@@ -1253,6 +1376,7 @@ def _telemetry_phase(torch, dev):
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
+            _lstm_check("telemetry", *_lstm_since(lstm0), True)  # pendulum_r2d2
             final_metrics = scraper.get("/metrics")
             final_health = scraper.get("/health")
         get_flight_recorder().dump(os.path.join(logdir, "flight.jsonl"))
@@ -1464,6 +1588,7 @@ def _pipelined_phase(torch, dev, train_phases=40):
         with _entry_priorities(torch, dev, tc.capacity) as entered:
             for k in kernels.ALL_KERNELS:
                 k.launches = 0
+            lstm0 = _lstm_mark()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
                 state = train_main([
@@ -1474,6 +1599,7 @@ def _pipelined_phase(torch, dev, train_phases=40):
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
+            _lstm_check(label, *_lstm_since(lstm0), _float32_lstm(config))
         trace_written = os.path.exists(os.path.join(logdir, "trace.json"))
     finally:
         train_mod.PipelineExecutor = PipelineExecutor
@@ -1627,6 +1753,7 @@ def _checkpoint_phase(torch, dev, ckdir, state):
     try:
         for k in kernels.ALL_KERNELS:
             k.launches = 0
+        lstm0 = _lstm_mark()
         t0 = time.perf_counter()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -1636,6 +1763,7 @@ def _checkpoint_phase(torch, dev, ckdir, state):
         torch.cuda.synchronize()
         resume_s = time.perf_counter() - t0
         resume_launches = kernels.PRIORITY_SCATTER.launches
+        _lstm_check("pendulum_r2d2_resume", *_lstm_since(lstm0), True)
         out, err = serve.communicate(timeout=600)
     finally:
         if serve.poll() is None:
@@ -1988,6 +2116,7 @@ def _fleet_leg(torch, dev, label, flags):
     try:
         for k in kernels.ALL_KERNELS:
             k.launches = 0
+        lstm0 = _lstm_mark()
         watcher.start()
         t0, cpu0, t0_wall = time.perf_counter(), sum(os.times()[:2]), time.time()
         with scraper, contextlib.redirect_stdout(buf):
@@ -2001,6 +2130,7 @@ def _fleet_leg(torch, dev, label, flags):
         seconds = time.perf_counter() - t0
         learner_cpu_s = sum(os.times()[:2]) - cpu0
         launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
+        _lstm_check(label, *_lstm_since(lstm0), True)  # pendulum_r2d2's learner
         _stall_report(label, _merged_events(logdir, t0_wall), t0_wall)
     finally:
         done.set()
@@ -2286,6 +2416,7 @@ def _fleet_chaos_leg(torch, dev, label="fleet_chaos"):
     try:
         for k in kernels.ALL_KERNELS:
             k.launches = 0
+        lstm0 = _lstm_mark()
         watcher.start()
         t0, t0_wall = time.perf_counter(), time.time()
         with contextlib.redirect_stdout(buf):
@@ -2299,6 +2430,7 @@ def _fleet_chaos_leg(torch, dev, label="fleet_chaos"):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
+        _lstm_check(label, *_lstm_since(lstm0), True)  # pendulum_r2d2's learner
         events = _merged_events(logdir, t0_wall)
         with open(os.path.join(logdir, "metrics_final.prom")) as f:
             final_prom = f.read()
@@ -2380,13 +2512,18 @@ def _fleet_chaos_leg(torch, dev, label="fleet_chaos"):
 # at its own 70th batch, so the run ends by phases (each drains one
 # batch), about 50 after that successor's first SEQS, before it gets
 # there.  Since the learner step replays as a CUDA graph the learner waits
-# on the actors: on an H100 host the successor's first SEQS came near
-# phase 240 and its 70th batch ~130 phases later (170 phases ended before
-# the stall was even detected).  The first fleet run of a process pays
-# ~9 s of imports in its first drain and misses the window; chip_smoke.py
-# and probes/chaos_legs.py run this leg after another fleet leg.
+# on the actors, ~25 drain phases a second for each actor streaming; and
+# since the LSTM unrolls run the recurrence kernel, the window of no
+# actor (the killed one starting again, the other stalled) drains nothing
+# and the phases that remain go faster: on an H100 host 300 phases ended
+# 26 s in, 4 s after the stalled actor's successor was spawned and before
+# its first SEQS (~7 s after a spawn: near phase 390 at that rate); its
+# 70th batch comes ~130 phases after that, so the run ends at 450.  The
+# first fleet run of a process pays ~9 s of imports in its first drain and
+# misses the window; chip_smoke.py and probes/chaos_legs.py run this leg
+# after another fleet leg.
 FLEET_AUTOSCALE_ACTORS = 2
-FLEET_AUTOSCALE_PHASES = 300
+FLEET_AUTOSCALE_PHASES = 450
 FLEET_AUTOSCALE_STALE_S = 6
 FLEET_AUTOSCALE_COOLDOWN_S = 12
 FLEET_AUTOSCALE_SPEC = "kill_actor@p5,stall_actor@p70:20s"
@@ -2482,6 +2619,7 @@ def _fleet_autoscale_leg(torch, dev, label="fleet_autoscale"):
     try:
         for k in kernels.ALL_KERNELS:
             k.launches = 0
+        lstm0 = _lstm_mark()
         watcher.start()
         t0, t0_wall = time.perf_counter(), time.time()
         with scraper, contextlib.redirect_stdout(buf):
@@ -2493,6 +2631,7 @@ def _fleet_autoscale_leg(torch, dev, label="fleet_autoscale"):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
+        _lstm_check(label, *_lstm_since(lstm0), True)  # pendulum_r2d2's learner
         events = _merged_events(logdir, t0_wall)
         for name in ("health_final.json", "metrics_final.prom"):
             with open(os.path.join(logdir, name)) as f:
@@ -2681,6 +2820,7 @@ def _fleet_dp1_leg(torch, dev, label="fleet_dp1"):
     try:
         for k in kernels.ALL_KERNELS:
             k.launches = 0
+        lstm0 = _lstm_mark()
         t0, t0_mono = time.perf_counter(), time.monotonic()
         with _group_of_one(), contextlib.redirect_stdout(buf):
             state = train_main([
@@ -2691,6 +2831,7 @@ def _fleet_dp1_leg(torch, dev, label="fleet_dp1"):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
+        _lstm_check(label, *_lstm_since(lstm0), True)  # pendulum_r2d2's learner
         lines = buf.getvalue().splitlines()
         stamp = _stamp_checked(label, flags, lines, logdir)
         host_ops, nccl_kernels = _window_collectives(logdir)
@@ -2785,6 +2926,7 @@ def _sampler_dp1_leg(torch, dev, label="sampler_dp1"):
     try:
         for k in kernels.ALL_KERNELS:
             k.launches = 0
+        lstm0 = _lstm_mark()
         t0 = time.perf_counter()
         with _group_of_one(), contextlib.redirect_stdout(buf):
             state = train_main([
@@ -2794,6 +2936,7 @@ def _sampler_dp1_leg(torch, dev, label="sampler_dp1"):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
+        _lstm_check(label, *_lstm_since(lstm0), True)  # pendulum_r2d2's learner
         lines = buf.getvalue().splitlines()
         stamp = _stamp_checked(label, flags, lines, logdir)
     finally:
@@ -2880,9 +3023,10 @@ def _mesh_lifecycle1_leg(torch, dev, label="mesh_lifecycle1"):
         timings.setdefault("restore_s", []).append(time.perf_counter() - t)
         return out
 
-    def run(flags, argv):
+    def run(name, flags, argv):
         for k in kernels.ALL_KERNELS:
             k.launches = 0
+        lstm0 = _lstm_mark()
         buf = io.StringIO()
         t0 = time.perf_counter()
         with _group_of_one(), contextlib.redirect_stdout(buf):
@@ -2890,6 +3034,7 @@ def _mesh_lifecycle1_leg(torch, dev, label="mesh_lifecycle1"):
                                     "--min-replay", str(LIFECYCLE_MIN_REPLAY),
                                     "--eval-every", "5", *flags, *argv])
         torch.cuda.synchronize()
+        _lstm_check(name, *_lstm_since(lstm0), _float32_lstm(config))
         return (state, buf.getvalue().splitlines(), time.perf_counter() - t0,
                 PRIORITY_SCATTER.launches)
 
@@ -2904,15 +3049,17 @@ def _mesh_lifecycle1_leg(torch, dev, label="mesh_lifecycle1"):
             timings.clear()
             try:
                 whole, whole_lines, whole_s, whole_n = run(
-                    flags, ["--phases", str(first + second)])
+                    f"{label}_{part}_whole", flags, ["--phases", str(first + second)])
                 _, first_lines, first_s, first_n = run(
-                    flags, ["--phases", str(first), "--checkpoint-dir", ckdir,
-                            "--checkpoint-every", "5"])
+                    f"{label}_{part}_first", flags,
+                    ["--phases", str(first), "--checkpoint-dir", ckdir,
+                     "--checkpoint-every", "5"])
                 saves = list(timings.get("save_s", []))
                 step_bytes = _dir_bytes(os.path.join(
                     ckdir, str(ck_mod.latest_step(ckdir))))
                 resumed, res_lines, res_s, res_n = run(
-                    flags, ["--phases", str(second), "--checkpoint-dir", ckdir, "--resume"])
+                    f"{label}_{part}_resumed", flags,
+                    ["--phases", str(second), "--checkpoint-dir", ckdir, "--resume"])
             finally:
                 shutil.rmtree(ckdir, ignore_errors=True)
             pairs = list(zip(tree_leaves(whole.train), tree_leaves(resumed.train), strict=True))
@@ -2966,8 +3113,9 @@ SAMPLER_TRAIN_PHASES = 60  # pull-learn phases of the loopback leg
 # host whose cores the free-running actors keep busy, and its restart
 # (``import torch`` included) took over 20 s there, past 60 phases, and
 # past 150 once the learner step replayed as a CUDA graph (~15 pull
-# phases a second).
-SAMPLER_PROCS_TRAIN_PHASES = 600
+# phases a second), and past 600 once the LSTM unrolls ran the
+# recurrence kernel (about twice as many pull phases a second).
+SAMPLER_PROCS_TRAIN_PHASES = 1500
 SAMPLER_SHARDS = 2
 SAMPLER_KILL_AT = 20  # learner steps before a shard process is killed
 SAMPLER_KILL_SPEC = f"kill_shard@p{SAMPLER_KILL_AT}"
@@ -2983,8 +3131,9 @@ SAMPLER_CARD_VS_CPU_RTOL = 1e-4  # of each tensor's largest |value|
 # batches and 40 frames both land early in training, after every data leg
 # has been dialed.  The run has to outlast the learner-side faults'
 # recoveries too: 20 phases after kill_sampler_conn@p40 did not, once the
-# learner step replayed as a CUDA graph.
-DIRECT_CHAOS_PHASES = 200
+# learner step replayed as a CUDA graph; the run's phases doubled again
+# with the pull rate once the LSTM unrolls ran the recurrence kernel.
+DIRECT_CHAOS_PHASES = 400
 DIRECT_CHAOS_SPEC = ("partition_data_plane@p30,stall_shard@p40:2s,partition_shard@p20,"
                      "stall_sampler@p30:1s,kill_sampler_conn@p40")
 DIRECT_CHAOS_FLAGS = ("--shard-procs", str(SAMPLER_SHARDS), "--shard-direct", "1",
@@ -3072,6 +3221,7 @@ def _sampler_leg(torch, dev, label, flags, phases=SAMPLER_TRAIN_PHASES):
     try:
         for k in kernels.ALL_KERNELS:
             k.launches = 0
+        lstm0 = _lstm_mark()
         watcher.start()
         t0, cpu0 = time.perf_counter(), sum(os.times()[:2])
         t0_wall = time.time()
@@ -3087,6 +3237,7 @@ def _sampler_leg(torch, dev, label, flags, phases=SAMPLER_TRAIN_PHASES):
         seconds = time.perf_counter() - t0
         learner_cpu_s = sum(os.times()[:2]) - cpu0
         launches = {k.name: k.launches for k in kernels.ALL_KERNELS}
+        _lstm_check(label, *_lstm_since(lstm0), True)  # pendulum_r2d2's learner
         for name in ("health_final.json", "metrics_final.prom"):
             path = os.path.join(logdir, name)
             if os.path.exists(path):
@@ -3109,8 +3260,8 @@ def _sampler_leg(torch, dev, label, flags, phases=SAMPLER_TRAIN_PHASES):
     if stats["train_phases"] != phases or state.train.step != expected:
         raise AssertionError(f"{label}: {stats['train_phases']} phases, step "
                              f"{state.train.step}; expected {phases}")
-    if any(launches.values()):
-        raise AssertionError(f"{label}: kernel launches {launches}, expected none "
+    if launches["priority_scatter"]:
+        raise AssertionError(f"{label}: scatter launches {launches}, expected none "
                              "(no device arena on the sampler path)")
     if stats["sheds"] != 0 or stats["evictions"] != 0:
         raise AssertionError(f"{label}: sheds {stats['sheds']}, evictions "
@@ -3614,11 +3765,13 @@ def _hybrid_schedule(torch, label, trainer, state, run):
     torch.cuda.synchronize()
     for k in kernels.ALL_KERNELS:
         k.launches = 0
+    lstm0 = _lstm_mark()
     t0 = time.perf_counter()
     state, metrics = run(state)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / HYBRID_TRAIN_PHASES * 1e3
     launches = kernels.PRIORITY_SCATTER.launches
+    lstm = _lstm_check(label, *_lstm_since(lstm0), True)  # walker_r2d2's nets
     count, _, p50, p99 = hist.snapshot()
     n = HYBRID_TRAIN_PHASES
     problems = []
@@ -3638,6 +3791,7 @@ def _hybrid_schedule(torch, label, trainer, state, run):
         raise AssertionError(f"{label}: {problems}")
     rec = {"train_phases": n, "wall_ms_per_train_phase": wall_ms,
            "host_step_ms": [p50 * 1e3, p99 * 1e3], "scatter_launches": launches,
+           "lstm_seq_launches": lstm,
            "learner_steps": state.train.step, "env_steps": state.env_steps}
     return state, rec
 
@@ -4000,6 +4154,7 @@ def main() -> int:
         return out
 
     max_err, t = timed("scatter", _scatter_phase, torch, dev)
+    lstm_gap = timed("lstm_seq", _lstm_seq_phase, torch, dev)
     timed("cuda_graph", _graph_phase, torch, dev)
     launches = timed("learner_legs", _learner_phase, torch, dev)
     timed("cuda_vs_cpu", _cuda_vs_cpu_phase, torch, dev)
@@ -4075,8 +4230,20 @@ def main() -> int:
         "train_window_kernels": telemetry["window_scatter_kernels"],
         "card": card_name,
         "power_limit": power_limit,
+    }, {
+        "name": "lstm_seq",
+        "route": "cuda",
+        "source": "r2d2dpg_torch/csrc/lstm_seq.cu",
+        "replaces": None,
+        "launches": sum(LSTM_LAUNCHES.values()),
+        "launches_by_path": LSTM_LAUNCHES,
+        "max_gap": lstm_gap,
+        "card": card_name,
+        "power_limit": power_limit,
     }]}
     print(json.dumps(summary), flush=True)
+    if LSTM_MISSES:
+        raise AssertionError(f"lstm_seq launches off the counters: {LSTM_MISSES}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

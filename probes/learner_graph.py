@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Benchmark runs with the learner-graph counter read after each.
+"""Benchmark runs with the learner-graph and LSTM-unroll counters read after each.
 
     python3 probes/learner_graph.py --workload walker_r2d2.learn --seed 7 --seconds 30 \
         [--trace 0] [--runs 1]
@@ -8,7 +8,9 @@ From the root of a checkout, on a machine with one CUDA card.  Runs the
 cell as ``perfbench/run.py`` does, ``--runs`` times in this process with
 seeds ``seed``, ``seed + 1``, ...  (its result line and stderr lines
 first), then prints one JSON line a run: the change of
-``r2d2dpg_learner_graph_total`` over the run by event and reason, the
+``r2d2dpg_learner_graph_total`` over the run by event and reason, that of
+``r2d2dpg_lstm_unroll_total`` by form and reason (host calls: a graph's
+warm-up and capture count, its replays do not; eager steps count each), the
 learner steps of the window (its units, times the trainer's
 ``learner_steps`` in a train cell) and all the run's learner steps
 (set-up's warm-up units, the window's and, traced, the profiled ones).
@@ -30,13 +32,18 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from perfbench import harness  # noqa: E402
 from r2d2dpg_torch import obs  # noqa: E402
+from r2d2dpg_torch.agents.ddpg import UNROLL_METRIC  # noqa: E402
 from r2d2dpg_torch.agents.graph import GRAPH_METRIC  # noqa: E402
 
 
-def counts():
-    inst = obs.get_registry().get(GRAPH_METRIC)
+def counts(metric=GRAPH_METRIC):
+    inst = obs.get_registry().get(metric)
     return {} if inst is None else {
         "/".join(k).rstrip("/"): c.value for k, c in inst._cells_snapshot()}
+
+
+def delta(before, after):
+    return {k: v - before.get(k, 0.0) for k, v in after.items() if v != before.get(k, 0.0)}
 
 
 def main() -> int:
@@ -56,7 +63,7 @@ def main() -> int:
     harness.run_driver = lambda run: windows.append(run_driver(run)) or windows[-1]
     started = STARTED
     for i in range(args.runs):
-        before = counts()
+        before, unrolls = counts(), counts(UNROLL_METRIC)
         rc = harness.main(["--workload", args.workload, "--seed", str(args.seed + i),
                            "--seconds", str(args.seconds), "--trace", str(args.trace)],
                           started=started)
@@ -65,11 +72,10 @@ def main() -> int:
         units = windows[-1].attempted
         profiled = (traffic.get("trace_units", 0) + traffic.get("breakdown_units", 0)
                     if args.trace else 0)
-        after = counts()
         print(json.dumps({
             "workload": args.workload, "seed": args.seed + i,
-            "graph_counts": {k: v - before.get(k, 0.0) for k, v in after.items()
-                             if v != before.get(k, 0.0)},
+            "graph_counts": delta(before, counts()),
+            "lstm_unroll_counts": delta(unrolls, counts(UNROLL_METRIC)),
             "window_learner_steps": units * per_unit,
             "run_learner_steps": (traffic.get("warmup_units", 0) + units + profiled) * per_unit,
         }), flush=True)

@@ -37,11 +37,16 @@ the critic and actor gradients over the agent's ``mesh``
 ``lax.pmean``.  Each net's gradients travel as one flattened buffer, so a
 step costs two collectives.
 
-Nets whose core has a sequence form (``core="granite_hybrid"``) run each
-unroll as one call over the whole ``[T, B, ...]`` sequence
-(``_Net.apply_seq``) instead of a Python loop of steps; the actor's
-sequence runs before the critic's where Q takes the actor's actions.
-Burn-in runs wherever a core carries state.  ``replay_state`` is R2D2's
+Nets whose core has a sequence form (the float32 LSTM, the dense core,
+``core="granite_hybrid"``) run each unroll as one call over the whole
+``[T, B, ...]`` sequence (``_Net.apply_seq``: the LSTM's recurrence is one
+kernel launch each way on a card, ``ops/lstm_seq.py``) instead of a Python
+loop of steps; the actor's sequence runs before the critic's where Q takes
+the actor's actions (the actor never reads the critic).  The bf16 LSTM
+(``MixedPrecisionLSTMCell``) keeps the loop of steps.  The registry counter
+``r2d2dpg_lstm_unroll_total{form, reason}`` counts the LSTM nets' unrolls
+by form: host calls, so a CUDA graph's warm-up and capture count and its
+replays do not.  Burn-in runs wherever a core carries state.  ``replay_state`` is R2D2's
 choice of where a replayed sequence's state starts: ``"stored"`` (the
 carry the collector had, which the arena stores) or ``"zero_start"`` (the
 core's empty state, and the arena stores no carry).
@@ -86,6 +91,22 @@ from r2d2dpg_torch.ops import (
 from r2d2dpg_torch.replay.arena import SequenceBatch
 from r2d2dpg_torch.tree import tree_map
 from r2d2dpg_torch.utils.profiling import annotate
+
+UNROLL_METRIC = "r2d2dpg_lstm_unroll_total"
+
+
+def _count_unroll(net) -> None:
+    """One unroll of an LSTM-entry net (``core="lstm"``: LSTM or dense core)
+    under ``UNROLL_METRIC``, by its form and the reason for it."""
+    if net.core_name != "lstm":
+        return
+    from r2d2dpg_torch.obs.registry import get_registry
+
+    form, reason = net.core.unroll_route
+    get_registry().counter(
+        UNROLL_METRIC, "learner unrolls of the LSTM nets by form: the window "
+        "at once (sequence) or step by step, and why", labelnames=("form", "reason"),
+    ).labels(form=form, reason=reason).inc()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,7 +270,7 @@ class R2D2DPG:
         if config.replay_state not in ("stored", "zero_start"):
             raise ValueError(f"unknown replay_state {config.replay_state!r}")
         for net in (actor, critic):
-            if net.sequence_form and (config.fused_burnin or config.twin_critic):
+            if not net.ensemble_axis and (config.fused_burnin or config.twin_critic):
                 raise ValueError(
                     f"core {net.core_name!r} takes no ensemble axis: set "
                     "fused_burnin=False and twin_critic=False")
@@ -317,6 +338,7 @@ class R2D2DPG:
 
     # --------------------------------------------------------------- unrolls
     def _unroll_actor(self, params, carry, obs_tm, reset_tm):
+        _count_unroll(self.actor)
         if self.actor.sequence_form:
             return self.actor.apply_seq(params, obs_tm, carry, reset_tm)
         return unroll(
@@ -327,6 +349,7 @@ class R2D2DPG:
         )
 
     def _unroll_critic(self, params, carry, obs_tm, act_tm, reset_tm):
+        _count_unroll(self.critic)
         if self.critic.sequence_form:
             return self.critic.apply_seq(params, obs_tm, act_tm, carry, reset_tm)
         return unroll(
@@ -337,12 +360,19 @@ class R2D2DPG:
             reset_tm,
         )
 
+    def _both_sequence(self) -> bool:
+        """Both nets unroll in the sequence form: the actor's whole window
+        first, then the critic's on its actions."""
+        return self.actor.sequence_form and self.critic.sequence_form
+
     def _unroll_pi_q(self, actor_params, critic_params, ca, cc, obs_tm, reset_tm):
         """Actor and critic advanced together: a_t = mu(o_t), q_t = Q(o_t, a_t)."""
-        if self.actor.sequence_form and self.critic.sequence_form:
+        if self._both_sequence():
             a_tm, ca = self._unroll_actor(actor_params, ca, obs_tm, reset_tm)
             q_tm, cc = self._unroll_critic(critic_params, cc, obs_tm, a_tm, reset_tm)
             return a_tm, q_tm, (ca, cc)
+        _count_unroll(self.actor)
+        _count_unroll(self.critic)
 
         def step(carry, o, r):
             ca, cc = carry
@@ -373,12 +403,14 @@ class R2D2DPG:
         target critics in twin mode.
         """
         ap, cp = state.target_actor_params, state.target_critic_params
-        if self.actor.sequence_form and self.critic.sequence_form:
+        if self._both_sequence():
             a_tm, _ = self._unroll_actor(ap, ca_tg, obs_tm, reset_tm)
             if eps_tm is not None:
                 a_tm = (a_tm + eps_tm).clamp(-1.0, 1.0)
             q_tm, _ = self._unroll_critic(cp, cc_tg, obs_tm, a_tm, reset_tm)
-            return q_tm
+            return q_tm.amin(1) if self.config.twin_critic else q_tm  # [T, 2, B]
+        _count_unroll(self.actor)
+        _count_unroll(self.critic)
 
         def step(carry, o, r, *e):
             ca, cc = carry

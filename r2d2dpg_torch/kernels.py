@@ -115,4 +115,14 @@ PRIORITY_SCATTER = Kernel(
     },
 )
 
-ALL_KERNELS = (PRIORITY_SCATTER,)
+LSTM_SEQ = Kernel(
+    "lstm_seq",
+    {
+        # Each takes one packed launch record (ops/lstm_seq.py::_FWD_RECORD,
+        # _BWD_RECORD); one launch a call.
+        "lstm_seq_forward": (ctypes.c_int, (ctypes.c_char_p,)),
+        "lstm_seq_backward": (ctypes.c_int, (ctypes.c_char_p,)),
+    },
+)
+
+ALL_KERNELS = (PRIORITY_SCATTER, LSTM_SEQ)

@@ -8,11 +8,19 @@ Port of ``r2d2dpg_tpu/models/actor_critic.py``:
 - The recurrent state ``(c, h)`` is carried by the caller and zeroed where
   ``reset`` is set before the cell runs.  Feedforward nets
   (``use_lstm=False``) keep the same API with an empty carry ``()``.
+- The sequence form (``apply_seq``, ``forward(..., sequence=True)``) runs a
+  net over a whole ``[T, B, ...]`` window, which the learner's unrolls run:
+  every layer but the recurrence once over the window's ``T*B`` rows, the
+  recurrence in one call (``core.sequence``).  The float32 LSTM's is
+  ``ops/lstm_seq.py`` (one CUDA kernel each way on a card); the dense core
+  has one trivially; ``MixedPrecisionLSTMCell`` has none (the learner
+  unrolls it step by step).  Outputs come time-major, ``[T, *E, B, ...]``,
+  as ``unroll`` stacks the steps.
 - ``core="granite_hybrid"`` puts the Granite-4.0-H hybrid stack
   (``models/granite.py``) in the LSTM's place: its carry is a tuple tree,
-  one subtree per layer, and besides the step it has a sequence form over
-  ``[T, B, ...]`` (``apply_seq``) that the learner's unrolls run.  A carry
-  leaf has the batch axis first, after an optional ensemble axis.
+  one subtree per layer, and it has a sequence form of its own, which
+  takes no ensemble axis.  A carry leaf has the batch axis first, after an
+  optional ensemble axis.
 
 The LSTM cell equals flax's ``OptimizedLSTMCell`` in float32: gate order
 i, f, g, o; input kernels without bias, recurrent kernels with bias; no
@@ -44,6 +52,7 @@ from torch import nn
 from torch.func import functional_call
 
 from r2d2dpg_torch.device import resolve_device
+from r2d2dpg_torch.ops.lstm_seq import lstm_sequence
 from r2d2dpg_torch.models.torsos import (
     ConvTorso,
     Dense,
@@ -175,7 +184,10 @@ class _Core(nn.Module):
 
     Under a reduced ``dtype`` the cell is ``MixedPrecisionLSTMCell``; it sits
     at the same path (``core.cell``) with the same params as ``LSTMCell``.
+    Params may carry a leading ensemble axis (fused burn-in, twin critics).
     """
+
+    ensemble_axis = True  # every form, step and sequence
 
     def __init__(
         self,
@@ -198,6 +210,30 @@ class _Core(nn.Module):
             carry, y = self.cell(zeros_where_reset(carry, reset), x)
             return y, carry
         return torch.relu(self.dense(x)), carry
+
+    @property
+    def unroll_route(self) -> Tuple[str, str]:
+        """``(form, reason)`` of the learner's unrolls: ``"sequence"`` for the
+        float32 LSTM and the dense core, ``"step"`` for the mixed-precision
+        cell, which has no sequence form."""
+        if not self.use_lstm:
+            return "sequence", "dense"
+        if isinstance(self.cell, MixedPrecisionLSTMCell):
+            return "step", "mixed_precision"
+        return "sequence", "float32"
+
+    @property
+    def sequence_form(self) -> bool:
+        """The learner's unrolls run ``sequence``: by ``unroll_route``."""
+        return self.unroll_route[0] == "sequence"
+
+    def sequence(self, x: torch.Tensor, carry: Carry, reset: torch.Tensor):
+        """The window at once: ``x [*E, T, B, in]``, ``reset [T, B]`` ->
+        ``(y [*E, T, B, H], carry after the last step)``."""
+        if not self.use_lstm:
+            return torch.relu(self.dense(x.flatten(-3, -2))).unflatten(-2, reset.shape), carry
+        zx = dense(x.flatten(-3, -2), self.cell.wi, None).unflatten(-2, reset.shape)
+        return lstm_sequence(zx, self.cell.wh, self.cell.bh, carry, reset)
 
     def initial_carry(self, batch_size: int, device=None) -> Carry:
         return lstm_initial_carry(batch_size, self.hidden, self.use_lstm, device)
@@ -234,7 +270,12 @@ class _Net(nn.Module):
     @property
     def sequence_form(self) -> bool:
         """The core has a sequence form (``apply_seq``) besides its step."""
-        return hasattr(self.core, "sequence")
+        return self.core.sequence_form
+
+    @property
+    def ensemble_axis(self) -> bool:
+        """The core takes params stacked on a leading ensemble axis."""
+        return self.core.ensemble_axis
 
     def init_params(
         self, generator: Optional[torch.Generator] = None, device=None
@@ -264,7 +305,24 @@ class _Net(nn.Module):
         return self.core.initial_carry(batch_size, device)
 
     def _core(self, x, carry, reset, sequence: bool):
-        return (self.core.sequence if sequence else self.core)(x, carry, reset)
+        """The core on ``x [*E, rows, H]``: one step's rows, or with
+        ``sequence`` the window's ``T*B`` (time-major) -> ``(y [*E, rows, H],
+        carry)``."""
+        if not sequence:
+            return self.core(x, carry, reset)
+        y, carry = self.core.sequence(x.unflatten(-2, reset.shape), carry, reset)
+        return y.flatten(-3, -2), carry
+
+
+def _rows(x: torch.Tensor, sequence: bool) -> torch.Tensor:
+    """A window's time-major ``[T, B, ...]`` as ``[T*B, ...]`` rows."""
+    return x.flatten(0, 1) if sequence else x
+
+
+def _steps(y: torch.Tensor, reset: torch.Tensor, sequence: bool) -> torch.Tensor:
+    """``[*E, T*B, F]`` back to time-major ``[T, *E, B, F]`` (as ``unroll``
+    stacks the steps)."""
+    return y.unflatten(-2, reset.shape).movedim(-3, 0) if sequence else y
 
 
 ObsShape = Union[int, Sequence[int]]
@@ -312,9 +370,10 @@ class ActorNet(_Net):
         sequence: bool = False,
     ) -> Tuple[torch.Tensor, Carry]:
         """Single step: obs [B, ...], reset [B] -> (action [B, A], new carry);
-        with ``sequence``, obs [T, B, ...] and reset [T, B]."""
-        y, carry = self._core(self.torso(obs), carry, reset, sequence)
-        action = torch.tanh(self.head(y)).to(torch.float32)
+        with ``sequence``, obs [T, B, ...] and reset [T, B] -> action
+        [T, *E, B, A]."""
+        y, carry = self._core(self.torso(_rows(obs, sequence)), carry, reset, sequence)
+        action = _steps(torch.tanh(self.head(y)).to(torch.float32), reset, sequence)
         return action * self.action_scale, carry
 
 
@@ -349,12 +408,16 @@ class CriticNet(_Net):
         sequence: bool = False,
     ) -> Tuple[torch.Tensor, Carry]:
         """Single step -> (q [B], new carry); with ``sequence``, every input
-        with a leading time axis -> (q [T, B], carry)."""
-        x = self.torso(obs)
+        with a leading time axis (the action's after an optional ensemble
+        axis) -> (q [T, *E, B], carry)."""
+        x = self.torso(_rows(obs, sequence))
+        if sequence:  # [T, *E, B, A] -> [*E, T*B, A]
+            action = action.movedim(0, -3).flatten(-3, -2)
         action = action.to(x.dtype).expand(*x.shape[:-1], action.shape[-1])
         x = torch.relu(self.mix(torch.cat([x, action], dim=-1)))
         y, carry = self._core(x, carry, reset, sequence)
-        return self.head(y).to(torch.float32).squeeze(-1), carry
+        q = _steps(self.head(y).to(torch.float32), reset, sequence)
+        return q.squeeze(-1), carry
 
 
 def policy_step_fn(actor: ActorNet) -> Callable[..., Tuple[torch.Tensor, Carry]]:

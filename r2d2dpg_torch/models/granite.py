@@ -398,6 +398,9 @@ class GraniteHybridCore(nn.Module):
     ``context`` is the attention buffer's slots in the step form's carry
     (the longest episode the acting path runs)."""
 
+    sequence_form = True  # the learner's unrolls run ``sequence``
+    ensemble_axis = False  # no params stacked on a leading ensemble axis
+
     def __init__(self, in_features: int, spec: GraniteSpec = GRANITE_4_0_H_MICRO,
                  context: int = 1):
         super().__init__()

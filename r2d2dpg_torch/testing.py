@@ -3,7 +3,10 @@
 ``scatter_case`` builds the priority-scatter inputs whose duplicates fall
 inside one warp and across warps of the kernel's block, so the CPU tests
 (against the JAX reference), the card tests and the chip smoke run hold the
-kernel to the same patterns.  ``HostStandInEnv`` is a host-stepped env
+kernel to the same patterns.  ``lstm_seq_errors`` holds the LSTM
+recurrence kernel (``ops/lstm_seq.py``) to its plain version at one of
+``LSTM_SEQ_SHAPES``, for the card tests, the chip smoke run and
+``probes/lstm_seq.py``.  ``HostStandInEnv`` is a host-stepped env
 with walker-walk's spec and fixed numpy dynamics, which drives the
 host-pool trainer (``parallel/hybrid.py``) where there is no MuJoCo.
 ``count_collectives`` counts the ``torch.distributed`` collectives each
@@ -58,6 +61,162 @@ def scatter_case(pattern: str, capacity: int, b: int, seed: int):
     else:
         raise ValueError(f"unknown scatter pattern {pattern!r}")
     return prio, idx, vals
+
+
+# (label, E, T, B, H): the recurrence's shapes on the repo's configs'
+# learner paths (E ensemble members: fused burn-in 2, TD3's 4, its twin
+# critics 2), a humanoid window of 85 steps, and the batch's edges: one
+# row, a ragged cluster, and batches past the card's SMs (a learner's
+# ``--batch-size`` or the entry priorities' ``--num-envs``), whose clusters
+# run in waves.
+LSTM_SEQ_SHAPES = (
+    ("walker_unroll", 1, 20, 64, 256),
+    ("walker_targets", 1, 23, 64, 256),
+    ("walker_burnin_fused", 2, 20, 64, 256),
+    ("td3_burnin_fused", 4, 20, 64, 256),
+    ("cheetah_unroll", 1, 20, 32, 256),
+    ("cheetah_targets", 1, 25, 32, 256),
+    ("cheetah_burnin_fused", 2, 20, 32, 256),
+    ("humanoid_window", 1, 85, 64, 256),
+    ("pendulum_r2d2_burnin_fused", 2, 10, 64, 128),
+    ("pendulum_r2d2_targets", 1, 25, 64, 128),
+    ("pendulum_tiny_burnin_fused", 2, 2, 8, 32),
+    ("pendulum_tiny_targets", 1, 6, 8, 32),
+    ("ragged_batch", 1, 5, 33, 256),
+    ("one_row", 1, 3, 1, 128),
+    ("widest_batch", 4, 4, 256, 256),
+    ("batch_1024", 1, 12, 1024, 256),
+    ("batch_4096_fused", 2, 4, 4096, 128),
+)
+
+
+# The kernel's outputs against the plain version's on a card: the largest
+# gap over the plain output's largest magnitude, and how much further from
+# the float64 recurrence than the plain float32 version each may stand.
+LSTM_SEQ_GAP = 2e-5
+LSTM_SEQ_F64 = 4.0
+
+
+def lstm_seq_case(e: int, t: int, b: int, h: int, seed: int):
+    """numpy inputs of the recurrence and its backward: ``zx [E, T, B, 4H]``,
+    ``wh [E, 4H, H]`` (scaled by 1/sqrt(H), as an orthogonal init is),
+    ``bh [E, 4H]``, ``c0, h0 [E, B, H]``, ``reset [T, B]`` (row 0 resets at
+    step 0 and mid-window, row 1 at every step, the others at random),
+    ``dy [E, T, B, H]`` and ``dc_last [E, B, H]``."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape, s=1.0: (s * rng.standard_normal(shape)).astype(np.float32)  # noqa: E731
+    reset = rng.random((t, b)) < 0.1
+    reset[[0, t // 2], 0] = True
+    if b > 1:
+        reset[:, 1] = True
+    return {"zx": f(e, t, b, 4 * h), "wh": f(e, 4 * h, h, s=h ** -0.5),
+            "bh": f(e, 4 * h, s=0.1), "c0": f(e, b, h, s=0.5), "h0": f(e, b, h, s=0.5),
+            "reset": reset, "dy": f(e, t, b, h), "dc_last": f(e, b, h)}
+
+
+def lstm_seq_errors(e: int, t: int, b: int, h: int, seed: int, device) -> dict:
+    """The kernel against its plain version on ``device`` (a card), forward
+    and backward with and without the carry's gradient: for each output
+    the largest gap over the plain output's largest magnitude
+    (``<name>_gap``), and the same for the kernel and the plain version each
+    against the plain version in float64 on the CPU (``<name>_f64_kernel``,
+    ``<name>_f64_plain``): the kernel's rounding beside float32's own.  The
+    backward runs on the plain forward's saved gates and ``c``."""
+    import torch
+
+    from r2d2dpg_torch.ops.lstm_seq import (
+        lstm_seq_backward_plain,
+        lstm_seq_bwd,
+        lstm_seq_forward_plain,
+        lstm_seq_fwd,
+    )
+
+    case = lstm_seq_case(e, t, b, h, seed)
+    on = {k: torch.from_numpy(v).to(device) for k, v in case.items()}
+    f64 = {k: torch.from_numpy(v).double() if v.dtype == np.float32 else torch.from_numpy(v)
+           for k, v in case.items()}
+    fwd = ("zx", "wh", "bh", "c0", "h0", "reset")
+    names = ("y", "c_last", "gates", "cs")
+    kernel = dict(zip(names, lstm_seq_fwd(*(on[k] for k in fwd), True)))
+    plain = dict(zip(names, lstm_seq_forward_plain(*(on[k] for k in fwd))))
+    exact = dict(zip(names, lstm_seq_forward_plain(*(f64[k] for k in fwd))))
+    for carry_grad in (False, True):
+        tail = "_carry" if carry_grad else ""
+        args = (on["dy"], on["dc_last"], on["wh"], plain["gates"], plain["cs"], on["c0"],
+                on["reset"], carry_grad)
+        grads = ("dz", "dc0", "dh0") if carry_grad else ("dz",)
+        kernel.update({g + tail: x for g, x in zip(grads, lstm_seq_bwd(*args))})
+        plain.update({g + tail: x for g, x in zip(grads, lstm_seq_backward_plain(*args))})
+        args64 = (f64["dy"], f64["dc_last"], f64["wh"], exact["gates"], exact["cs"],
+                  f64["c0"], f64["reset"], carry_grad)
+        exact.update({g + tail: x for g, x in zip(grads, lstm_seq_backward_plain(*args64))})
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    out = {}
+    for k, want in plain.items():
+        scale = float(want.abs().max()) or 1.0
+        ref = exact[k]
+        out[f"{k}_gap"] = float((kernel[k] - want).abs().max()) / scale
+        out[f"{k}_f64_kernel"] = float((kernel[k].cpu().double() - ref).abs().max()) / scale
+        out[f"{k}_f64_plain"] = float((want.cpu().double() - ref).abs().max()) / scale
+    return out
+
+
+def lstm_seq_faults(errs: dict) -> list:
+    """The outputs of ``lstm_seq_errors``'s result that miss ``LSTM_SEQ_GAP``
+    or stand further from float64 than ``LSTM_SEQ_F64`` times the plain
+    version's gap (with 1e-7 of room for a gap of nought)."""
+    names = [k[: -len("_gap")] for k in errs if k.endswith("_gap")]
+    return [k for k in names if errs[f"{k}_gap"] > LSTM_SEQ_GAP
+            or errs[f"{k}_f64_kernel"] > LSTM_SEQ_F64 * errs[f"{k}_f64_plain"] + 1e-7]
+
+
+def lstm_seq_graph_replays(device, seeds=(1, 2), shape=(2, 20, 64, 256)) -> list:
+    """The forward and both backwards captured in one CUDA graph and
+    replayed on the inputs of each of ``seeds`` copied into the captured
+    buffers: for each seed, whether every output equals eager launches on
+    those inputs bitwise.  Raises if the capture launched other than 3
+    kernels."""
+    import torch
+
+    from r2d2dpg_torch.kernels import LSTM_SEQ
+    from r2d2dpg_torch.ops.lstm_seq import lstm_seq_bwd, lstm_seq_fwd
+
+    def case(seed):
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in lstm_seq_case(*shape, seed).items()}
+
+    def body(x):
+        y, c_last, gates, cs = lstm_seq_fwd(x["zx"], x["wh"], x["bh"], x["c0"], x["h0"],
+                                            x["reset"], True)
+        grads = lstm_seq_bwd(x["dy"], x["dc_last"], x["wh"], gates, cs, x["c0"],
+                             x["reset"], True)
+        dz_only = lstm_seq_bwd(x["dy"], x["dc_last"], x["wh"], gates, cs, x["c0"],
+                               x["reset"], False)[0]
+        return (y, c_last, gates, cs, *grads, dz_only)
+
+    static = case(0)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        body(static)  # warm-up, as a capture asks
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = LSTM_SEQ.launches
+    with torch.cuda.graph(graph):
+        out = body(static)
+    if LSTM_SEQ.launches != before + 3:
+        raise AssertionError(f"capture launched {LSTM_SEQ.launches - before} kernels, not 3")
+    same = []
+    for seed in seeds:
+        fresh = case(seed)
+        for k, v in fresh.items():
+            static[k].copy_(v)
+        graph.replay()
+        want = body(fresh)
+        torch.cuda.synchronize(device)
+        same.append(all(torch.equal(g, w) for g, w in zip(out, want, strict=True)))
+    return same
 
 
 class HostStandInEnv:

@@ -38,7 +38,13 @@ cheetah_pixels' with ``cudnn.deterministic`` (without it cuDNN's
 convolution backward is not repeatable); a replay's outputs are copies
 that later replays leave alone, also across streams; one capture a
 signature; a capture while another thread launches and syncs on its own
-stream; no garbage collection inside a capture.
+stream; no garbage collection inside a capture.  The LSTM recurrence
+kernel (``csrc/lstm_seq.cu``) equals its plain version, forward and
+backward, at every shape of ``LSTM_SEQ_SHAPES`` to float32 rounding (as
+close to the float64 recurrence as the plain version stands); a captured
+graph of it replays bitwise its eager launches; it refuses a hidden size
+or batch it does not take; an eager learner step at walker_r2d2's widths
+launches it 10 times (bf16: none).
 """
 
 import types
@@ -47,14 +53,21 @@ import numpy as np
 import pytest
 import torch
 
-from r2d2dpg_torch.kernels import PRIORITY_SCATTER
+from r2d2dpg_torch.kernels import LSTM_SEQ, PRIORITY_SCATTER
 from r2d2dpg_torch.models import ActorNet, policy_step_fn
 from r2d2dpg_torch.ops.priority import PRIORITY_EPS
 from r2d2dpg_torch.ops.scatter import priority_scatter, priority_scatter_plain
 from r2d2dpg_torch.replay import ReplayArena, SequenceBatch
 from r2d2dpg_torch.serving import PolicyService, SessionStore, gather_carries, scatter_carries
 from r2d2dpg_torch.serving.service import expand_rows, rowwise_policy_step_fn
-from r2d2dpg_torch.testing import SCATTER_PATTERNS, scatter_case
+from r2d2dpg_torch.testing import (
+    LSTM_SEQ_SHAPES,
+    SCATTER_PATTERNS,
+    lstm_seq_errors,
+    lstm_seq_faults,
+    lstm_seq_graph_replays,
+    scatter_case,
+)
 
 BATCHES = (1, 31, 32, 33, 64, 65, 256, 1024, 1025, 4096, 8192)
 
@@ -748,3 +761,81 @@ def test_learner_graph_captures_with_the_collector_off():
     agent.learner_step(state, *inputs(0))
     assert seen == [(False, True), (True, False)]  # warm-up, then the capture
     assert gc.isenabled()
+
+
+# ------------------------------------------------------- LSTM recurrence
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LSTM_SEQ_SHAPES, ids=[s[0] for s in LSTM_SEQ_SHAPES])
+def test_lstm_seq_kernel_matches_plain(shape):
+    """Forward, backward and backward with the carry's gradient: each
+    output within ``LSTM_SEQ_GAP`` of the plain version's largest
+    magnitude, and as close to the float64 recurrence as the plain float32
+    version stands, within ``LSTM_SEQ_F64`` times its gap."""
+    dev = _card()
+    _, e, t, b, h = shape
+    before = LSTM_SEQ.launches
+    errs = lstm_seq_errors(e, t, b, h, seed=e * t + b, device=dev)
+    torch.cuda.synchronize()
+    assert LSTM_SEQ.launches == before + 3  # the forward, two backwards
+    outputs = {k[: -len("_gap")] for k in errs if k.endswith("_gap")}
+    assert outputs == {"y", "c_last", "gates", "cs", "dz", "dz_carry", "dc0_carry",
+                       "dh0_carry"}
+    assert lstm_seq_faults(errs) == [], errs
+
+
+@pytest.mark.cuda
+def test_lstm_seq_kernel_replays_in_a_cuda_graph():
+    """The forward and both backwards captured in one graph and replayed
+    on fresh inputs equal eager launches on those inputs bitwise; the
+    capture counts 3 launches and the replays none."""
+    dev = _card()
+    before = LSTM_SEQ.launches
+    assert lstm_seq_graph_replays(dev) == [True, True]
+    assert LSTM_SEQ.launches == before + 3 + 3 + 2 * 3  # warm-up, capture, eager
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["hidden_64", "hidden_96", "hidden_512"])
+def test_lstm_seq_kernel_raises_on_shapes_it_does_not_take(bad):
+    from r2d2dpg_torch.ops.lstm_seq import lstm_seq_fwd
+
+    dev = _card()
+    e, t, b, h = {"hidden_64": (1, 4, 8, 64), "hidden_96": (1, 4, 8, 96),
+                  "hidden_512": (1, 4, 8, 512)}[bad]
+    z = lambda *s: torch.zeros(s, device=dev)  # noqa: E731
+    before = LSTM_SEQ.launches
+    with pytest.raises(ValueError, match="lstm_seq: the kernel takes"):
+        lstm_seq_fwd(z(e, t, b, 4 * h), z(e, 4 * h, h), z(e, 4 * h), z(e, b, h), z(e, b, h),
+                     torch.zeros(t, b, dtype=torch.bool, device=dev), False)
+    assert LSTM_SEQ.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["walker", "walker_td3", "walker_bf16"])
+def test_learner_unrolls_take_the_kernel_on_the_card(case):
+    """An eager learner step at walker_r2d2's widths launches the kernel 7
+    times forward (burn-in fused: 2, targets 2, the critic's unroll, the
+    actor loss's 2) and 3 backward (the critic's, the actor loss's actor
+    and critic), and counts its 7 unrolls as the sequence form; bf16 nets
+    launch none and count the step form."""
+    from r2d2dpg_torch.agents.ddpg import UNROLL_METRIC
+    from r2d2dpg_torch.obs import get_registry
+
+    dev = _card()
+    agent, state, inputs = _learner_case("walker_r2d2", dev, **LEARNER_GRAPH_CASES[case])
+
+    def unrolls():
+        inst = get_registry().get(UNROLL_METRIC)
+        return {} if inst is None else {k: c.value for k, c in inst._cells_snapshot()}
+
+    before, counted = LSTM_SEQ.launches, unrolls()
+    agent._learner_step_eager(state, *inputs(0))
+    torch.cuda.synchronize()
+    delta = {k: v - counted.get(k, 0.0) for k, v in unrolls().items()
+             if v != counted.get(k, 0.0)}
+    if case == "walker_bf16":
+        assert LSTM_SEQ.launches == before
+        assert delta == {("step", "mixed_precision"): 7.0}
+    else:
+        assert LSTM_SEQ.launches == before + 10
+        assert delta == {("sequence", "float32"): 7.0}

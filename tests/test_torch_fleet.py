@@ -451,15 +451,14 @@ def test_snapshot_params_copies():
 def _drain_with_thread_actors(n_actors, wcfg, coalesce, spy=False, trace=0.0):
     trainer = PENDULUM_TINY.build("cpu")
     seen = {"agent": set()}
-    if spy:
+    if spy:  # both entry points that swap a module's parameters for a call
         for m in (trainer.agent.actor, trainer.agent.critic):
-            plain = m.apply_params
+            for name in ("apply_params", "apply_seq"):
+                def apply(*args, _plain=getattr(m, name)):
+                    seen["agent"].add(threading.current_thread().name)
+                    return _plain(*args)
 
-            def apply_params(*args, _plain=plain):
-                seen["agent"].add(threading.current_thread().name)
-                return _plain(*args)
-
-            m.apply_params = apply_params
+                setattr(m, name, apply)
     learner = FleetLearner(trainer, FleetConfig(
         num_actors=n_actors, queue_depth=4, idle_timeout_s=60, wire=wcfg,
         drain_coalesce=coalesce))

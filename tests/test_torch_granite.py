@@ -306,8 +306,10 @@ def test_a_learner_that_stacks_params_refuses_the_core():
 @pytest.mark.parametrize("name", sorted(set(CONFIGS) - {"walker_granite"}))
 def test_every_other_config_keeps_its_carry_and_its_learner_path(name):
     """The LSTM configs' carry is the flat ``(c, h)`` of ``[B, H]`` float32
-    (``()`` without an LSTM), their arena stores it, and their unrolls step
-    the cell: nothing of the hybrid core's path is taken."""
+    (``()`` without an LSTM), their arena stores it, and their unrolls run
+    the LSTM core's own forms (its sequence form in float32 and without an
+    LSTM, the cell step by step in bf16): nothing of the hybrid core's path
+    is taken."""
     cfg = get_config(name)
     obs_shape = (64, 64, 3) if cfg.pixels else (OBS,)
     env = types.SimpleNamespace(spec=EnvSpec(name="test", obs_shape=obs_shape, action_dim=ACT))
@@ -318,7 +320,13 @@ def test_every_other_config_keeps_its_carry_and_its_learner_path(name):
         want = [(4, cfg.hidden)] * 2 if cfg.use_lstm else []
         assert [tuple(x.shape) for x in carry] == want and isinstance(carry, tuple)
         assert all(x.dtype == torch.float32 for x in carry)
-        assert not net.sequence_form and net.stateful == cfg.use_lstm
+        assert net.stateful == cfg.use_lstm and net.ensemble_axis
+        assert not isinstance(net.core, granite.GraniteHybridCore)
+        route = (("sequence", "dense") if not cfg.use_lstm else
+                 ("sequence", "float32") if cfg.compute_dtype == "float32" else
+                 ("step", "mixed_precision"))
+        assert net.core.unroll_route == route
+        assert net.sequence_form == (route[0] == "sequence")
 
 
 def test_walker_granite_holds_the_published_widths_of_the_first_period():

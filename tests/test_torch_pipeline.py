@@ -354,14 +354,13 @@ def test_collector_never_runs_the_learner_modules():
         p.data_ptr() for p in t.agent.actor.parameters()}
     seen = {"agent": set(), "collector": set()}
 
-    def spy(module, who):
-        plain = module.apply_params
+    def spy(module, who):  # both entry points that swap the parameters
+        for name in ("apply_params", "apply_seq"):
+            def apply(*args, _plain=getattr(module, name)):
+                seen[who].add(threading.current_thread().name)
+                return _plain(*args)
 
-        def apply_params(*args):
-            seen[who].add(threading.current_thread().name)
-            return plain(*args)
-
-        module.apply_params = apply_params
+            setattr(module, name, apply)
 
     for m in (t.agent.actor, t.agent.critic):
         spy(m, "agent")

@@ -447,13 +447,12 @@ def test_sampler_learner_end_to_end_thread_actor():
     trainer = PENDULUM_TINY.build("cpu")
     seen = set()
     for m in (trainer.agent.actor, trainer.agent.critic):
-        plain = m.apply_params
+        for name in ("apply_params", "apply_seq"):  # both swap the parameters
+            def apply(*args, _plain=getattr(m, name)):
+                seen.add(threading.current_thread().name)
+                return _plain(*args)
 
-        def apply_params(*args, _plain=plain):
-            seen.add(threading.current_thread().name)
-            return _plain(*args)
-
-        m.apply_params = apply_params
+            setattr(m, name, apply)
     learner = SamplerLearner(trainer, FleetConfig(num_actors=1, idle_timeout_s=60),
                              num_shards=2)
     address = learner.start()
